@@ -1,0 +1,465 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (src/repro_torch) on one NVIDIA H100 and check it.
+
+    python3 chip_smoke.py
+
+Phases (each prints a line; any failure exits nonzero):
+  1. device and build: the card's name and power limit (nvidia-smi), then
+     the Hopper kernels compiled from src/repro_torch/kernels/csrc;
+  2. kernel parity: each kernel against its plain PyTorch version at the
+     qwen3-0.6b attention shapes (hd 128, 16 query / 8 kv heads), bf16 and
+     f32 — zero-length rows, per-row and ragged lengths, unmapped pages, an
+     fp8 pool, a window — then the kernel, plain and library times;
+  3. qwen3-0.6b at full width (28 layers, random weights from a seeded
+     generator, bf16) served through the continuous-batching Scheduler over
+     a 48-page pool, with the kernel launch counts of that run asserted,
+     then a short profiled run for the device's busy and idle share;
+  4. the same requests in f32 through the kernels and through the plain
+     path: the first prefill's logits agree and the greedy streams match
+     except at a step whose top-2 margin is under the tolerance;
+  5. Engine.generate at full width over the contiguous cache (flash_decode);
+  6. one JSON line of per-kernel numbers.
+The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
+without the repository beside it, the script fails before printing any
+result. It imports neither jax nor the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM (NVIDIA data sheet)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+LOGIT_TOL = 1e-3                   # f32 full-width logits, kernel vs plain
+N_LAYERS = 28
+# The block matrices are drawn at the JAX init's std 0.02 and then scaled by
+# this: at 0.02 the tied-embedding residual dominates every layer's update
+# and each greedy stream repeats its last prompt token, which would leave
+# the stream comparison of phase 4 nothing to compare.
+WEIGHT_SCALE = 10.0
+
+
+def log(phase, msg):
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def profile_run(label, run):
+    """Profile one short run (`run()` returns its ServeReport): wall time,
+    device busy time (the sum of CUDA kernel and copy durations), the
+    device's idle share and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        rep = run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    by_name: dict = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            tot, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (tot + us, n + 1)
+    busy = sum(t for t, _ in by_name.values()) / 1e6
+    if not by_name:
+        log("profile", f"wall {wall * 1e3:.1f} ms; the profiler recorded no "
+            f"device events: device busy share not measured")
+        return
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    log("profile", f"{label} ({rep.decode_steps} decode steps, "
+        f"{rep.prefill_calls} prefills) "
+        f"under torch.profiler: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy * 1e3:.1f} ms, idle share {1 - busy / wall:.3f}, "
+        f"{sum(n for _, n in by_name.values())} device kernels/copies; "
+        f"top: " +
+        "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Engine, Plan, RunSpec, ServeSpec
+    from repro_torch.api.serving import Request, Scheduler
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import LAUNCHES, _build, build_all, reset_launches
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_paged)
+    from repro_torch.models import lm
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device; this script measures "
+              "the port on an H100 and has nothing to run here",
+              file=sys.stderr)
+        return 2
+
+    # ---- 1. device and build -------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    card = torch.cuda.get_device_name(0)
+    log("device", f"{smi} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
+    build_s = build_all()
+    log("build", f"{build_s:.1f} s for {sorted(_build._LIBS)} into "
+        f"{_build._build_dir()}")
+    for name in sorted(_build._LIBS):
+        regs = [line.split("info    : ")[-1] for line in
+                _build.build_log(name).splitlines() if "registers" in line]
+        log("build", f"{name}: {len(regs)} instantiations, e.g. {regs[:1]}")
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(0)
+    H, KV, hd = 16, 8, 128
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    # ---- 2. kernel parity ----------------------------------------------
+    worst = {k: {"float32": 0.0, "bfloat16": 0.0} for k in LAUNCHES}
+
+    def hold(name, out, ref, dtype, zero_row=None):
+        torch.cuda.synchronize()
+        e = err(out, ref)
+        worst[name][str(dtype).split(".")[-1]] = max(
+            worst[name][str(dtype).split(".")[-1]], e)
+        tol = TOL[str(dtype).split(".")[-1]]
+        if not (e <= tol and torch.isfinite(out.float()).all()):
+            raise AssertionError(f"{name} {dtype}: max |kernel - plain| = "
+                                 f"{e:.3e} > {tol}")
+        if zero_row is not None and not bool((out[zero_row] == 0).all()):
+            raise AssertionError(f"{name}: a length-0 row is not exact zeros")
+
+    for dt in (torch.bfloat16, torch.float32):
+        for B, S, window in ((8, 128, 0), (2, 100, 0), (2, 77, 40),
+                             (1, 300, 0)):
+            # q/k/v as the model hands them over: [B, S, heads, hd] memory
+            q = randn(B, S, H, hd, dtype=dt).transpose(1, 2)
+            k = randn(B, S, KV, hd, dtype=dt).transpose(1, 2)
+            v = randn(B, S, KV, hd, dtype=dt).transpose(1, 2)
+            hold("flash_attention_fwd",
+                 flash_attention_fwd(q, k, v, causal=True, window=window),
+                 kref.attention_ref(q, k, v, causal=True, window=window), dt)
+        B, S = 8, 160
+        cache_k = randn(3, B, S, KV, hd, dtype=dt)
+        cache_v = randn(3, B, S, KV, hd, dtype=dt)
+        q1 = randn(B, H, hd, dtype=dt)
+        lens = torch.tensor([0, 1, 15, 16, 17, 77, 159, 160], device=dev,
+                            dtype=torch.int32)
+        for window in (0, 48):
+            kv = (cache_k[1].transpose(1, 2), cache_v[1].transpose(1, 2))
+            hold("flash_decode", flash_decode(q1, *kv, lens, window=window),
+                 kref.decode_ref(q1, *kv, lens, window=window), dt,
+                 zero_row=0)
+        ps, npg = 16, 10
+        P1 = B * npg + 1
+        perm = torch.randperm(B * npg, generator=gen, device=dev)
+        tab = perm.to(torch.int32).reshape(B, npg)
+        for b in range(B):          # pages past each row's length unmapped
+            tab[b, (int(lens[b]) + ps - 1) // ps:] = -1
+        for pool_dt in (dt, torch.float8_e4m3fn):
+            kp = randn(3, P1, ps, KV, hd, dtype=pool_dt)
+            vp = randn(3, P1, ps, KV, hd, dtype=pool_dt)
+            hold("flash_decode_paged",
+                 flash_decode_paged(q1, kp, vp, tab, lens, layer=2),
+                 kref.decode_paged_ref(q1, kp, vp, tab, lens, layer=2), dt,
+                 zero_row=0)
+    log("parity", "max |kernel - plain| " + json.dumps(
+        {k: {d: float(f"{e:.3e}") for d, e in v.items()}
+         for k, v in worst.items()}) + f" within {TOL}")
+
+    def time_ms(fn, argsets, reps=3):
+        """Mean ms per call over `reps` passes through argsets (one set
+        per layer, so the working set exceeds the 50 MB L2)."""
+        for a in argsets[:2]:
+            fn(*a)
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            for a in argsets:
+                fn(*a)
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / (reps * len(argsets))
+
+    def bound(nbytes, flops, dtype="bfloat16"):
+        tb, tf = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+        return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+    import torch.nn.functional as F
+    bf = torch.bfloat16
+    timing = {}
+    # prefill attention at the serve shapes: B 8, S 128 (the prompt width)
+    B, S = 8, 128
+    att_sets = [tuple(randn(B, S, n, hd, dtype=bf).transpose(1, 2)
+                      for n in (H, KV, KV)) for _ in range(N_LAYERS)]
+    pairs = S * (S + 1) // 2
+    timing["flash_attention_fwd"] = dict(
+        ms=time_ms(lambda q, k, v: flash_attention_fwd(q, k, v), att_sets),
+        plain_ms=time_ms(lambda q, k, v: kref.attention_ref(q, k, v),
+                         att_sets),
+        library_ms=time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), att_sets),
+        library="scaled_dot_product_attention(is_causal, enable_gqa)",
+        shape=f"B{B} S{S} H{H} KV{KV} hd{hd} bf16",
+        bound=bound(2 * B * S * (2 * H + 2 * KV) * hd,
+                    4 * B * H * hd * pairs))
+    # paged decode at the serve pool: 28 layer groups, 49 pages of 16
+    B, ps, npg, P1 = 8, 16, 10, 49
+    dlens = torch.tensor(np.random.default_rng(0).integers(17, 161, B),
+                         device=dev, dtype=torch.int32)
+    tab = torch.full((B, npg), -1, dtype=torch.int32, device=dev)
+    free = iter(torch.randperm(P1 - 1, generator=gen, device=dev).tolist())
+    for b in range(B):
+        for i in range((int(dlens[b]) + ps - 1) // ps):
+            tab[b, i] = next(free)
+    kp = randn(N_LAYERS, P1, ps, KV, hd, dtype=bf)
+    vp = randn(N_LAYERS, P1, ps, KV, hd, dtype=bf)
+    q1 = randn(B, H, hd, dtype=bf)
+    pg_sets = [(q1, kp, vp, tab, dlens, layer) for layer in range(N_LAYERS)]
+    live = int(dlens.sum())
+    pos = torch.arange(npg * ps, device=dev)
+
+    def gathered_sdpa(q1, kp, vp, tab, lens, layer):
+        phys = torch.where(tab >= 0, tab, P1 - 1).long()
+        kk = kp[layer][phys].reshape(B, -1, KV, hd).transpose(1, 2)
+        vv = vp[layer][phys].reshape(B, -1, KV, hd).transpose(1, 2)
+        mask = (pos[None] < lens[:, None])[:, None, None, :]
+        return F.scaled_dot_product_attention(q1[:, :, None], kk, vv,
+                                              attn_mask=mask,
+                                              enable_gqa=True)
+
+    timing["flash_decode_paged"] = dict(
+        ms=time_ms(lambda *a: flash_decode_paged(*a[:5], layer=a[5]),
+                   pg_sets),
+        plain_ms=time_ms(lambda *a: kref.decode_paged_ref(*a[:5],
+                                                          layer=a[5]),
+                         pg_sets),
+        library_ms=time_ms(gathered_sdpa, pg_sets),
+        library="page gather + scaled_dot_product_attention(mask)",
+        shape=f"B{B} pool[{N_LAYERS},{P1},{ps},{KV},{hd}] live {live} "
+              f"positions bf16",
+        bound=bound(2 * (2 * B * H * hd + 2 * live * KV * hd)
+                    + 4 * (B * npg + B), 4 * H * hd * live))
+    # contiguous decode at the generate() cache: [28, 8, 160, 8, 128]
+    S = 160
+    ck = randn(N_LAYERS, B, S, KV, hd, dtype=bf)
+    cv = randn(N_LAYERS, B, S, KV, hd, dtype=bf)
+    glens = torch.full((B,), 140, device=dev, dtype=torch.int32)
+    c_sets = [(q1, ck[i].transpose(1, 2), cv[i].transpose(1, 2), glens)
+              for i in range(N_LAYERS)]
+    cmask = (torch.arange(S, device=dev)[None] < glens[:, None])[:, None,
+                                                                None, :]
+    timing["flash_decode"] = dict(
+        ms=time_ms(flash_decode, c_sets),
+        plain_ms=time_ms(kref.decode_ref, c_sets),
+        library_ms=time_ms(lambda q, k, v, n: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=cmask, enable_gqa=True), c_sets),
+        library="scaled_dot_product_attention(mask)",
+        shape=f"B{B} cache[{N_LAYERS},{B},{S},{KV},{hd}] length 140 bf16",
+        bound=bound(2 * (2 * B * H * hd + 2 * B * 140 * KV * hd) + 4 * B,
+                    4 * H * hd * B * 140))
+    for name, t in timing.items():
+        log("timing", f"{name} [{t['shape']}]: kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, {t['library']} "
+            f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
+            f"({t['bound'][1]})")
+    del att_sets, pg_sets, c_sets, kp, vp, ck, cv
+
+    # ---- 3. full-width paged serving -----------------------------------
+    arch = ARCHS["qwen3-0.6b"]
+    params32 = lm.init_params(arch, torch.Generator(device=dev).manual_seed(0),
+                              dtype=torch.float32, device=dev)
+    for name in ("wq", "wk", "wv", "wo", "mlp_wi", "mlp_wo"):
+        params32["blocks"][name].mul_(WEIGHT_SCALE)
+    params_bf16 = {k: ({n: t.to(torch.bfloat16) for n, t in v.items()}
+                       if k == "blocks" else v.to(torch.bfloat16))
+                   for k, v in params32.items()}
+    sv = ServeSpec(prompt_len=128, gen=32, max_batch=8, page_size=16,
+                   max_pages=48, kernel_backend="cuda")
+    plan = Plan(arch=arch, run=RunSpec(compute_dtype="bfloat16"), serve=sv)
+    eng = Engine(plan, params=params_bf16)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, arch.vocab_size, int(rng.integers(16, 129)), dtype=np.int32))
+        for i in range(16)]
+    t0 = time.monotonic()
+    Scheduler(eng).run(reqs[:2])            # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    rep = Scheduler(eng).run(reqs)
+    torch.cuda.synchronize()
+    main_launches = dict(LAUNCHES)
+    if main_launches["flash_attention_fwd"] < N_LAYERS * rep.prefill_calls \
+            or main_launches["flash_decode_paged"] < \
+            N_LAYERS * rep.decode_steps or not rep.decode_steps:
+        raise AssertionError(f"the served path missed its kernels: "
+                             f"{main_launches} for {rep.prefill_calls} "
+                             f"prefill groups, {rep.decode_steps} decode "
+                             f"steps")
+    toks = [t for r in rep.requests for t in r.tokens]
+    if rep.tokens_out != 16 * sv.gen or not all(
+            0 <= t < arch.vocab_size for t in toks):
+        raise AssertionError(f"bad serve output: {rep.tokens_out} tokens")
+    stats = eng.serve_store().stats()
+    log("serve", f"qwen3-0.6b full width ({arch.num_layers} layers, d "
+        f"{arch.d_model}, {arch.num_heads}/{arch.num_kv_heads} heads, hd "
+        f"{arch.head_dim}, vocab {arch.vocab_size}) bf16: "
+        f"{len(reqs)} requests, {rep.tokens_out} tokens "
+        f"({len(set(toks))} distinct) in {rep.wall_s:.3f} s = "
+        f"{rep.tokens_per_s():.1f} tok/s; {rep.ms_per_token():.2f} ms per "
+        f"decode step over {rep.decode_steps} steps; mean TTFT "
+        f"{rep.mean_ttft() * 1e3:.1f} ms over {rep.prefill_calls} prefill "
+        f"groups ({rep.prefill_s / rep.prefill_calls * 1e3:.1f} ms each); "
+        f"peak pages {rep.peak_pages}/{rep.pages_total}, admission blocked "
+        f"{rep.admit_blocked}x; pool {stats['pool_bytes'] / 2**20:.1f} MiB; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; warm-up "
+        f"{warm_s:.1f} s")
+    log("serve", f"launches {main_launches} (>= {N_LAYERS} x "
+        f"{rep.prefill_calls} prefill groups, {N_LAYERS} x "
+        f"{rep.decode_steps} decode steps)")
+    short = [Request(rid=100 + i, prompt=r.prompt, max_new_tokens=8)
+             for i, r in enumerate(reqs[:8])]
+    profile_run("Scheduler, 8 requests x 8 tokens",
+                lambda: Scheduler(eng).run(short))
+    del eng
+
+    # ---- 4. kernel path against the plain path, f32 --------------------
+    plan32 = plan.replace(run__compute_dtype="float32")
+    e_k = Engine(plan32, params=params32)
+    e_r = Engine(plan32.replace(serve__kernel_backend="ref"),
+                 params=params32)
+    first = []
+    for e in (e_k, e_r):
+        store = e.serve_store()
+        prompts = np.zeros((sv.max_batch, sv.prompt_len), np.int32)
+        lens = np.ones(sv.max_batch, np.int32)
+        for j, r in enumerate(reqs[:4]):
+            store.alloc(j, len(r.prompt) + sv.gen)
+            prompts[j, :len(r.prompt)] = r.prompt
+            lens[j] = len(r.prompt)
+        first.append(e.prefill_into(store, prompts, lens, [0, 1, 2, 3])[:4])
+        del store
+    d_logits = err(first[0], first[1])
+    if not (d_logits <= LOGIT_TOL and torch.isfinite(first[0]).all()):
+        raise AssertionError(f"f32 first-prefill logits differ by "
+                             f"{d_logits:.3e} > {LOGIT_TOL}")
+
+    class MarginScheduler(Scheduler):
+        """Records each pick's top-2 logit margin, keyed (rid, k)."""
+
+        def __init__(self, engine):
+            super().__init__(engine)
+            self.margins = {}
+
+        def _pick_one(self, row, rid, k):
+            top = np.partition(row, -2)[-2:]
+            self.margins[(rid, k)] = float(top[1] - top[0])
+            return super()._pick_one(row, rid, k)
+
+    out_k = Scheduler(e_k).run(reqs)
+    ref_sched = MarginScheduler(e_r)
+    out_r = ref_sched.run(reqs)
+    near_ties, diverged = 0, 0
+    for a, b in zip(out_k.requests, out_r.requests):
+        if a.tokens != b.tokens:
+            k = next(i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                     if x != y)
+            margin = ref_sched.margins[(b.rid, k)]
+            if margin >= LOGIT_TOL:
+                raise AssertionError(
+                    f"rid {a.rid}: streams diverge at token {k} with a top-2 "
+                    f"margin {margin:.3e} >= {LOGIT_TOL}")
+            near_ties += 1
+        diverged += a.tokens != b.tokens
+    log("f32", f"first-prefill logits max |cuda - ref| {d_logits:.3e} "
+        f"(tolerance {LOGIT_TOL}); streams identical for "
+        f"{len(reqs) - diverged}/{len(reqs)} requests, {near_ties} "
+        f"divergence(s) at a top-2 margin under {LOGIT_TOL}; "
+        f"min margin {min(ref_sched.margins.values()):.3e}")
+    del e_k, e_r, params32
+
+    # ---- 5. Engine.generate at full width, contiguous cache ------------
+    plan_g = Plan(arch=arch, run=RunSpec(compute_dtype="bfloat16"),
+                  serve=ServeSpec(prompt_len=128, gen=32, max_batch=8,
+                                  kernel_backend="cuda"))
+    eg = Engine(plan_g, params=params_bf16)
+    eg.generate()                             # warm-up
+    reset_launches()
+    grep = eg.generate()
+    torch.cuda.synchronize()
+    gen_launches = dict(LAUNCHES)
+    if gen_launches["flash_decode"] < N_LAYERS * grep.decode_steps \
+            or not grep.decode_steps:
+        raise AssertionError(f"generate missed flash_decode: {gen_launches}")
+    if grep.tokens.shape != (8, 32) or not (
+            (grep.tokens >= 0) & (grep.tokens < arch.vocab_size)).all():
+        raise AssertionError(f"bad generate output {grep.tokens.shape}")
+    log("generate", f"full width bf16, batch 8, prompt 128, 32 tokens: "
+        f"prefill {grep.prefill_s * 1e3:.1f} ms, {grep.ms_per_token():.2f} "
+        f"ms/token over {grep.decode_steps} steps, "
+        f"{grep.tokens_per_s():.1f} tok/s; launches {gen_launches}")
+    profile_run("Engine.generate, batch 8 x 8 tokens",
+                Engine(plan_g.replace(serve__gen=8),
+                       params=params_bf16).generate)
+
+    # ---- 6. the kernels line -------------------------------------------
+    src = {"flash_attention_fwd": ("src/repro_torch/kernels/csrc/"
+                                   "flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:94"),
+           "flash_decode_paged": ("src/repro_torch/kernels/csrc/"
+                                  "flash_decode.cu",
+                                  "src/repro/kernels/flash_decode.py:241"),
+           "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                            "src/repro/kernels/flash_decode.py:127")}
+    launches = {"flash_attention_fwd": main_launches["flash_attention_fwd"],
+                "flash_decode_paged": main_launches["flash_decode_paged"],
+                "flash_decode": gen_launches["flash_decode"]}
+    power = smi.split(",")[-1].strip()
+    kernels = []
+    for name in ("flash_decode_paged", "flash_attention_fwd",
+                 "flash_decode"):
+        t = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src[name][0],
+            "replaces": src[name][1], "launches": launches[name],
+            "max_abs_err": worst[name]["bfloat16"],
+            "max_abs_err_f32": worst[name]["float32"],
+            "tolerance": TOL, "ms": t["ms"], "kernel_ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"], "library": t["library"],
+            "shape": t["shape"], "card": card, "power_limit": power})
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

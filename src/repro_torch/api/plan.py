@@ -1,0 +1,309 @@
+"""Declarative experiment Plans (the port of repro.api.plan).
+
+    Plan = ArchConfig x ClusterSpec x PartitionSpec x SyncPolicy x RunSpec
+           [x ServeSpec]
+
+A Plan is frozen and validated at construction, so a malformed scenario
+fails where it is written. This slice of the port executes serve Plans
+(`serve=ServeSpec(...)`) on the threads backend; what is not ported yet
+raises NotImplementedError naming its ROADMAP item: the spmd backend
+(Queue 1 item 9), fault scenarios (item 7) and Router replicas (item 8).
+Training Plans validate, and Engine.fit() raises (items 2-3).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+from repro_torch.api.sync import BSP, SyncPolicy, WSP
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.kernels.ops import BACKENDS
+
+
+@dataclass(frozen=True)
+class ClusterSpec:
+    """The fleet: how many virtual workers, on what (modeled) network, with
+    what simulated heterogeneity."""
+
+    num_vw: int = 1
+    topology: Any = None                    # a topology spec or None
+    speeds: Optional[tuple] = None          # per-VW extra seconds/wave
+    straggle_fns: Optional[tuple] = None    # per-VW wave -> extra seconds
+    fail_at: tuple = ()                     # ((vw_index, wave), ...) failures
+    time_scale: float = 1.0                 # scale modeled delays into sleeps
+
+    def __post_init__(self):
+        if self.speeds is not None:
+            object.__setattr__(self, "speeds", tuple(self.speeds))
+        if self.straggle_fns is not None:
+            object.__setattr__(self, "straggle_fns",
+                               tuple(self.straggle_fns))
+        if isinstance(self.fail_at, dict):
+            object.__setattr__(self, "fail_at",
+                               tuple(sorted(self.fail_at.items())))
+        else:
+            object.__setattr__(self, "fail_at", tuple(self.fail_at))
+
+
+@dataclass(frozen=True)
+class PartitionSpec:
+    """Mesh/pipeline factorization. Zeros defer to the ArchConfig."""
+
+    stages: int = 0             # 0 -> arch.stages
+    tp: int = 0                 # 0 -> arch.tp
+    data: int = 1               # data-parallel width (serve: replicas)
+    num_microbatches: int = 0   # 0 -> arch.num_microbatches
+    devices: int = 0            # expected device count (0 -> data*stages*tp)
+
+
+@dataclass(frozen=True)
+class RunSpec:
+    """Everything about one run that is neither model, fleet nor sync."""
+
+    backend: str = "threads"    # threads (host-level) | spmd (not ported)
+    max_waves: int = 20
+    batch: int = 8              # per-VW wave batch
+    seq: int = 64
+    vocab: int = 0              # 0 -> arch.vocab_size
+    optimizer: str = "sgd"
+    lr: float = 0.3
+    weight_decay: float = 0.1
+    seed: int = 0               # parameter init seed
+    data_seed: int = 0
+    codec: Optional[str] = None
+    compression_ratio: Optional[float] = None
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 0
+    resume: bool = False
+    overlap: bool = False
+    compute_dtype: str = "float32"
+    loss_chunk: int = 512
+
+
+@dataclass(frozen=True)
+class ServeSpec:
+    """Frozen serving shapes and sampling for a serve-mode Plan.
+
+    Batched prefill over `max_batch` prompts of up to `prompt_len` tokens,
+    then up to `gen` decode positions against `max_len = prompt_len + gen`
+    logical slots. temperature 0 is greedy argmax; > 0 samples from a
+    torch.Generator keyed by (sample_seed, request, step).
+
+    The Scheduler's full-attention KV lives in a paged pool
+    (repro_torch.serve.cache): `page_size` tokens per page (0 -> max_len)
+    from a pool of `max_pages` pages (0 -> the worst case); admission is
+    refused while the pool is exhausted. `share_prefix` / `evict` /
+    `preempt` drive repro_torch.serve.memory. `kernel_backend` picks the
+    plain attention paths ("ref") or the Hopper kernels ("cuda")."""
+
+    prompt_len: int = 24
+    gen: int = 16
+    max_batch: int = 4
+    temperature: float = 0.0
+    sample_seed: int = 0
+    cache_dtype: str = ""           # "" -> run.compute_dtype; "f8" -> fp8 KV
+    page_size: int = 0              # KV page tokens; 0 -> max_len (1 pg/slot)
+    max_pages: int = 0              # pool size; 0 -> worst-case B * pages/slot
+    share_prefix: bool = False      # refcounted prefix sharing + CoW
+    evict: bool = False             # LRU-evict cold indexed pages
+    preempt: bool = False           # preempt + replay instead of refusing
+    kernel_backend: str = "ref"     # "ref" plain torch | "cuda" kernels
+    replicas: tuple = ()            # Router replicas: not ported yet
+
+    def __post_init__(self):
+        object.__setattr__(self, "replicas", tuple(self.replicas))
+
+    @property
+    def max_len(self) -> int:
+        return self.prompt_len + self.gen
+
+
+@dataclass(frozen=True)
+class Plan:
+    arch: Optional[ArchConfig] = None
+    shape: Optional[ShapeConfig] = None
+    cluster: ClusterSpec = field(default_factory=ClusterSpec)
+    partition: PartitionSpec = field(default_factory=PartitionSpec)
+    sync: SyncPolicy = field(default_factory=WSP)
+    run: RunSpec = field(default_factory=RunSpec)
+    serve: Optional[ServeSpec] = None
+    faults: Any = None              # fault scenarios: not ported yet
+
+    def __post_init__(self):
+        self.validate()
+
+    # ---- resolved views -------------------------------------------------
+    @property
+    def stages(self) -> int:
+        return self.partition.stages or (self.arch.stages if self.arch else 1)
+
+    @property
+    def tp(self) -> int:
+        return self.partition.tp or (self.arch.tp if self.arch else 1)
+
+    @property
+    def num_microbatches(self) -> int:
+        return self.partition.num_microbatches or \
+            (self.arch.num_microbatches if self.arch else 1)
+
+    @property
+    def vocab(self) -> int:
+        return self.run.vocab or (self.arch.vocab_size if self.arch else 256)
+
+    # ---- validation -----------------------------------------------------
+    def validate(self) -> None:
+        if not isinstance(self.sync, SyncPolicy):
+            raise TypeError(f"sync must be a SyncPolicy, got {self.sync!r}")
+        self.sync.validate()
+        cl, run, p = self.cluster, self.run, self.partition
+        if run.backend == "spmd":
+            raise NotImplementedError(
+                "the pipelined spmd backend is ROADMAP Queue 1 item 9; the "
+                "port runs backend='threads'")
+        if run.backend != "threads":
+            raise ValueError(f"unknown backend {run.backend!r}; expected "
+                             f"'threads' or 'spmd'")
+        if self.faults is not None:
+            raise NotImplementedError("fault scenarios are ROADMAP Queue 1 "
+                                      "item 7; drop Plan.faults")
+        if cl.num_vw < 1:
+            raise ValueError(f"num_vw must be >= 1, got {cl.num_vw}")
+        if cl.speeds is not None and len(cl.speeds) != cl.num_vw:
+            raise ValueError(f"speeds has {len(cl.speeds)} entries for "
+                             f"{cl.num_vw} virtual workers")
+        if cl.straggle_fns is not None and \
+                len(cl.straggle_fns) != cl.num_vw:
+            raise ValueError(f"straggle_fns has {len(cl.straggle_fns)} "
+                             f"entries for {cl.num_vw} virtual workers")
+        if cl.time_scale < 0:
+            raise ValueError(f"time_scale must be >= 0, got {cl.time_scale}")
+        bad = [i for i, _ in cl.fail_at if not 0 <= i < cl.num_vw]
+        if bad:
+            raise ValueError(f"fail_at names worker indices {bad} outside "
+                             f"the fleet (num_vw={cl.num_vw})")
+        if run.max_waves < 0 or run.batch < 1 or run.seq < 1:
+            raise ValueError(f"bad run spec: max_waves={run.max_waves} "
+                             f"batch={run.batch} seq={run.seq}")
+        if run.codec is not None and run.compression_ratio is not None:
+            raise ValueError("codec and compression_ratio are two spellings "
+                             "of the same knob; set at most one")
+        if run.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be 'float32' or "
+                             f"'bfloat16', got {run.compute_dtype!r}")
+        for name in ("stages", "tp", "data", "num_microbatches", "devices"):
+            if getattr(p, name) < 0:
+                raise ValueError(f"partition.{name} must be >= 0")
+        if p.stages or p.tp or (p.data != 1 and self.serve is None):
+            raise ValueError(
+                "PartitionSpec.stages/tp/data factor the spmd mesh; the "
+                "threads backend runs each VW's wave step whole (only "
+                "partition.num_microbatches applies)")
+        if self.serve is not None:
+            self._validate_serve()
+            return
+        # the wave packs the per-VW batch into Nm pipeline minibatches
+        if self.arch is not None or p.num_microbatches:
+            nm = self.num_microbatches
+            if nm >= 1 and run.batch % nm:
+                raise ValueError(
+                    f"per-VW batch {run.batch} is not divisible by "
+                    f"num_microbatches {nm}")
+        if isinstance(self.sync, BSP) and (
+                run.codec is not None or run.compression_ratio is not None
+                or cl.straggle_fns is not None or cl.fail_at):
+            raise ValueError("the BSP loop all-reduces raw deltas and models "
+                             "heterogeneity through cluster.speeds only")
+
+    def _validate_serve(self) -> None:
+        """Serve-mode Plans: reject knobs the serve path would silently
+        drop."""
+        sv, run, cl = self.serve, self.run, self.cluster
+        if not isinstance(sv, ServeSpec):
+            raise TypeError(f"serve must be a ServeSpec, got {sv!r}")
+        if self.arch is None:
+            raise ValueError("serving builds the model from the "
+                             "architecture; Plan.arch is required when "
+                             "Plan.serve is set")
+        if sv.replicas or self.partition.data != 1:
+            raise NotImplementedError(
+                "data-parallel serve replicas behind the Router are ROADMAP "
+                "Queue 1 item 8; serve one replica (partition.data=1, no "
+                "ServeSpec.replicas)")
+        if sv.prompt_len < 1 or sv.gen < 1 or sv.max_batch < 1:
+            raise ValueError(f"bad serve spec: prompt_len={sv.prompt_len} "
+                             f"gen={sv.gen} max_batch={sv.max_batch} "
+                             f"(all must be >= 1)")
+        if sv.temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got "
+                             f"{sv.temperature}")
+        if sv.cache_dtype not in ("", "f8"):
+            raise ValueError(f"unknown serve cache_dtype "
+                             f"{sv.cache_dtype!r}; expected '' (compute "
+                             f"dtype) or 'f8'")
+        if sv.kernel_backend not in BACKENDS:
+            raise ValueError(f"unknown serve kernel_backend "
+                             f"{sv.kernel_backend!r}: expected one of "
+                             f"{BACKENDS}")
+        if sv.page_size < 0 or sv.max_pages < 0:
+            raise ValueError(f"page_size={sv.page_size} and "
+                             f"max_pages={sv.max_pages} must be >= 0 "
+                             f"(0 defers to the contiguous worst case)")
+        from repro_torch.serve.cache import make_layout
+        make_layout(sv.max_batch, sv.max_len, page_size=sv.page_size,
+                    max_pages=sv.max_pages)     # geometry errors surface now
+        if sv.evict and not sv.share_prefix:
+            raise ValueError(
+                "evict=True without share_prefix=True is a silent no-op: "
+                "only the prefix index retains pages past their last "
+                "mapping — enable share_prefix or drop evict")
+        if self.shape is not None:
+            raise ValueError("serve shapes are frozen in Plan.serve; drop "
+                             "Plan.shape")
+        if not isinstance(self.sync, WSP) or self.sync.D != 0 \
+                or self.sync.async_push:
+            raise ValueError(
+                f"serving runs no gradient synchronization; Plan.sync must "
+                f"be the default WSP(D=0) on a serve Plan, got "
+                f"{self.sync.describe()}")
+        if run.ckpt_dir or run.ckpt_every or run.resume:
+            raise ValueError("ckpt_dir/ckpt_every/resume drive the training "
+                             "loop; a serve Plan has no optimizer state")
+        if run.codec is not None or run.compression_ratio is not None:
+            raise ValueError("gradient codecs ride the training push path; "
+                             "use serve.cache_dtype='f8' to shrink the cache")
+        if cl.num_vw != 1 or cl.speeds is not None \
+                or cl.straggle_fns is not None or cl.fail_at \
+                or cl.topology is not None:
+            raise ValueError(
+                "ClusterSpec knobs drive the training fleet (and the "
+                "Router's dispatch, not ported); unset them on a serve Plan")
+
+    # ---- ergonomics -----------------------------------------------------
+    def replace(self, **kw) -> "Plan":
+        """dataclasses.replace with one level of nesting via double
+        underscores: plan.replace(serve__kernel_backend="cuda")."""
+        nested: dict[str, dict] = {}
+        top: dict[str, Any] = {}
+        for k, v in kw.items():
+            if "__" in k:
+                head, rest = k.split("__", 1)
+                nested.setdefault(head, {})[rest] = v
+            else:
+                top[k] = v
+        for head, sub in nested.items():
+            cur = top.get(head, getattr(self, head))
+            top[head] = dataclasses.replace(cur, **sub)
+        return dataclasses.replace(self, **top)
+
+    def describe(self) -> str:
+        arch = self.arch.name if self.arch else "<none>"
+        if self.serve is not None:
+            sv = self.serve
+            return (f"Plan({arch}, serve, backend={self.run.backend}, "
+                    f"batch={sv.max_batch}, prompt={sv.prompt_len}, "
+                    f"gen={sv.gen}, kernels={sv.kernel_backend}, "
+                    f"{'greedy' if sv.temperature == 0 else 'sampled'})")
+        return (f"Plan({arch}, backend={self.run.backend}, "
+                f"vw={self.cluster.num_vw}, {self.sync.describe()}, "
+                f"waves={self.run.max_waves})")

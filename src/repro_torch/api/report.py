@@ -1,0 +1,126 @@
+"""Reports returned by the Engine and the Scheduler (repro.api.report's
+serve half). ServeReport is assembled by Engine.generate() and the
+continuous-batching Scheduler; Telemetry is the metrics snapshot attached
+when the run is traced."""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+import numpy as np
+
+
+@dataclass
+class Telemetry:
+    """Aggregate observability state (a MetricsRegistry snapshot)."""
+
+    counters: dict = field(default_factory=dict)
+    gauges: dict = field(default_factory=dict)
+    histograms: dict = field(default_factory=dict)
+
+    @classmethod
+    def from_metrics(cls, registry) -> "Telemetry":
+        snap = registry.snapshot()
+        return cls(counters=snap["counters"], gauges=snap["gauges"],
+                   histograms=snap["histograms"])
+
+    def to_dict(self) -> dict:
+        return {"counters": dict(self.counters), "gauges": dict(self.gauges),
+                "histograms": dict(self.histograms)}
+
+    def hist_quantile(self, name: str, q: float) -> Optional[float]:
+        from repro_torch.obs.metrics import quantile_from_snapshot
+        return quantile_from_snapshot(self.histograms.get(name), q)
+
+
+@dataclass
+class RequestStats:
+    """Per-request accounting from the serving scheduler."""
+
+    rid: int
+    prompt_len: int = 0
+    tokens: list = field(default_factory=list)    # generated token ids
+    admitted_step: int = -1     # global decode step at admission
+    finished_step: int = -1     # global decode step at retirement
+    slot: int = -1              # batch slot the request occupied
+    group: int = -1             # admission group: index of the batched
+                                # prefill call this request rode in
+    prefill_s: float = 0.0      # duration of that batched prefill call —
+                                # shared by every request of its group, so
+                                # summing it across requests over-counts
+    ttft_s: float = 0.0         # arrival -> first token (end of this
+                                # request's prefill group), wall clock
+    latency_s: float = 0.0      # admission -> last token (wall clock)
+
+    @property
+    def new_tokens(self) -> int:
+        return len(self.tokens)
+
+
+@dataclass
+class ServeReport:
+    """Serving metrics for prefill/decode runs."""
+
+    arch: str = ""
+    backend: str = ""
+    tokens: Any = None          # generate(): [B, gen] generated ids —
+                                # scheduler runs use `requests`
+    requests: list = field(default_factory=list)  # RequestStats
+    prefill_s: float = 0.0      # total time inside prefill calls
+    prefill_calls: int = 0      # batched prefill calls (admission groups)
+    decode_s: float = 0.0       # total time inside decode calls
+    decode_steps: int = 0       # batched decode calls issued
+    slot_steps: int = 0         # sum over decode steps of active slots
+    max_batch: int = 0
+    wall_s: float = 0.0
+    # paged-cache accounting (Scheduler runs; zeros for generate())
+    page_size: int = 0          # tokens per KV page
+    pages_total: int = 0        # physical pages in the pool
+    peak_pages: int = 0         # high-water mark of pages in use
+    page_steps: int = 0         # sum over decode steps of pages in use
+    admit_blocked: int = 0      # admission rounds refused: pool exhausted
+    # memory-manager accounting (repro_torch.serve.memory)
+    prefix_hit_tokens: int = 0  # prompt tokens served from indexed pages
+    pages_shared: int = 0       # prefix pages mapped by refcount (no copy)
+    cow_copies: int = 0         # copy-on-write page duplications taken
+    evictions: int = 0          # cold indexed pages reclaimed (LRU)
+    readmit_recomputes: int = 0  # admissions that re-prefilled an evicted
+    #                              prefix
+    preemptions: int = 0        # in-flight requests preempted + replayed
+    telemetry: Optional[Telemetry] = None  # when tracing is enabled
+
+    @property
+    def tokens_out(self) -> int:
+        if self.requests:
+            return sum(r.new_tokens for r in self.requests)
+        if self.tokens is not None:
+            return int(np.asarray(self.tokens).size)
+        return 0
+
+    def tokens_per_s(self) -> float:
+        return self.tokens_out / self.wall_s if self.wall_s > 0 else 0.0
+
+    def ms_per_token(self) -> float:
+        """Mean wall milliseconds of one batched decode step."""
+        return (self.decode_s / self.decode_steps * 1e3
+                if self.decode_steps else 0.0)
+
+    def occupancy(self) -> Optional[float]:
+        """Mean fraction of decode-batch slots doing useful work (scheduler
+        runs only)."""
+        if not self.decode_steps or not self.max_batch or not self.requests:
+            return None
+        return self.slot_steps / (self.decode_steps * self.max_batch)
+
+    def mean_ttft(self) -> Optional[float]:
+        """Mean arrival-to-first-token over requests (scheduler runs)."""
+        if not self.requests:
+            return None
+        return float(np.mean([r.ttft_s for r in self.requests]))
+
+    def page_utilization(self) -> Optional[float]:
+        """Peak distinct pages in use as a fraction of the pool (scheduler
+        runs only)."""
+        if not self.decode_steps or not self.pages_total:
+            return None
+        return self.peak_pages / self.pages_total

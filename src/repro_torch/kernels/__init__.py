@@ -1,0 +1,14 @@
+"""Hand-written Hopper (sm_90a) kernels for the serve hot paths.
+
+  flash_attention_fwd   causal GQA prefill attention (csrc/flash_attention.cu)
+  flash_decode          one-token decode over a contiguous cache
+  flash_decode_paged    one-token decode walking the paged KV pool through
+                        the block table (both in csrc/flash_decode.cu)
+
+Each wrapper runs its plain version (kernels/ref.py) on a CPU tensor and
+launches its kernel on a CUDA tensor, counting launches in LAUNCHES.
+Nothing is compiled at import: kernels/_build.py builds at first use.
+"""
+from repro_torch.kernels._build import LAUNCHES, build_all, reset_launches
+
+__all__ = ["LAUNCHES", "build_all", "reset_launches"]

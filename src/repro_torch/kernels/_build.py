@@ -1,0 +1,153 @@
+"""Build and load the Hopper kernels at first use.
+
+Every `csrc/<name>.cu` compiles on its own into a shared library with a
+plain C interface (`nvcc -gencode arch=compute_90a,code=sm_90a -shared`),
+loaded with ctypes — no PyTorch headers, so a build takes seconds, not
+the minutes `torch.utils.cpp_extension.load` needs. The libraries land in
+`<repo>/build/repro_torch_kernels/<hash>/`, keyed by a hash of every source
+and the flags, so an edited kernel rebuilds and an unchanged one loads.
+
+Each C entry takes device pointers and the stream as `void*`, sizes and
+strides as ints, launches on that stream and returns `cudaGetLastError()`;
+`check()` raises when it is not 0. Nothing here falls back to a kernel's
+plain version: without nvcc or a CUDA device, loading raises.
+
+`LAUNCHES[name]` counts the launches each wrapper makes (only where it
+launches its kernel), so a run can show that its path went through the
+kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES: dict[str, int] = {"flash_attention_fwd": 0, "flash_decode": 0,
+                            "flash_decode_paged": 0}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def find_nvcc() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, /usr/local/cuda/bin/nvcc or
+    nvcc on PATH. Raises when none exists."""
+    cands = [os.path.join(os.environ[v], "bin", "nvcc")
+             for v in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(v)]
+    cands.append("/usr/local/cuda/bin/nvcc")
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "cannot build the repro_torch Hopper kernels: nvcc not found (looked "
+        "in $CUDA_HOME/bin, /usr/local/cuda/bin and PATH). The kernels run "
+        "only on an sm_90 card with the CUDA toolkit; tensors on the CPU "
+        "take the plain PyTorch versions instead")
+
+
+def _require_device() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "cannot load the repro_torch Hopper kernels: no CUDA device is "
+            "visible to torch. The kernels run only on an sm_90 card; "
+            "tensors on the CPU take the plain PyTorch versions instead")
+
+
+def _build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")) + sorted(CSRC.glob("*.h")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def _compile(nvcc: str, name: str, out_dir: Path) -> Path:
+    so = out_dir / f"lib{name}.so"
+    if so.exists():
+        return so
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".lib{name}.{os.getpid()}.so"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / f"{name}.log").write_text(
+        " ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit "
+                           f"{res.returncode}):\n{res.stderr[-4000:]}")
+    os.replace(tmp, so)
+    return so
+
+
+def build_all() -> float:
+    """Compile every csrc/*.cu (one nvcc each, all started together) and
+    load them. Returns the seconds it took; 0-ish when already built."""
+    _require_device()
+    nvcc = find_nvcc()
+    out_dir = _build_dir()
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(max_workers=len(names)) as ex:
+        sos = list(ex.map(lambda n: _compile(nvcc, n, out_dir), names))
+    for name, so in zip(names, sos):
+        _LIBS.setdefault(name, ctypes.CDLL(str(so)))
+    return time.monotonic() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        _require_device()
+        so = _compile(find_nvcc(), name, _build_dir())
+        lib = _LIBS.setdefault(name, ctypes.CDLL(str(so)))
+    return lib
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (registers, shared memory, spills) for csrc/<name>.cu."""
+    p = _build_dir() / f"{name}.log"
+    return p.read_text() if p.exists() else ""
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by one of `lib`'s entries
+    (every csrc library exports `repro_cuda_error_string`)."""
+    if err != 0:
+        fn = lib.repro_cuda_error_string
+        fn.restype, fn.argtypes = ctypes.c_char_p, [ctypes.c_int]
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err} "
+                           f"({fn(err).decode()})")
+
+
+def dtype_code(dtype) -> int:
+    """The dtype codes of csrc/common.cuh (repro::DType)."""
+    import torch
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+    if dtype not in codes:
+        raise ValueError(f"the kernels take float32, bfloat16 or "
+                         f"float8_e4m3fn, got {dtype}")
+    return codes[dtype]
+
+
+# ctypes argument kinds shared by the wrappers
+PTR = ctypes.c_void_p
+INT = ctypes.c_int
+I64 = ctypes.c_longlong

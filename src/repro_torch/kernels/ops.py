@@ -1,0 +1,56 @@
+"""Backend dispatch and layout adapters over the attention kernels.
+
+BACKENDS:
+  "ref"   the kernels' plain PyTorch versions (kernels/ref.py)
+  "cuda"  the Hopper kernel wrappers: on a CUDA tensor they launch the
+          kernel (or raise); on a CPU tensor they run the plain version
+
+The model calls these only with kernel_backend="cuda"; with "ref" it takes
+its own plain paths (models/attention.py), as the JAX package does. The
+layout adapters between the model convention ([B, S, H, hd]) and the
+kernel convention ([B, H, S, hd]) live here; both are views, no copies.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
+
+BACKENDS = ("ref", "cuda")
+
+
+def check_backend(name: str) -> str:
+    if name not in BACKENDS:
+        raise ValueError(
+            f"unknown kernel backend {name!r}: expected one of {BACKENDS}")
+    return name
+
+
+def attention(q, k, v, *, causal=True, window=0, backend="ref"):
+    """Model layout: q [B,S,H,hd], k/v [B,S,KV,hd] -> [B,S,H,hd]."""
+    qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
+    if check_backend(backend) == "ref":
+        o = kref.attention_ref(qT, kT, vT, causal=causal, window=window)
+    else:
+        o = flash_attention_fwd(qT, kT, vT, causal=causal, window=window)
+    return o.transpose(1, 2)
+
+
+def decode_attention(q1, k, v, length, *, window=0, backend="ref"):
+    """q1 [B,H,hd]; k/v [B,KV,S,hd] kernel-native; length scalar or [B]."""
+    if check_backend(backend) == "ref":
+        return kref.decode_ref(q1, k, v, length, window=window)
+    return flash_decode(q1, k, v, length, window=window)
+
+
+def decode_attention_paged(q1, k_pool, v_pool, block_tab, lengths, *,
+                           layer=0, backend="ref"):
+    """Paged decode: pools [groups, num_pages+1, page_size, KV, hd] walked
+    through block_tab [B, pages_per_slot] with per-row lengths. The "ref"
+    backend gathers the paged view first (the materialization the kernel
+    avoids)."""
+    if check_backend(backend) == "ref":
+        return kref.decode_paged_ref(q1, k_pool, v_pool, block_tab, lengths,
+                                     layer=layer)
+    return flash_decode_paged(q1, k_pool, v_pool, block_tab, lengths,
+                              layer=layer)

@@ -1,0 +1,84 @@
+"""Plain PyTorch versions of the attention kernels (the allclose targets).
+
+Each function computes exactly what its Hopper kernel computes, with the
+same masking and the same zero-length contract (`l >= 1e-30`: a row with
+no live position returns zeros). On a CPU tensor the kernel wrappers run
+these; on the card `chip_smoke.py` holds each kernel against them.
+
+Layouts (kernel-native):
+  attention: q [B, H, Sq, hd]; k, v [B, KV, Sk, hd]  (GQA: G = H // KV)
+  decode:    q1 [B, H, hd]; k, v [B, KV, S, hd]
+  paged:     q1 [B, H, hd]; pools [groups, num_pages + 1, page_size, KV, hd]
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _row_lengths(length, B: int, device) -> torch.Tensor:
+    """Scalar or [B] -> [B] int32 per-row lengths on `device`."""
+    lens = torch.as_tensor(length, dtype=torch.int32, device=device).reshape(-1)
+    if lens.shape[0] not in (1, B):
+        raise ValueError(f"length must be a scalar or a [B]={B} vector, got "
+                         f"shape {tuple(lens.shape)}")
+    return lens.expand(B)
+
+
+def attention_ref(q, k, v, *, causal=True, window=0):
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = q.float().reshape(B, KV, G, Sq, hd)
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qf, k.float()) * hd ** -0.5
+    gq = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)  # align ends
+    gk = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= gq >= gk
+    if window > 0:
+        mask &= (gq - gk) < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float())
+    return o.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def decode_ref(q1, k, v, length, *, window=0):
+    """q1 [B, H, hd]; k/v [B, KV, S, hd]; attend to positions < length
+    (a scalar or a per-row [B] vector). Rows with length == 0 return
+    zeros, not a uniform average over uninitialized V rows."""
+    B, H, hd = q1.shape
+    KV, S = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = q1.float().reshape(B, KV, G, hd)
+    s = torch.einsum("bkgd,bkcd->bkgc", qf, k.float()) * hd ** -0.5
+    pos = torch.arange(S, device=q1.device)[None, None, None, :]
+    lens = _row_lengths(length, B, q1.device)[:, None, None, None]
+    valid = pos < lens
+    if window > 0:
+        valid &= pos >= (lens - window)
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bkgc,bkcd->bkgd", p / l, v.float())
+    return o.reshape(B, H, hd).to(q1.dtype)
+
+
+def decode_paged_ref(q1, k_pool, v_pool, block_tab, lengths, *, layer=0):
+    """Gather the paged pool into a contiguous per-row view (exactly the
+    materialization the paged kernel avoids), then run decode_ref with
+    per-row lengths. block_tab [B, pages_per_slot] int32, -1 = unmapped
+    (reads the trash page, the pool's last)."""
+    B = q1.shape[0]
+    _, P1, ps, KV, hd = k_pool.shape
+    tab = block_tab.long()
+    phys = torch.where(tab >= 0, tab, P1 - 1)                 # [B, npg]
+
+    def view(pool):
+        pages = pool[layer][phys]                             # [B,npg,ps,KV,hd]
+        return pages.reshape(B, -1, KV, hd).transpose(1, 2)
+
+    return decode_ref(q1, view(k_pool), view(v_pool), lengths, window=0)

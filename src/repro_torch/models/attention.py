@@ -1,0 +1,102 @@
+"""Attention: the plain blocked (flash-style) paths of kernel_backend="ref".
+
+The kernels in repro_torch.kernels compute the same math; all softmax
+accumulation is f32.
+
+Layouts: q [B, S, H, hd]; k, v [B, S, KV, hd]; GQA group G = H // KV.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _pick_block(s: int, want: int) -> int:
+    b = min(want, s)
+    while s % b:
+        b -= 1
+    return b
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_block: int = 256, kv_block: int = 512,
+                    q_offset: int = 0):
+    """Online-softmax attention, tiled over q and kv blocks.
+
+    window > 0 restricts to keys with (qpos - kpos) < window (sliding
+    window); q_offset is the global position of q[0] (kv starts at 0).
+    Masked causal blocks are still computed, as in the JAX reference path.
+    """
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qb = _pick_block(Sq, q_block)
+    kb = _pick_block(Sk, kv_block)
+    nq, nk = Sq // qb, Sk // kb
+    scale = hd ** -0.5
+    dev = q.device
+
+    # [B, nq, qb, KV, G, hd] -> [nq, B, KV, G, qb, hd]
+    qr = q.reshape(B, nq, qb, KV, G, hd).permute(1, 0, 3, 4, 2, 5).float()
+    kr = k.reshape(B, nk, kb, KV, hd).permute(1, 0, 3, 2, 4).float()
+    vr = v.reshape(B, nk, kb, KV, hd).permute(1, 0, 3, 2, 4).float()
+
+    outs = []
+    for qi in range(nq):
+        gq = q_offset + qi * qb + torch.arange(qb, device=dev)
+        m = torch.full((B, KV, G, qb), NEG_INF, device=dev)
+        l = torch.zeros((B, KV, G, qb), device=dev)
+        acc = torch.zeros((B, KV, G, qb, hd), device=dev)
+        for kj in range(nk):
+            gk = kj * kb + torch.arange(kb, device=dev)
+            s = torch.einsum("bkgqd,bkcd->bkgqc", qr[qi], kr[kj]) * scale
+            mask = torch.ones((qb, kb), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= gq[:, None] >= gk[None, :]
+            if window > 0:
+                mask &= (gq[:, None] - gk[None, :]) < window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqc,bkcd->bkgqd", p, vr[kj])
+            m = m_new
+        outs.append(acc / l.clamp_min(1e-30)[..., None])
+    # [nq, B, KV, G, qb, hd] -> [B, Sq, H, hd]
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, H, hd)
+    return out.to(q.dtype)
+
+
+def decode_attend(q1, k_cache, v_cache, gpos, pos, *, window: int = 0):
+    """Single-token attention against a KV cache.
+
+    q1 [B, 1, H, hd] (already roped at `pos`); k_cache/v_cache [B, Sc, KV,
+    hd]; gpos [Sc] (or per-row [B, Sc]) global positions of the cached
+    slots, -1 for unmapped ones; pos the current global position — a
+    scalar or a [B] tensor (each row at its own depth).
+    """
+    B, _, H, hd = q1.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    qr = q1.reshape(B, KV, G, hd).float()
+    s = torch.einsum("bkgd,bckd->bkgc", qr, k_cache.float()) * scale
+    pos_b = torch.as_tensor(pos, device=q1.device)
+    pos_b = pos_b[None] if pos_b.dim() == 0 else pos_b           # [1] or [B]
+    gpos_b = torch.as_tensor(gpos, device=q1.device)
+    gpos_b = gpos_b[None] if gpos_b.dim() == 1 else gpos_b       # [1|B, Sc]
+    valid = (gpos_b <= pos_b[:, None]) & (gpos_b >= 0)
+    if window > 0:
+        valid &= (pos_b[:, None] - gpos_b) < window
+    valid = valid[:, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)
+    m_safe = m.clamp_min(NEG_INF / 2)
+    p = torch.where(valid, torch.exp(s - m_safe[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgc,bckd->bkgd", p, v_cache.float())
+    out = o / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, 1, H, hd).to(q1.dtype)

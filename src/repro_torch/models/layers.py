@@ -1,0 +1,71 @@
+"""Primitive layers: norms, rope, MLP activations. Functions over tensors."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x, scale, eps=1e-6):
+    """RMS norm scaled by (1 + scale), computed in f32."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(dt)
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    out = (x - mu) * torch.rsqrt(var + eps) * scale + bias
+    return out.to(dt)
+
+
+# ----------------------------------------------------------------------------
+# RoPE (split-half convention)
+# ----------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = -torch.arange(0, head_dim, 2, dtype=torch.float32,
+                         device=device) / head_dim
+    # a Python-scalar base: torch.tensor(theta, device=cuda) would be a
+    # blocking host-to-device copy on every layer
+    return torch.pow(theta, exps)
+
+
+def rope_cos_sin(positions, head_dim: int, theta: float):
+    """positions [...] (a tensor); returns cos/sin [..., head_dim//2] f32."""
+    ang = positions.float()[..., None] * rope_freqs(head_dim, theta,
+                                                    positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x [..., S, H, hd]; cos/sin [S, hd//2] (broadcast over batch/heads)."""
+    dt = x.dtype
+    x = x.float()
+    x1, x2 = x.chunk(2, dim=-1)
+    c = cos[..., :, None, :]
+    s = sin[..., :, None, :]
+    out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    return out.to(dt)
+
+
+# ----------------------------------------------------------------------------
+# MLPs (all return the pre-output-projection activation given fused wi)
+# ----------------------------------------------------------------------------
+def mlp_act(h, mlp_type: str, d_ff: int):
+    """h = x @ wi where wi fuses [gate; up] for gated types."""
+    if mlp_type == "swiglu":
+        g, u = h.chunk(2, dim=-1)
+        return F.silu(g) * u
+    if mlp_type == "geglu":
+        g, u = h.chunk(2, dim=-1)
+        return F.gelu(g, approximate="tanh") * u
+    if mlp_type == "gelu":
+        return F.gelu(h, approximate="tanh")
+    if mlp_type == "relu2":
+        r = F.relu(h)
+        return r * r
+    raise ValueError(mlp_type)

@@ -1,0 +1,222 @@
+"""Model assembly: parameter init, per-layer metadata, the weight carrier
+from the JAX package, and the plain (non-pipelined) forward.
+
+Parameter layout (the JAX package's): block leaves are stacked over all
+layers on dim 0 with `padded_layers = stages * layer_slots` slots; the
+same leaf names, the same stacking, so a JAX param tree carries over leaf
+for leaf (`params_from_numpy`).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.blocks import LayerCtx, apply_layer
+from repro_torch.models.layers import layer_norm, rms_norm
+
+
+def padded_vocab(cfg: ArchConfig, mult: int = 16) -> int:
+    """Vocab padded to a multiple of 16 (the JAX package's sharding pad);
+    logits_ref drops the padded columns."""
+    return (cfg.vocab_size + mult - 1) // mult * mult
+
+
+# ----------------------------------------------------------------------------
+# Layer metadata
+# ----------------------------------------------------------------------------
+def layer_meta(cfg: ArchConfig) -> dict:
+    """Per-slot arrays, shaped [stages, slots]."""
+    kinds = np.array(cfg.layer_kinds(), np.int32)
+    Lp = cfg.padded_layers
+    valid = np.arange(Lp) < cfg.num_layers
+    kinds = np.where(valid, kinds, 2 if cfg.ssm_type == "rwkv6" else 0)
+    full_i = np.zeros(Lp, np.int32)
+    win_i = np.zeros(Lp, np.int32)
+    st, sl = cfg.stages, cfg.layer_slots
+    m_full = m_win = 0
+    for s in range(st):
+        nf = nw = 0
+        for j in range(sl):
+            l = s * sl + j
+            if valid[l] and kinds[l] == 0 and cfg.attn_type != "none":
+                full_i[l] = nf
+                nf += 1
+            elif valid[l] and kinds[l] == 1:
+                win_i[l] = nw
+                nw += 1
+        m_full, m_win = max(m_full, nf), max(m_win, nw)
+    rs = lambda a: a.reshape(st, sl)
+    return dict(kind=rs(kinds), valid=rs(valid), full_i=rs(full_i),
+                win_i=rs(win_i), m_full=m_full, m_win=m_win)
+
+
+def uniform_kind(cfg: ArchConfig) -> Optional[int]:
+    """Static layer kind if every (real) layer is identical, else None."""
+    if cfg.num_layers % cfg.stages:
+        return None
+    return {"full": 0, "swa": 1, "none": 2}.get(cfg.attn_type)
+
+
+# ----------------------------------------------------------------------------
+# Parameter init
+# ----------------------------------------------------------------------------
+def _block_shapes(cfg: ArchConfig) -> dict[str, tuple[tuple, str]]:
+    """Dense-family leaf -> (per-layer shape, init)."""
+    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if cfg.ssm_type or cfg.num_experts or cfg.hybrid_parallel:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense family is ported; the others are "
+            f"ROADMAP Queue 1 item 5")
+    G = 2 if cfg.mlp_type in ("swiglu", "geglu") else 1
+    out: dict[str, tuple[tuple, str]] = {}
+
+    def norm(name):
+        out[name] = ((d,), "zeros" if "rms" in cfg.norm_style else "ones")
+        if cfg.norm_style == "ln_pre":
+            out[name + "_b"] = ((d,), "zeros")
+
+    norm("ln1")
+    out["wq"] = ((d, H * hd), "normal")
+    out["wk"] = ((d, KV * hd), "normal")
+    out["wv"] = ((d, KV * hd), "normal")
+    out["wo"] = ((H * hd, d), "normal_out")
+    if cfg.qk_norm:
+        out["q_norm"] = ((hd,), "zeros")
+        out["k_norm"] = ((hd,), "zeros")
+    if cfg.norm_style == "rms_sandwich":
+        out["ln1_post"] = ((d,), "zeros")
+        out["ln2_post"] = ((d,), "zeros")
+    norm("ln2")
+    out["mlp_wi"] = ((d, G, ff), "normal")
+    out["mlp_wo"] = ((ff, d), "normal_out")
+    return out
+
+
+def _init_leaf(gen, shape, init, cfg: ArchConfig, dtype, device):
+    if init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    scale = 0.02
+    if init == "normal_out":
+        scale = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
+    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return (scale * x).to(dtype)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator, *,
+                dtype=torch.float32, device="cpu"):
+    """Random params with the JAX package's leaf names and [padded_layers,
+    ...] stacking, drawn from `generator` (which must live on `device`).
+    The draws differ from jax.random's; parity tests carry JAX's weights
+    across with params_from_numpy instead."""
+    shapes = _block_shapes(cfg)
+    Lp = cfg.padded_layers
+    blocks = {name: _init_leaf(generator, (Lp,) + shp, init, cfg, dtype,
+                               device)
+              for name, (shp, init) in sorted(shapes.items())}
+    params = {"blocks": blocks,
+              "final_norm": (torch.ones if cfg.norm_style == "ln_pre"
+                             else torch.zeros)((cfg.d_model,), dtype=dtype,
+                                               device=device)}
+    if cfg.norm_style == "ln_pre":
+        params["final_norm_b"] = torch.zeros((cfg.d_model,), dtype=dtype,
+                                             device=device)
+    Vp = padded_vocab(cfg)
+    if cfg.frontend == "none":
+        params["embed"] = _init_leaf(generator, (Vp, cfg.d_model), "normal",
+                                     cfg, dtype, device)
+    if not cfg.tie_embeddings:
+        params["head"] = _init_leaf(generator, (cfg.d_model, Vp), "normal",
+                                    cfg, dtype, device)
+    return params
+
+
+def params_from_numpy(tree, *, device, dtype=torch.float32):
+    """The JAX package's param pytree (nested dicts of numpy arrays, e.g.
+    `jax.device_get(params)`) -> the port's params: the same names, the
+    same stacking, as `dtype` tensors on `device`."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device=device, dtype=dtype)
+                for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if arr.dtype.kind != "f" or arr.dtype.itemsize < 4:
+        arr = arr.astype(np.float32)      # bfloat16 et al. have no torch view
+    return torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)
+
+
+# ----------------------------------------------------------------------------
+# Embedding / head
+# ----------------------------------------------------------------------------
+def embed_tokens(cfg: ArchConfig, params, tokens_or_embeds):
+    if cfg.frontend != "none":
+        x = tokens_or_embeds           # precomputed frame/patch embeddings
+    else:
+        x = params["embed"][tokens_or_embeds.long()]
+    if cfg.embed_scale:
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+def final_hidden_norm(cfg: ArchConfig, params, h):
+    if cfg.norm_style == "ln_pre":
+        return layer_norm(h, params["final_norm"], params["final_norm_b"],
+                          eps=cfg.norm_eps)
+    return rms_norm(h, params["final_norm"], eps=cfg.norm_eps)
+
+
+def head_matrix(cfg: ArchConfig, params):
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["head"]
+
+
+# ----------------------------------------------------------------------------
+# Reference (non-pipelined, single-device) forward
+# ----------------------------------------------------------------------------
+def forward_ref(cfg: ArchConfig, params, tokens_or_embeds, *, mode="train",
+                cache=None, pos=None, labels=None, lens=None,
+                kernel_backend="ref"):
+    """Plain layer loop. Returns (hidden, cache). `pos` (decode) is a
+    scalar or a [B] tensor; `lens` [B] marks per-row prompt lengths for
+    right-padded prefill — cache writes stop at each row's length. The
+    cache is written in place. `kernel_backend` ("ref"/"cuda") picks the
+    plain attention paths or the kernels."""
+    if labels is not None:
+        raise NotImplementedError("the training loss is ROADMAP Queue 1 "
+                                  "items 2-3")
+    x = embed_tokens(cfg, params, tokens_or_embeds)
+    if mode == "decode":
+        pos = torch.as_tensor(pos, device=x.device)
+        pos = pos.expand(x.shape[0]) if pos.dim() == 0 else pos
+    meta = layer_meta(cfg)
+    kinds = meta["kind"].reshape(-1)
+    valid = meta["valid"].reshape(-1)
+    full_i = meta["full_i"].reshape(-1)
+    win_i = meta["win_i"].reshape(-1)
+    sl = cfg.layer_slots
+    for l in range(cfg.padded_layers):
+        if not valid[l]:
+            continue
+        st_idx = l // sl
+        # global cache, stage-major group indexing
+        ctx = LayerCtx(mode=mode, pos=pos, kind=int(kinds[l]),
+                       full_i=int(st_idx * meta["m_full"] + full_i[l]),
+                       win_i=int(st_idx * meta["m_win"] + win_i[l]),
+                       ssm_i=l, lens=lens, kernel_backend=kernel_backend)
+        p_l = {k: v[l] for k, v in params["blocks"].items()}
+        x, cache = apply_layer(cfg, p_l, x, ctx, cache)
+    return x, cache
+
+
+def logits_ref(cfg: ArchConfig, params, hidden):
+    """f32 logits over the real vocabulary (an f32 head, as the JAX
+    package computes it)."""
+    h = final_hidden_norm(cfg, params, hidden)
+    logits = h.float() @ head_matrix(cfg, params).float()
+    return logits[..., : cfg.vocab_size]

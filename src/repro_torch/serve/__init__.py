@@ -1,0 +1,16 @@
+"""repro_torch.serve — the serving-side state subsystem.
+
+`repro_torch.serve.cache` owns every byte of KV decoding state: the
+contiguous layout, the paged pool + block-table layout, and the
+`CacheStore` that accounts for both. `repro_torch.serve.memory` is the
+policy layer above it: refcounted prefix sharing with copy-on-write, LRU
+eviction of cold indexed pages, and preemption victim selection.
+"""
+from repro_torch.serve.cache import (CacheStore, PageLayout, cache_struct,
+                                     init_cache, init_paged, is_paged,
+                                     make_layout, paged_struct, serve_dtypes)
+from repro_torch.serve.memory import MemoryManager, PrefixIndex
+
+__all__ = ["CacheStore", "MemoryManager", "PageLayout", "PrefixIndex",
+           "cache_struct", "init_cache", "init_paged", "is_paged",
+           "make_layout", "paged_struct", "serve_dtypes"]

@@ -1,0 +1,105 @@
+"""The Hopper kernels and the kernel path on the card (marker `cuda`).
+
+These tests import neither jax nor repro, so they run on a machine with an
+sm_90 card and no JAX:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+Elsewhere they skip. Each kernel is held against its plain PyTorch version
+on the same CUDA inputs (2e-5 in f32: the sums run in another order; 5e-2
+in bf16: one rounding of the output), and the serve_kernels preset on the
+card streams the same greedy tokens as its plain path on the CPU.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api import Engine, get_preset
+from repro_torch.api.serving import Request, Scheduler
+from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
+from repro_torch.models import lm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available() or \
+            torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("needs an sm_90 CUDA card: the kernels have no CPU build "
+                    "(chip_smoke.py runs the same checks there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tol(dtype):
+    return dict(atol=5e-2, rtol=5e-2) if dtype == torch.bfloat16 \
+        else dict(atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,H,KV", [(16, 2, 2), (128, 16, 8)])
+def test_kernels_match_plain_versions(card, dtype, hd, H, KV):
+    g = torch.Generator(device=card).manual_seed(hd)
+
+    def rnd(*s, d=dtype):
+        return torch.randn(s, generator=g, device=card).to(d)
+
+    q = rnd(2, 100, H, hd).transpose(1, 2)
+    k = rnd(2, 100, KV, hd).transpose(1, 2)
+    for window in (0, 40):
+        torch.testing.assert_close(
+            flash_attention_fwd(q, k, k, window=window).float(),
+            tref.attention_ref(q, k, k, window=window).float(), **_tol(dtype))
+    q1 = rnd(4, H, hd)
+    cache = rnd(4, 77, KV, hd).transpose(1, 2)
+    lens = torch.tensor([0, 1, 40, 77], dtype=torch.int32, device=card)
+    for window in (0, 30):
+        out = flash_decode(q1, cache, cache, lens, window=window)
+        torch.testing.assert_close(
+            out.float(), tref.decode_ref(q1, cache, cache, lens,
+                                         window=window).float(),
+            **_tol(dtype))
+        assert torch.all(out[0] == 0)
+    tab = torch.tensor([[-1] * 5, [3, -1, -1, -1, -1], [4, 7, 9, -1, -1],
+                        [0, 1, 2, 5, 6]], dtype=torch.int32, device=card)
+    for pool_dt in (dtype, torch.float8_e4m3fn):
+        pool = rnd(2, 21, 16, KV, hd, d=pool_dt)
+        out = flash_decode_paged(q1, pool, pool, tab, lens, layer=1)
+        torch.testing.assert_close(
+            out.float(), tref.decode_paged_ref(q1, pool, pool, tab, lens,
+                                               layer=1).float(),
+            **_tol(dtype))
+        assert torch.all(out[0] == 0)
+
+
+def test_serve_kernels_on_card_match_cpu(card):
+    """The serve_kernels preset (f32) through the Hopper kernels on the
+    card and through the plain versions on the CPU: one greedy stream per
+    request, with every prefill and decode step launching its kernel."""
+    plan = get_preset("serve_kernels")
+    params = lm.init_params(plan.arch, torch.Generator().manual_seed(0))
+    for name in ("wq", "wk", "wv", "wo", "mlp_wi", "mlp_wo"):
+        params["blocks"][name].mul_(20.0)     # layers, not the embedding
+    rng = np.random.default_rng(0)
+    reqs = [(i, rng.integers(0, 256, int(rng.integers(2, 9)),
+                             dtype=np.int32), int(rng.integers(1, 9)))
+            for i in range(8)]
+
+    def run(device):
+        p = {k: ({n: t.to(device) for n, t in v.items()}
+                 if k == "blocks" else v.to(device))
+             for k, v in params.items()}
+        return Scheduler(Engine(plan, params=p, device=device)).run(
+            [Request(i, pr.copy(), n) for i, pr, n in reqs])
+
+    reset_launches()
+    on_card = run(card)
+    assert LAUNCHES["flash_attention_fwd"] == 2 * on_card.prefill_calls
+    assert LAUNCHES["flash_decode_paged"] == 2 * on_card.decode_steps > 0
+    on_cpu = run("cpu")
+    assert [r.tokens for r in on_card.requests] == \
+        [r.tokens for r in on_cpu.requests]
