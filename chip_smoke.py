@@ -6,10 +6,14 @@
 Phases (each prints a line; any failure exits nonzero):
   1. device and build: the card's name and power limit (nvidia-smi), then
      the Hopper kernels compiled from src/repro_torch/kernels/csrc;
-  2. kernel parity: each kernel against its plain PyTorch version at the
-     qwen3-0.6b attention shapes (hd 128, 16 query / 8 kv heads), bf16 and
-     f32 — zero-length rows, per-row and ragged lengths, unmapped pages, an
-     fp8 pool, a window — then the kernel, plain and library times;
+  2. kernel parity: each attention kernel against its plain PyTorch version
+     at the qwen3-0.6b attention shapes (hd 128, 16 query / 8 kv heads),
+     bf16 and f32 — zero-length rows, per-row and ragged lengths, unmapped
+     pages, an fp8 pool, a window — and the chunked WKV6 kernel against the
+     sequential recurrence at the rwkv6-3b shapes (40 heads of 64, f32, y
+     and the final state, S 128 / 100 / 17 / 1, lens-padded row tails);
+     then the kernel, plain and library times (for WKV6 also the chunked
+     torch scan that the plain serve path runs);
   3. qwen3-0.6b at full width (28 layers, random weights from a seeded
      generator, bf16) served through the continuous-batching Scheduler over
      a 48-page pool, with the kernel launch counts of that run asserted,
@@ -17,8 +21,17 @@ Phases (each prints a line; any failure exits nonzero):
   4. the same requests in f32 through the kernels and through the plain
      path: the first prefill's logits agree and the greedy streams match
      except at a step whose top-2 margin is under the tolerance;
-  5. Engine.generate at full width over the contiguous cache (flash_decode);
-  6. one JSON line of per-kernel numbers.
+  5. Engine.generate at full width over the contiguous cache (flash_decode),
+     then a profiled short run;
+  6. rwkv6-3b at full width (32 layers, d 2560, 40 WKV heads of 64, d_ff
+     8960, vocab 65536, untied head; random weights, bf16) served through
+     the Scheduler with no page pool, rwkv6_chunked launched by every layer
+     of every prefill group, then a profiled short run;
+  7. rwkv6-3b's requests in f32, kernel against the plain chunked scan, as
+     in phase 4;
+  8. rwkv6-3b through Engine.generate (batch 8 x prompt 128 + 32), then a
+     profiled short run;
+  9. one JSON line of per-kernel numbers.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script fails before printing any
 result. It imports neither jax nor the JAX package.
@@ -37,8 +50,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM (NVIDIA data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+# chunked WKV6 against the sequential recurrence (atol and rtol), as
+# tests/test_kernels.py holds the Pallas kernel
+RWKV_TOL = 5e-4
 LOGIT_TOL = 1e-3                   # f32 full-width logits, kernel vs plain
 N_LAYERS = 28
+N_RWKV_LAYERS = 32
+RWKV_MATS = ("wr", "wk", "wv", "wg", "wo", "cm_k", "cm_v", "cm_r")
 # The block matrices are drawn at the JAX init's std 0.02 and then scaled by
 # this: at 0.02 the tied-embedding residual dominates every layer's update
 # and each greedy stream repeats its last prompt token, which would leave
@@ -85,6 +103,14 @@ def profile_run(label, run):
         "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
 
 
+def bf16_copy(params):
+    """A bfloat16 copy of a param tree (blocks nested one level down)."""
+    import torch
+    return {k: ({n: t.to(torch.bfloat16) for n, t in v.items()}
+                if k == "blocks" else v.to(torch.bfloat16))
+            for k, v in params.items()}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -97,7 +123,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_paged)
-    from repro_torch.models import lm
+    from repro_torch.kernels.rwkv6_scan import rwkv6_chunked
+    from repro_torch.models import lm, ssm
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script measures "
@@ -135,6 +162,7 @@ def main() -> int:
 
     # ---- 2. kernel parity ----------------------------------------------
     worst = {k: {"float32": 0.0, "bfloat16": 0.0} for k in LAUNCHES}
+    worst["rwkv6_chunked"] = {"float32": 0.0}          # f32 only
 
     def hold(name, out, ref, dtype, zero_row=None):
         torch.cuda.synchronize()
@@ -182,9 +210,45 @@ def main() -> int:
                  flash_decode_paged(q1, kp, vp, tab, lens, layer=2),
                  kref.decode_paged_ref(q1, kp, vp, tab, lens, layer=2), dt,
                  zero_row=0)
+    # the chunked WKV6 kernel, f32 only, at the rwkv6-3b shapes: S a multiple
+    # of the chunk, a masked tail chunk, a prime, one token; r/k/v/w handed
+    # over as the model does ([B, S, H, hd] memory through a [B, H, S, hd]
+    # view); each row's tail past its length made a no-op as lens padding
+    # makes it (k = 0, w = 0); w drawn in [-4, 0]
+    Hr, hdr = 40, 64
+    u_r = 0.3 + 0.1 * randn(Hr, hdr)
+
+    def wkv_inputs(B, S):
+        r, k, v = (randn(B, S, Hr, hdr).mul_(0.5).transpose(1, 2)
+                   for _ in range(3))
+        w = (-4.0 * torch.rand((B, S, Hr, hdr), generator=gen,
+                               device=dev)).transpose(1, 2)
+        return r, k, v, w
+
+    for S in (128, 100, 17, 1):
+        B = 8
+        r, k, v, w = wkv_inputs(B, S)
+        lens = torch.tensor([S, S - 1, S // 2, 1, S, 3, S // 3, 2],
+                            device=dev).clamp(1, S)
+        live = (torch.arange(S, device=dev)[None, :] < lens[:, None])
+        live = live[:, None, :, None]
+        k, w = torch.where(live, k, 0.0), torch.where(live, w, 0.0)
+        got = rwkv6_chunked(r, k, v, w, u_r)
+        torch.cuda.synchronize()
+        want = kref.rwkv6_ref(r, k, v, w, u_r)
+        for what, a, b in zip(("y", "state"), got, want):
+            e = err(a, b)
+            worst["rwkv6_chunked"]["float32"] = max(
+                worst["rwkv6_chunked"]["float32"], e)
+            if not (torch.isfinite(a).all() and bool(
+                    ((a - b).abs() <= RWKV_TOL + RWKV_TOL * b.abs()).all())):
+                raise AssertionError(
+                    f"rwkv6_chunked S {S} {what}: max |kernel - plain| = "
+                    f"{e:.3e} outside atol = rtol = {RWKV_TOL}")
     log("parity", "max |kernel - plain| " + json.dumps(
         {k: {d: float(f"{e:.3e}") for d, e in v.items()}
-         for k, v in worst.items()}) + f" within {TOL}")
+         for k, v in worst.items()}) + f" within {TOL} (rwkv6_chunked: "
+        f"f32, atol = rtol = {RWKV_TOL})")
 
     def time_ms(fn, argsets, reps=3):
         """Mean ms per call over `reps` passes through argsets (one set
@@ -221,6 +285,7 @@ def main() -> int:
         library_ms=time_ms(lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), att_sets),
         library="scaled_dot_product_attention(is_causal, enable_gqa)",
+        dtype="bfloat16", tolerance=TOL,
         shape=f"B{B} S{S} H{H} KV{KV} hd{hd} bf16",
         bound=bound(2 * B * S * (2 * H + 2 * KV) * hd,
                     4 * B * H * hd * pairs))
@@ -257,6 +322,7 @@ def main() -> int:
                          pg_sets),
         library_ms=time_ms(gathered_sdpa, pg_sets),
         library="page gather + scaled_dot_product_attention(mask)",
+        dtype="bfloat16", tolerance=TOL,
         shape=f"B{B} pool[{N_LAYERS},{P1},{ps},{KV},{hd}] live {live} "
               f"positions bf16",
         bound=bound(2 * (2 * B * H * hd + 2 * live * KV * hd)
@@ -276,15 +342,125 @@ def main() -> int:
         library_ms=time_ms(lambda q, k, v, n: F.scaled_dot_product_attention(
             q[:, :, None], k, v, attn_mask=cmask, enable_gqa=True), c_sets),
         library="scaled_dot_product_attention(mask)",
+        dtype="bfloat16", tolerance=TOL,
         shape=f"B{B} cache[{N_LAYERS},{B},{S},{KV},{hd}] length 140 bf16",
         bound=bound(2 * (2 * B * H * hd + 2 * B * 140 * KV * hd) + 4 * B,
                     4 * H * hd * B * 140))
+    # the WKV6 prefill at the rwkv6-3b serve shape: B 8, S 128 (the prompt
+    # width), 40 heads of 64, f32; 32 layers' inputs (1.3 GB) cycled. The
+    # plain version is the sequential recurrence the kernel is held against;
+    # the plain scan is the chunked torch scan kernel_backend="ref" serves.
+    B, S, C = 8, 128, 16
+    wkv_sets = [(*wkv_inputs(B, S), u_r) for _ in range(N_RWKV_LAYERS)]
+    elems = B * Hr * S * hdr
+    timing["rwkv6_chunked"] = dict(
+        ms=time_ms(rwkv6_chunked, wkv_sets),
+        plain_ms=time_ms(kref.rwkv6_ref, wkv_sets),
+        plain_scan_ms=time_ms(lambda r, k, v, w, u: ssm.wkv6_chunked_scan(
+            *(a.transpose(1, 2) for a in (r, k, v, w)), u), wkv_sets),
+        library_ms=None,
+        library="none (no single PyTorch call computes WKV6)",
+        dtype="float32", tolerance={"float32": RWKV_TOL},
+        shape=f"B{B} S{S} H{Hr} hd{hdr} f32",
+        # r, k, v, w read, y written, u read, the final state written;
+        # per chunk: scores and y's intra-chunk term (2 x 2C^2 hd), the
+        # inter-chunk term and the state update (2 x 2C hd^2)
+        bound=bound(4 * (5 * elems + Hr * hdr + B * Hr * hdr * hdr),
+                    B * Hr * -(-S // C) * (4 * C * C * hdr
+                                           + 4 * C * hdr * hdr),
+                    "float32"))
     for name, t in timing.items():
+        lib = "none" if t["library_ms"] is None else \
+            f"{t['library_ms']:.4f} ms"
+        scan = "" if "plain_scan_ms" not in t else \
+            f", plain chunked scan {t['plain_scan_ms']:.4f} ms"
         log("timing", f"{name} [{t['shape']}]: kernel {t['ms']:.4f} ms, "
-            f"plain {t['plain_ms']:.4f} ms, {t['library']} "
-            f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
-            f"({t['bound'][1]})")
-    del att_sets, pg_sets, c_sets, kp, vp, ck, cv
+            f"plain {t['plain_ms']:.4f} ms{scan}, library {t['library']} "
+            f"{lib}, bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
+    del att_sets, pg_sets, c_sets, kp, vp, ck, cv, wkv_sets
+
+    def check_launches(tag, launches, rep, need):
+        """`need` maps each kernel of the path to ("prefill" | "decode", its
+        launches per prefill group or per decode step)."""
+        ok = rep.prefill_calls and rep.decode_steps
+        for name, (per, n) in need.items():
+            groups = rep.prefill_calls if per == "prefill" else \
+                rep.decode_steps
+            ok = ok and launches[name] >= n * groups
+        if not ok:
+            raise AssertionError(f"{tag} missed its kernels: {launches} for "
+                                 f"{rep.prefill_calls} prefill groups, "
+                                 f"{rep.decode_steps} decode steps; needed "
+                                 f"{need}")
+
+    def serve_phase(tag, eng, reqs, need, pool):
+        """`reqs` through the Scheduler once to warm up (cuBLAS, the
+        allocator) and once with the launch counts at 0: every kernel of
+        `need` launched, every request's tokens out and in the vocabulary,
+        a page pool only if `pool`; then a profiled short run. Returns the
+        launch counts of the measured run."""
+        arch, sv = eng.plan.arch, eng.plan.serve
+        t0 = time.monotonic()
+        Scheduler(eng).run(reqs[:2])
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t0
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        rep = Scheduler(eng).run(reqs)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        check_launches(tag, launches, rep, need)
+        toks = [t for r in rep.requests for t in r.tokens]
+        if rep.tokens_out != len(reqs) * sv.gen or \
+                bool(rep.pages_total) != pool or \
+                not all(0 <= t < arch.vocab_size for t in toks):
+            raise AssertionError(f"{tag}: bad serve output: {rep.tokens_out} "
+                                 f"tokens, {rep.pages_total} pages")
+        stats = eng.serve_store().stats()
+        log("serve", f"{tag} bf16: {len(reqs)} requests, {rep.tokens_out} "
+            f"tokens ({len(set(toks))} distinct) in {rep.wall_s:.3f} s = "
+            f"{rep.tokens_per_s():.1f} tok/s; {rep.ms_per_token():.2f} ms "
+            f"per decode step over {rep.decode_steps} steps; mean TTFT "
+            f"{rep.mean_ttft() * 1e3:.1f} ms over {rep.prefill_calls} "
+            f"prefill groups ({rep.prefill_s / rep.prefill_calls * 1e3:.1f} "
+            f"ms each); peak pages {rep.peak_pages}/{rep.pages_total}, "
+            f"admission blocked {rep.admit_blocked}x; pool "
+            f"{stats['pool_bytes'] / 2**20:.1f} MiB; per-slot state "
+            f"{stats['slot_state_bytes'] / 2**20:.1f} MiB; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"warm-up {warm_s:.1f} s")
+        log("serve", f"{tag} launches {launches} (needed per prefill group "
+            f"/ decode step: {need})")
+        short = [Request(rid=100 + i, prompt=r.prompt, max_new_tokens=8)
+                 for i, r in enumerate(reqs[:8])]
+        profile_run(f"{tag} Scheduler, 8 requests x 8 tokens",
+                    lambda: Scheduler(eng).run(short))
+        return launches
+
+    def generate_phase(tag, plan, params, need):
+        """Engine.generate over the contiguous cache, warmed up, then with
+        the launch counts at 0; then a profiled short run. Returns the
+        launch counts of the measured run."""
+        arch, sv = plan.arch, plan.serve
+        eg = Engine(plan, params=params)
+        eg.generate()                             # warm-up
+        reset_launches()
+        rep = eg.generate()
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        check_launches(f"{tag} generate", launches, rep, need)
+        if rep.tokens.shape != (sv.max_batch, sv.gen) or not (
+                (rep.tokens >= 0) & (rep.tokens < arch.vocab_size)).all():
+            raise AssertionError(f"{tag}: bad generate output "
+                                 f"{rep.tokens.shape}")
+        log("generate", f"{tag} bf16, batch {sv.max_batch}, prompt "
+            f"{sv.prompt_len}, {sv.gen} tokens: prefill "
+            f"{rep.prefill_s * 1e3:.1f} ms, {rep.ms_per_token():.2f} ms/token "
+            f"over {rep.decode_steps} steps, {rep.tokens_per_s():.1f} tok/s; "
+            f"launches {launches}")
+        profile_run(f"{tag} Engine.generate, batch {sv.max_batch} x 8 tokens",
+                    Engine(plan.replace(serve__gen=8), params=params).generate)
+        return launches
 
     # ---- 3. full-width paged serving -----------------------------------
     arch = ARCHS["qwen3-0.6b"]
@@ -292,82 +468,23 @@ def main() -> int:
                               dtype=torch.float32, device=dev)
     for name in ("wq", "wk", "wv", "wo", "mlp_wi", "mlp_wo"):
         params32["blocks"][name].mul_(WEIGHT_SCALE)
-    params_bf16 = {k: ({n: t.to(torch.bfloat16) for n, t in v.items()}
-                       if k == "blocks" else v.to(torch.bfloat16))
-                   for k, v in params32.items()}
+    params_bf16 = bf16_copy(params32)
     sv = ServeSpec(prompt_len=128, gen=32, max_batch=8, page_size=16,
                    max_pages=48, kernel_backend="cuda")
     plan = Plan(arch=arch, run=RunSpec(compute_dtype="bfloat16"), serve=sv)
-    eng = Engine(plan, params=params_bf16)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(
         0, arch.vocab_size, int(rng.integers(16, 129)), dtype=np.int32))
         for i in range(16)]
-    t0 = time.monotonic()
-    Scheduler(eng).run(reqs[:2])            # warm-up: cuBLAS, allocator
-    torch.cuda.synchronize()
-    warm_s = time.monotonic() - t0
-    reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    rep = Scheduler(eng).run(reqs)
-    torch.cuda.synchronize()
-    main_launches = dict(LAUNCHES)
-    if main_launches["flash_attention_fwd"] < N_LAYERS * rep.prefill_calls \
-            or main_launches["flash_decode_paged"] < \
-            N_LAYERS * rep.decode_steps or not rep.decode_steps:
-        raise AssertionError(f"the served path missed its kernels: "
-                             f"{main_launches} for {rep.prefill_calls} "
-                             f"prefill groups, {rep.decode_steps} decode "
-                             f"steps")
-    toks = [t for r in rep.requests for t in r.tokens]
-    if rep.tokens_out != 16 * sv.gen or not all(
-            0 <= t < arch.vocab_size for t in toks):
-        raise AssertionError(f"bad serve output: {rep.tokens_out} tokens")
-    stats = eng.serve_store().stats()
-    log("serve", f"qwen3-0.6b full width ({arch.num_layers} layers, d "
+    main_launches = serve_phase(
+        f"qwen3-0.6b full width ({arch.num_layers} layers, d "
         f"{arch.d_model}, {arch.num_heads}/{arch.num_kv_heads} heads, hd "
-        f"{arch.head_dim}, vocab {arch.vocab_size}) bf16: "
-        f"{len(reqs)} requests, {rep.tokens_out} tokens "
-        f"({len(set(toks))} distinct) in {rep.wall_s:.3f} s = "
-        f"{rep.tokens_per_s():.1f} tok/s; {rep.ms_per_token():.2f} ms per "
-        f"decode step over {rep.decode_steps} steps; mean TTFT "
-        f"{rep.mean_ttft() * 1e3:.1f} ms over {rep.prefill_calls} prefill "
-        f"groups ({rep.prefill_s / rep.prefill_calls * 1e3:.1f} ms each); "
-        f"peak pages {rep.peak_pages}/{rep.pages_total}, admission blocked "
-        f"{rep.admit_blocked}x; pool {stats['pool_bytes'] / 2**20:.1f} MiB; "
-        f"peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; warm-up "
-        f"{warm_s:.1f} s")
-    log("serve", f"launches {main_launches} (>= {N_LAYERS} x "
-        f"{rep.prefill_calls} prefill groups, {N_LAYERS} x "
-        f"{rep.decode_steps} decode steps)")
-    short = [Request(rid=100 + i, prompt=r.prompt, max_new_tokens=8)
-             for i, r in enumerate(reqs[:8])]
-    profile_run("Scheduler, 8 requests x 8 tokens",
-                lambda: Scheduler(eng).run(short))
-    del eng
+        f"{arch.head_dim}, vocab {arch.vocab_size})",
+        Engine(plan, params=params_bf16), reqs,
+        {"flash_attention_fwd": ("prefill", N_LAYERS),
+         "flash_decode_paged": ("decode", N_LAYERS)}, pool=True)
 
     # ---- 4. kernel path against the plain path, f32 --------------------
-    plan32 = plan.replace(run__compute_dtype="float32")
-    e_k = Engine(plan32, params=params32)
-    e_r = Engine(plan32.replace(serve__kernel_backend="ref"),
-                 params=params32)
-    first = []
-    for e in (e_k, e_r):
-        store = e.serve_store()
-        prompts = np.zeros((sv.max_batch, sv.prompt_len), np.int32)
-        lens = np.ones(sv.max_batch, np.int32)
-        for j, r in enumerate(reqs[:4]):
-            store.alloc(j, len(r.prompt) + sv.gen)
-            prompts[j, :len(r.prompt)] = r.prompt
-            lens[j] = len(r.prompt)
-        first.append(e.prefill_into(store, prompts, lens, [0, 1, 2, 3])[:4])
-        del store
-    d_logits = err(first[0], first[1])
-    if not (d_logits <= LOGIT_TOL and torch.isfinite(first[0]).all()):
-        raise AssertionError(f"f32 first-prefill logits differ by "
-                             f"{d_logits:.3e} > {LOGIT_TOL}")
-
     class MarginScheduler(Scheduler):
         """Records each pick's top-2 logit margin, keyed (rid, k)."""
 
@@ -380,53 +497,105 @@ def main() -> int:
             self.margins[(rid, k)] = float(top[1] - top[0])
             return super()._pick_one(row, rid, k)
 
-    out_k = Scheduler(e_k).run(reqs)
-    ref_sched = MarginScheduler(e_r)
-    out_r = ref_sched.run(reqs)
-    near_ties, diverged = 0, 0
-    for a, b in zip(out_k.requests, out_r.requests):
-        if a.tokens != b.tokens:
-            k = next(i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
-                     if x != y)
-            margin = ref_sched.margins[(b.rid, k)]
-            if margin >= LOGIT_TOL:
-                raise AssertionError(
-                    f"rid {a.rid}: streams diverge at token {k} with a top-2 "
-                    f"margin {margin:.3e} >= {LOGIT_TOL}")
-            near_ties += 1
-        diverged += a.tokens != b.tokens
-    log("f32", f"first-prefill logits max |cuda - ref| {d_logits:.3e} "
-        f"(tolerance {LOGIT_TOL}); streams identical for "
-        f"{len(reqs) - diverged}/{len(reqs)} requests, {near_ties} "
-        f"divergence(s) at a top-2 margin under {LOGIT_TOL}; "
-        f"min margin {min(ref_sched.margins.values()):.3e}")
-    del e_k, e_r, params32
+    def f32_streams(tag, plan32, params32, reqs):
+        """`reqs` in f32 through the kernels and through the plain path: the
+        first prefill's logits agree within LOGIT_TOL and the greedy streams
+        match except at a step whose plain top-2 margin is under it."""
+        sv = plan32.serve
+        e_k = Engine(plan32, params=params32)
+        e_r = Engine(plan32.replace(serve__kernel_backend="ref"),
+                     params=params32)
+        first = []
+        for e in (e_k, e_r):
+            store = e.serve_store()
+            prompts = np.zeros((sv.max_batch, sv.prompt_len), np.int32)
+            lens = np.ones(sv.max_batch, np.int32)
+            for j, r in enumerate(reqs[:4]):
+                store.alloc(j, len(r.prompt) + sv.gen)
+                prompts[j, :len(r.prompt)] = r.prompt
+                lens[j] = len(r.prompt)
+            first.append(e.prefill_into(store, prompts, lens,
+                                        [0, 1, 2, 3])[:4])
+            del store
+        d_logits = err(first[0], first[1])
+        if not (d_logits <= LOGIT_TOL and torch.isfinite(first[0]).all()):
+            raise AssertionError(f"{tag}: f32 first-prefill logits differ by "
+                                 f"{d_logits:.3e} > {LOGIT_TOL}")
+        out_k = Scheduler(e_k).run(reqs)
+        ref_sched = MarginScheduler(e_r)
+        out_r = ref_sched.run(reqs)
+        near_ties, diverged = 0, 0
+        for a, b in zip(out_k.requests, out_r.requests):
+            if a.tokens != b.tokens:
+                k = next(i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                         if x != y)
+                margin = ref_sched.margins[(b.rid, k)]
+                if margin >= LOGIT_TOL:
+                    raise AssertionError(
+                        f"{tag}: rid {a.rid}: streams diverge at token {k} "
+                        f"with a top-2 margin {margin:.3e} >= {LOGIT_TOL}")
+                near_ties += 1
+            diverged += a.tokens != b.tokens
+        log("f32", f"{tag}: first-prefill logits max |cuda - ref| "
+            f"{d_logits:.3e} (tolerance {LOGIT_TOL}); streams identical for "
+            f"{len(reqs) - diverged}/{len(reqs)} requests, {near_ties} "
+            f"divergence(s) at a top-2 margin under {LOGIT_TOL}; "
+            f"min margin {min(ref_sched.margins.values()):.3e}")
+
+    f32_streams("qwen3-0.6b", plan.replace(run__compute_dtype="float32"),
+                params32, reqs)
+    del params32
 
     # ---- 5. Engine.generate at full width, contiguous cache ------------
-    plan_g = Plan(arch=arch, run=RunSpec(compute_dtype="bfloat16"),
-                  serve=ServeSpec(prompt_len=128, gen=32, max_batch=8,
-                                  kernel_backend="cuda"))
-    eg = Engine(plan_g, params=params_bf16)
-    eg.generate()                             # warm-up
-    reset_launches()
-    grep = eg.generate()
-    torch.cuda.synchronize()
-    gen_launches = dict(LAUNCHES)
-    if gen_launches["flash_decode"] < N_LAYERS * grep.decode_steps \
-            or not grep.decode_steps:
-        raise AssertionError(f"generate missed flash_decode: {gen_launches}")
-    if grep.tokens.shape != (8, 32) or not (
-            (grep.tokens >= 0) & (grep.tokens < arch.vocab_size)).all():
-        raise AssertionError(f"bad generate output {grep.tokens.shape}")
-    log("generate", f"full width bf16, batch 8, prompt 128, 32 tokens: "
-        f"prefill {grep.prefill_s * 1e3:.1f} ms, {grep.ms_per_token():.2f} "
-        f"ms/token over {grep.decode_steps} steps, "
-        f"{grep.tokens_per_s():.1f} tok/s; launches {gen_launches}")
-    profile_run("Engine.generate, batch 8 x 8 tokens",
-                Engine(plan_g.replace(serve__gen=8),
-                       params=params_bf16).generate)
+    gen_launches = generate_phase(
+        "qwen3-0.6b full width",
+        Plan(arch=arch, run=RunSpec(compute_dtype="bfloat16"),
+             serve=ServeSpec(prompt_len=128, gen=32, max_batch=8,
+                             kernel_backend="cuda")), params_bf16,
+        {"flash_attention_fwd": ("prefill", N_LAYERS),
+         "flash_decode": ("decode", N_LAYERS)})
+    del params_bf16
 
-    # ---- 6. the kernels line -------------------------------------------
+    # ---- 6. rwkv6-3b at full width, bf16, Scheduler ----------------------
+    rw = ARCHS["rwkv6-3b"]
+    rgen = torch.Generator(device=dev).manual_seed(1)
+    rparams32 = lm.init_params(rw, rgen, dtype=torch.float32, device=dev)
+    blk = rparams32["blocks"]
+    for name in RWKV_MATS:
+        blk[name].mul_(WEIGHT_SCALE)
+    # the JAX init's wa = wb = 0 makes the decay one constant: draw the LoRA
+    # so the decay varies per token and channel and the clip is reached
+    # (raw ~ -5 + N(0, ~3) against the clip at [-8, 1.386]), and draw the
+    # token-shift mixes and the u-bonus
+    blk["wa"].normal_(0.0, 0.02, generator=rgen)
+    blk["wb"].normal_(0.0, 0.5, generator=rgen)
+    for name in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "cm_mu_k",
+                 "cm_mu_r", "u"):
+        blk[name].uniform_(0.0, 1.0, generator=rgen)
+    rparams_bf16 = bf16_copy(rparams32)
+    rplan = Plan(arch=rw, run=RunSpec(compute_dtype="bfloat16"),
+                 serve=ServeSpec(prompt_len=128, gen=32, max_batch=8,
+                                 kernel_backend="cuda"))
+    rreqs = [Request(rid=i, prompt=rng.integers(
+        0, rw.vocab_size, int(rng.integers(16, 129)), dtype=np.int32))
+        for i in range(16)]
+    rwkv_need = {"rwkv6_chunked": ("prefill", N_RWKV_LAYERS)}
+    rw_launches = serve_phase(
+        f"rwkv6-3b full width ({rw.num_layers} layers, d {rw.d_model}, "
+        f"{rw.n_ssm_heads} WKV heads of {rw.d_model // rw.n_ssm_heads}, "
+        f"d_ff {rw.d_ff}, vocab {rw.vocab_size}, untied head)",
+        Engine(rplan, params=rparams_bf16), rreqs, rwkv_need, pool=False)
+
+    # ---- 7. rwkv6-3b kernel path against the plain path, f32 ------------
+    f32_streams("rwkv6-3b", rplan.replace(run__compute_dtype="float32"),
+                rparams32, rreqs)
+    del rparams32
+
+    # ---- 8. rwkv6-3b Engine.generate, contiguous cache -------------------
+    generate_phase("rwkv6-3b full width", rplan, rparams_bf16, rwkv_need)
+    del rparams_bf16
+
+    # ---- 9. the kernels line -------------------------------------------
     src = {"flash_attention_fwd": ("src/repro_torch/kernels/csrc/"
                                    "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:94"),
@@ -434,22 +603,27 @@ def main() -> int:
                                   "flash_decode.cu",
                                   "src/repro/kernels/flash_decode.py:241"),
            "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
-                            "src/repro/kernels/flash_decode.py:127")}
+                            "src/repro/kernels/flash_decode.py:127"),
+           "rwkv6_chunked": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                             "src/repro/kernels/rwkv6_scan.py:67")}
     launches = {"flash_attention_fwd": main_launches["flash_attention_fwd"],
                 "flash_decode_paged": main_launches["flash_decode_paged"],
-                "flash_decode": gen_launches["flash_decode"]}
+                "flash_decode": gen_launches["flash_decode"],
+                "rwkv6_chunked": rw_launches["rwkv6_chunked"]}
     power = smi.split(",")[-1].strip()
     kernels = []
     for name in ("flash_decode_paged", "flash_attention_fwd",
-                 "flash_decode"):
+                 "flash_decode", "rwkv6_chunked"):
         t = timing[name]
+        errs = worst[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src[name][0],
             "replaces": src[name][1], "launches": launches[name],
-            "max_abs_err": worst[name]["bfloat16"],
-            "max_abs_err_f32": worst[name]["float32"],
-            "tolerance": TOL, "ms": t["ms"], "kernel_ms": t["ms"],
+            "max_abs_err": errs[t["dtype"]], "max_abs_err_dtype": t["dtype"],
+            "max_abs_err_f32": errs["float32"], "tolerance": t["tolerance"],
+            "ms": t["ms"], "kernel_ms": t["ms"],
             "plain_ms": t["plain_ms"],
+            "plain_scan_ms": t.get("plain_scan_ms"),
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"], "library": t["library"],
             "shape": t["shape"], "card": card, "power_limit": power})

@@ -95,7 +95,7 @@ class ServeSpec:
     from a pool of `max_pages` pages (0 -> the worst case); admission is
     refused while the pool is exhausted. `share_prefix` / `evict` /
     `preempt` drive repro_torch.serve.memory. `kernel_backend` picks the
-    plain attention paths ("ref") or the Hopper kernels ("cuda")."""
+    plain attention and WKV paths ("ref") or the Hopper kernels ("cuda")."""
 
     prompt_len: int = 24
     gen: int = 16

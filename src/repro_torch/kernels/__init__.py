@@ -4,6 +4,8 @@
   flash_decode          one-token decode over a contiguous cache
   flash_decode_paged    one-token decode walking the paged KV pool through
                         the block table (both in csrc/flash_decode.cu)
+  rwkv6_chunked         the chunked WKV6 recurrence of RWKV6 prefill
+                        (csrc/rwkv6_scan.cu)
 
 Each wrapper runs its plain version (kernels/ref.py) on a CPU tensor and
 launches its kernel on a CUDA tensor, counting launches in LAUNCHES.

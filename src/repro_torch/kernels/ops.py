@@ -1,4 +1,4 @@
-"""Backend dispatch and layout adapters over the attention kernels.
+"""Backend dispatch and layout adapters over the Hopper kernels.
 
 BACKENDS:
   "ref"   the kernels' plain PyTorch versions (kernels/ref.py)
@@ -6,8 +6,9 @@ BACKENDS:
           kernel (or raise); on a CPU tensor they run the plain version
 
 The model calls these only with kernel_backend="cuda"; with "ref" it takes
-its own plain paths (models/attention.py), as the JAX package does. The
-layout adapters between the model convention ([B, S, H, hd]) and the
+its own plain paths (models/attention.py for attention, the chunked torch
+scan of models/ssm.py for the RWKV6 time-mix), as the JAX package does.
+The layout adapters between the model convention ([B, S, H, hd]) and the
 kernel convention ([B, H, S, hd]) live here; both are views, no copies.
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
+from repro_torch.kernels.rwkv6_scan import rwkv6_chunked
 
 BACKENDS = ("ref", "cuda")
 
@@ -54,3 +56,11 @@ def decode_attention_paged(q1, k_pool, v_pool, block_tab, lengths, *,
                                      layer=layer)
     return flash_decode_paged(q1, k_pool, v_pool, block_tab, lengths,
                               layer=layer)
+
+
+def rwkv6(r, k, v, w, u, *, backend="ref"):
+    """Kernel layout: r,k,v,w [B,H,S,hd] (w = log-decay <= 0), u [H,hd] ->
+    (y [B,H,S,hd], final state [B,H,hd,hd] f32), from a zero state."""
+    if check_backend(backend) == "ref":
+        return kref.rwkv6_ref(r, k, v, w, u)
+    return rwkv6_chunked(r, k, v, w, u)

@@ -1,14 +1,16 @@
-"""Plain PyTorch versions of the attention kernels (the allclose targets).
+"""Plain PyTorch versions of the Hopper kernels (the allclose targets).
 
 Each function computes exactly what its Hopper kernel computes, with the
-same masking and the same zero-length contract (`l >= 1e-30`: a row with
-no live position returns zeros). On a CPU tensor the kernel wrappers run
-these; on the card `chip_smoke.py` holds each kernel against them.
+same masking and the same zero-length contract for attention (`l >=
+1e-30`: a row with no live position returns zeros). On a CPU tensor the
+kernel wrappers run these; on the card `chip_smoke.py` holds each kernel
+against them.
 
 Layouts (kernel-native):
   attention: q [B, H, Sq, hd]; k, v [B, KV, Sk, hd]  (GQA: G = H // KV)
   decode:    q1 [B, H, hd]; k, v [B, KV, S, hd]
   paged:     q1 [B, H, hd]; pools [groups, num_pages + 1, page_size, KV, hd]
+  rwkv6:     r, k, v, w [B, H, S, hd] (w = log-decay <= 0); u [H, hd]
 """
 from __future__ import annotations
 
@@ -82,3 +84,22 @@ def decode_paged_ref(q1, k_pool, v_pool, block_tab, lengths, *, layer=0):
         return pages.reshape(B, -1, KV, hd).transpose(1, 2)
 
     return decode_ref(q1, view(k_pool), view(v_pool), lengths, window=0)
+
+
+def rwkv6_ref(r, k, v, w, u):
+    """Sequential WKV6 recurrence from a zero state, one token at a time, in
+    f32:
+        y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
+        S_t = diag(exp(w_t)) S_{t-1} + k_t v_t^T
+    Returns (y [B,H,S,hd] in r's dtype, final state [B,H,hd,hd] f32)."""
+    B, H, S, hd = r.shape
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    st = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(S):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]     # [B,H,hd,hd]
+        ys.append(torch.einsum("bhi,bhij->bhj", rf[:, :, t], st + uf * kv))
+        st = torch.exp(wf[:, :, t])[..., None] * st + kv
+    y = torch.stack(ys, dim=2) if ys else rf.new_zeros((B, H, 0, hd))
+    return y.to(r.dtype), st

@@ -1,0 +1,68 @@
+"""Chunked WKV6 recurrence (RWKV6 time-mix): the wrapper of
+csrc/rwkv6_scan.cu.
+
+r, k, v, w [B, H, S, hd] float32 (w = log-decay <= 0; any strides with hd
+contiguous — the model hands over its [B, S, H, hd] activations through a
+transposed view, uncopied), u [H, hd] -> (y [B, H, S, hd] float32, the
+final state [B, H, hd, hd] float32), starting from a zero state. The CUDA
+y is laid out [B, S, H, hd] in memory (a transposed view), so the model's
+transpose back is free.
+
+On a CPU tensor this runs the plain version (kernels/ref.py:rwkv6_ref, the
+sequential recurrence); on a CUDA tensor it launches the kernel or raises.
+The kernel takes float32 only: its chunked form scales k by up to e^64
+(see csrc/rwkv6_scan.cu), which bf16 or TF32 products would not survive.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as kref
+
+HEAD_DIMS = (64,)         # rwkv6-3b: 40 heads of 64
+
+
+def rwkv6_chunked(r, k, v, w, u):
+    """r,k,v,w [B,H,S,hd] (w <= 0); u [H,hd]. Returns (y, final_state)."""
+    B, H, S, hd = r.shape
+    if any(t.shape != r.shape for t in (k, v, w)) or \
+            tuple(u.shape) != (H, hd):
+        raise ValueError(f"rwkv6_chunked: r/k/v/w must share [B,H,S,hd] and "
+                         f"u be [H,hd], got {tuple(r.shape)} "
+                         f"{tuple(k.shape)} {tuple(v.shape)} "
+                         f"{tuple(w.shape)} u {tuple(u.shape)}")
+    if r.device.type == "cpu":
+        return kref.rwkv6_ref(r, k, v, w, u)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"rwkv6_chunked: head_dim {hd} not in {HEAD_DIMS}")
+    for t in (r, k, v, w, u):
+        if t.dtype != torch.float32:
+            raise ValueError(f"rwkv6_chunked: the kernel takes float32 only, "
+                             f"got {t.dtype}")
+        if t.device != r.device:
+            raise ValueError(f"rwkv6_chunked: every operand must be on "
+                             f"{r.device}, got {t.device}")
+    if any(t.stride(3) != 1 for t in (r, k, v, w)) or \
+            len({t.stride() for t in (r, k, v, w)}) != 1:
+        raise ValueError(f"rwkv6_chunked: r/k/v/w need equal strides with hd "
+                         f"contiguous, got "
+                         f"{[t.stride() for t in (r, k, v, w)]}")
+    u = u.contiguous()
+    y = torch.empty((B, S, H, hd), dtype=torch.float32,
+                    device=r.device).transpose(1, 2)
+    state = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    if state.numel() == 0:
+        return y, state
+    lib = _build.load("rwkv6_scan")
+    fn = lib.rwkv6_chunked_launch
+    fn.restype = _build.INT
+    fn.argtypes = [_build.PTR] * 7 + [_build.INT] * 4 + [_build.I64] * 6 + \
+        [_build.PTR]
+    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+             u.data_ptr(), y.data_ptr(), state.data_ptr(), B, H, S, hd,
+             r.stride(0), r.stride(1), r.stride(2), y.stride(0), y.stride(1),
+             y.stride(2), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "rwkv6_chunked")
+    _build.LAUNCHES["rwkv6_chunked"] += 1
+    return y, state

@@ -10,7 +10,11 @@ the paged KV pool and prints throughput, occupancy, pages and latency.
   python -m repro_torch.launch.serve --no-reduced --compute-dtype bfloat16 \
       --requests 16 --batch 8 --prompt-len 128 --gen 32 --page-size 16 \
       --max-pages 48 --kernel-backend cuda            # qwen3-0.6b full width
+  python -m repro_torch.launch.serve --arch rwkv6-3b --no-reduced \
+      --compute-dtype bfloat16 --requests 16 --batch 8 --prompt-len 128 \
+      --gen 32 --kernel-backend cuda                  # rwkv6-3b full width
   python -m repro_torch.launch.serve --device cpu --requests 4
+  python -m repro_torch.launch.serve --arch rwkv6-3b --device cpu --requests 4
 
 --reduced (the default) serves the config cut down by configs.reduced();
 --no-reduced serves the real widths. (The JAX CLI declares --reduced as a
@@ -33,8 +37,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "runs the kernels' plain PyTorch versions")
     ap.add_argument("--kernel-backend", choices=("ref", "cuda"),
                     default="ref",
-                    help="hot-path attention (ServeSpec.kernel_backend): "
-                         "'ref' = plain torch, 'cuda' = the Hopper kernels")
+                    help="hot-path attention and WKV prefill "
+                         "(ServeSpec.kernel_backend): 'ref' = plain torch, "
+                         "'cuda' = the Hopper kernels")
     ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"),
                     default="float32",
                     help="params and activations (RunSpec.compute_dtype)")

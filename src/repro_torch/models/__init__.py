@@ -1,1 +1,1 @@
-"""Model zoo: layer-sequential LMs (the dense family so far)."""
+"""Model zoo: layer-sequential LMs (the dense and RWKV6 families so far)."""

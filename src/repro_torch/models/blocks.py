@@ -1,15 +1,16 @@
-"""Per-layer block application: the dense (full-attention GQA) family.
+"""Per-layer block application: the dense (full-attention GQA) and the
+attention-free RWKV6 families.
 
 A layer is applied with one signature for prefill and decode; per-layer
 behaviour (attention kind, cache group slot) rides in the LayerCtx.
 
 Conventions:
   x [B, S, d]; p the per-layer leaves (no layer dim)
-  kind: 0 = full attention (the only kind this port serves yet)
+  kind: 0 = full attention, 2 = none (RWKV6: the time-mix takes its place)
   cache: dict of cache groups (see serve.cache); writes are in place
 
-The windowed (h2o-danube, gemma3 local layers), MoE (granite), SSD hybrid
-(hymba) and RWKV6 branches are ROADMAP Queue 1 item 5 and raise.
+The windowed (h2o-danube, gemma3 local layers), MoE (granite) and SSD
+hybrid (hymba) branches are ROADMAP Queue 1 item 5 and raise.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_rope, layer_norm, rms_norm,
                                        rope_cos_sin)
 from repro_torch.serve import cache as cache_lib
@@ -42,6 +44,7 @@ class LayerCtx:
                                     # right-padded prefill; None = full rows
     kernel_backend: str = "ref"     # "ref" = plain torch paths; "cuda"
                                     # routes full-attention prefill/decode
+                                    # and the fresh-state RWKV6 prefill
                                     # through the repro_torch.kernels
 
 
@@ -170,12 +173,46 @@ def _attn_decode(cfg: ArchConfig, p, xn, ctx: LayerCtx, cache):
 
 
 # ----------------------------------------------------------------------------
+# RWKV6
+# ----------------------------------------------------------------------------
+def _rwkv_layer(cfg: ArchConfig, p, x, ctx: LayerCtx, cache):
+    """Full RWKV6 layer: ln1 + time-mix, ln2 + channel-mix. The cache's
+    ssm_state [Lp, B, H, hd, hd] and shift [Lp, B, 2, d] (the time-mix and
+    channel-mix token shifts) are written in place."""
+    H = cfg.n_ssm_heads
+    xx1 = rms_norm(x, p["ln1"], eps=cfg.norm_eps)
+    lens = ctx.lens if ctx.mode == "prefill" else None
+    i = ctx.ssm_i
+    if ctx.mode == "decode":
+        shifts = cache["shift"][i]                           # [B, 2, d]
+        y, st2, last1 = ssm_lib.rwkv6_mix_step(
+            p, xx1, cache["ssm_state"][i], shifts[:, 0:1], heads=H)
+    else:
+        y, st2, last1 = ssm_lib.rwkv6_mix(p, xx1, heads=H, lens=lens,
+                                          kernel_backend=ctx.kernel_backend)
+    x = x + y
+    xx2 = rms_norm(x, p["ln2"], eps=cfg.norm_eps)
+    xp = ssm_lib._shift(xx2, shifts[:, 1:2] if ctx.mode == "decode" else None)
+    mk = xx2 + p["cm_mu_k"] * (xp - xx2)
+    mr = xx2 + p["cm_mu_r"] * (xp - xx2)
+    kk = F.relu(mk @ p["cm_k"].to(x.dtype))
+    cm = (kk * kk) @ p["cm_v"].to(x.dtype)
+    x = x + torch.sigmoid(mr @ p["cm_r"].to(x.dtype)) * cm
+    if cache is not None:
+        # channel-mix shift state: the last *real* token of each row
+        last2 = ssm_lib._last_real(xx2, lens)
+        cache["ssm_state"][i].copy_(st2)
+        cache["shift"][i].copy_(torch.cat([last1, last2], dim=1))
+    return x, cache
+
+
+# ----------------------------------------------------------------------------
 # Unified layer entry
 # ----------------------------------------------------------------------------
 def apply_layer(cfg: ArchConfig, p, x, ctx: LayerCtx, cache=None):
-    """Returns (x_out, cache) for one dense layer."""
+    """Returns (x_out, cache) for one dense or RWKV6 layer."""
     if cfg.ssm_type == "rwkv6":
-        raise NotImplementedError(f"RWKV6 layers are {_LATER}")
+        return _rwkv_layer(cfg, p, x, ctx, cache)
     if cfg.hybrid_parallel:
         raise NotImplementedError(f"the SSD hybrid branch is {_LATER}")
     if cfg.num_experts:

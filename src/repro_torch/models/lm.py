@@ -65,15 +65,37 @@ def uniform_kind(cfg: ArchConfig) -> Optional[int]:
 # Parameter init
 # ----------------------------------------------------------------------------
 def _block_shapes(cfg: ArchConfig) -> dict[str, tuple[tuple, str]]:
-    """Dense-family leaf -> (per-layer shape, init)."""
+    """Dense- and RWKV6-family leaf -> (per-layer shape, init)."""
     d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
-    if cfg.ssm_type or cfg.num_experts or cfg.hybrid_parallel:
+    if cfg.num_experts or cfg.hybrid_parallel or cfg.ssm_type == "ssd":
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family is ported; the others are "
-            f"ROADMAP Queue 1 item 5")
+            f"{cfg.name}: only the dense and RWKV6 families are ported; MoE "
+            f"and the SSD hybrid are ROADMAP Queue 1 item 5")
     G = 2 if cfg.mlp_type in ("swiglu", "geglu") else 1
     out: dict[str, tuple[tuple, str]] = {}
+
+    if cfg.ssm_type == "rwkv6":
+        Hs, hds = cfg.n_ssm_heads, d // cfg.n_ssm_heads
+        out["ln1"] = ((d,), "zeros")
+        out["ln2"] = ((d,), "zeros")
+        for m in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w"):
+            out[m] = ((d,), "half")
+        for w in ("wr", "wk", "wv", "wg"):
+            out[w] = ((d, d), "normal")
+        out["wo"] = ((d, d), "normal_out")
+        out["w0"] = ((d,), "w0")
+        out["wa"] = ((d, 64), "zeros")
+        out["wb"] = ((64, d), "zeros")
+        out["u"] = ((Hs, hds), "half")
+        out["gn_scale"] = ((d,), "ones")
+        out["gn_bias"] = ((d,), "zeros")
+        out["cm_mu_k"] = ((d,), "half")
+        out["cm_mu_r"] = ((d,), "half")
+        out["cm_k"] = ((d, ff), "normal")
+        out["cm_v"] = ((ff, d), "normal_out")
+        out["cm_r"] = ((d, d), "normal")
+        return out
 
     def norm(name):
         out[name] = ((d,), "zeros" if "rms" in cfg.norm_style else "ones")
@@ -102,6 +124,10 @@ def _init_leaf(gen, shape, init, cfg: ArchConfig, dtype, device):
         return torch.zeros(shape, dtype=dtype, device=device)
     if init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
+    if init == "half":
+        return torch.full(shape, 0.5, dtype=dtype, device=device)
+    if init == "w0":
+        return torch.full(shape, -5.0, dtype=dtype, device=device)
     scale = 0.02
     if init == "normal_out":
         scale = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
@@ -186,7 +212,7 @@ def forward_ref(cfg: ArchConfig, params, tokens_or_embeds, *, mode="train",
     scalar or a [B] tensor; `lens` [B] marks per-row prompt lengths for
     right-padded prefill — cache writes stop at each row's length. The
     cache is written in place. `kernel_backend` ("ref"/"cuda") picks the
-    plain attention paths or the kernels."""
+    plain paths or the kernels."""
     if labels is not None:
         raise NotImplementedError("the training loss is ROADMAP Queue 1 "
                                   "items 2-3")

@@ -7,8 +7,10 @@ sm_90 card and no JAX:
 
 Elsewhere they skip. Each kernel is held against its plain PyTorch version
 on the same CUDA inputs (2e-5 in f32: the sums run in another order; 5e-2
-in bf16: one rounding of the output), and the serve_kernels preset on the
-card streams the same greedy tokens as its plain path on the CPU.
+in bf16: one rounding of the output; 5e-4 for the chunked WKV6 against the
+sequential recurrence, the tolerance of tests/test_kernels.py), and the
+serve_kernels preset on the card streams the same greedy tokens as its
+plain path on the CPU.
 """
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
+from repro_torch.kernels.rwkv6_scan import rwkv6_chunked
 from repro_torch.models import lm
 
 pytestmark = pytest.mark.cuda
@@ -74,6 +77,38 @@ def test_kernels_match_plain_versions(card, dtype, hd, H, KV):
                                                layer=1).float(),
             **_tol(dtype))
         assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("B,H,S,hd", [(2, 3, 100, 64), (3, 2, 17, 64),
+                                      (1, 40, 1, 64), (2, 2, 48, 64)])
+def test_rwkv6_chunked_matches_plain_version(card, B, H, S, hd):
+    """The chunked WKV6 kernel against the sequential recurrence: y and the
+    final state, a masked tail chunk (S not a multiple of 16), strided
+    [B, S, H, hd] inputs as the model hands them over, and rows whose tail
+    is lens padding (k = 0, w = 0: the state must not move)."""
+    g = torch.Generator(device=card).manual_seed(S)
+
+    def rnd(scale=0.5):
+        x = torch.randn((B, S, H, hd), generator=g, device=card)
+        return (scale * x).transpose(1, 2)
+    r, k, v = rnd(), rnd(), rnd()
+    w = -4.0 * torch.rand((B, S, H, hd), generator=g,
+                          device=card).transpose(1, 2)
+    u = 0.3 + 0.1 * torch.randn((H, hd), generator=g, device=card)
+    live = (torch.arange(S, device=card)[None, :] <
+            torch.tensor([S, max(1, S // 3)] * B, device=card)[:B, None])
+    live = live[:, None, :, None]
+    k = torch.where(live, k, 0.0)
+    w = torch.where(live, w, 0.0)
+    reset_launches()
+    y, st = rwkv6_chunked(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rwkv6_chunked"] == 1
+    y_ref, st_ref = tref.rwkv6_ref(r, k, v, w, u)
+    torch.testing.assert_close(y, y_ref, atol=5e-4, rtol=5e-4)
+    torch.testing.assert_close(st, st_ref, atol=5e-4, rtol=5e-4)
+    with pytest.raises(ValueError, match="float32"):
+        rwkv6_chunked(*(t.to(torch.bfloat16) for t in (r, k, v, w)), u)
 
 
 def test_serve_kernels_on_card_match_cpu(card):
