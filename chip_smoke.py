@@ -7,13 +7,18 @@ Phases (each prints a line; any failure exits nonzero):
   1. device and build: the card's name and power limit (nvidia-smi), then
      the Hopper kernels compiled from src/repro_torch/kernels/csrc;
   2. kernel parity: each attention kernel against its plain PyTorch version
-     at the qwen3-0.6b attention shapes (hd 128, 16 query / 8 kv heads),
-     bf16 and f32 — zero-length rows, per-row and ragged lengths, unmapped
-     pages, an fp8 pool, a window — and the chunked WKV6 kernel against the
-     sequential recurrence at the rwkv6-3b shapes (40 heads of 64, f32, y
-     and the final state, S 128 / 100 / 17 / 1, lens-padded row tails);
-     then the kernel, plain and library times (for WKV6 also the chunked
-     torch scan that the plain serve path runs);
+     at the qwen3-0.6b attention shapes (hd 128, 16 query / 8 kv heads) and
+     at the hymba-1.5b ones (hd 64, 25 query / 5 kv heads, G 5), bf16 and
+     f32, and at the shapes of phase 11 (prefill B 4 x S 1100, decode over
+     a [4, 1132] cache at lengths 1101..1132) — zero-length rows, per-row and ragged lengths, unmapped pages, an
+     fp8 pool, a window; the chunked WKV6 kernel against the sequential
+     recurrence at the rwkv6-3b shapes (40 heads of 64, f32, y and the
+     final state, S 128 / 100 / 17 / 1, lens-padded row tails); the chunked
+     SSD kernel against its sequential recurrence at the hymba-1.5b shapes
+     (50 heads of 64, state 16, f32, y and the final state, S 128 / 100 /
+     1100 / 17 / 1, strided inputs, lens-padded row tails); then the
+     kernel, plain and library times (for WKV6 and SSD also the chunked
+     torch scans that the plain serve path runs);
   3. qwen3-0.6b at full width (28 layers, random weights from a seeded
      generator, bf16) served through the continuous-batching Scheduler over
      a 48-page pool, with the kernel launch counts of that run asserted,
@@ -31,7 +36,18 @@ Phases (each prints a line; any failure exits nonzero):
      in phase 4;
   8. rwkv6-3b through Engine.generate (batch 8 x prompt 128 + 32), then a
      profiled short run;
-  9. one JSON line of per-kernel numbers.
+  9. hymba-1.5b at full width (32 layers, 29 of them windowed at 1024, d
+     1600, 25/5 heads of 64 beside 50 SSD heads of 64 with state 16, d_ff
+     5504, vocab 32001, untied head; random weights, bf16) served through
+     the Scheduler over a 48-page pool for its 3 full layers: ssd_chunked
+     launched by every layer and flash_attention_fwd by every full layer of
+     every prefill group, flash_decode_paged by every full layer of every
+     decode step; then a profiled short run;
+ 10. hymba-1.5b's requests in f32, kernels against the plain paths;
+ 11. hymba-1.5b through Engine.generate at batch 4 x prompt 1100 + 32: the
+     1024-slot rings wrap in prefill and decode, the SSD kernel walks 17
+     chunks and a tail; then a profiled short run;
+ 12. one JSON line of per-kernel numbers.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script fails before printing any
 result. It imports neither jax nor the JAX package.
@@ -50,13 +66,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM (NVIDIA data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
-# chunked WKV6 against the sequential recurrence (atol and rtol), as
-# tests/test_kernels.py holds the Pallas kernel
+# chunked WKV6 and SSD against their sequential recurrences (atol and
+# rtol), as tests/test_kernels.py holds the Pallas kernels
 RWKV_TOL = 5e-4
+SSD_TOL = 1e-4
 LOGIT_TOL = 1e-3                   # f32 full-width logits, kernel vs plain
 N_LAYERS = 28
 N_RWKV_LAYERS = 32
 RWKV_MATS = ("wr", "wk", "wv", "wg", "wo", "cm_k", "cm_v", "cm_r")
+HYMBA_MATS = ("wq", "wk", "wv", "wo", "mlp_wi", "mlp_wo", "ssd_conv_w",
+              "ssd_out_proj")
 # The block matrices are drawn at the JAX init's std 0.02 and then scaled by
 # this: at 0.02 the tied-embedding residual dominates every layer's update
 # and each greedy stream repeats its last prompt token, which would leave
@@ -123,8 +142,10 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_paged)
+    from repro_torch.kernels.mamba_ssd import ssd_chunked
     from repro_torch.kernels.rwkv6_scan import rwkv6_chunked
     from repro_torch.models import lm, ssm
+    from repro_torch.models.layers import rms_norm
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script measures "
@@ -152,7 +173,6 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
-    H, KV, hd = 16, 8, 128
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -162,54 +182,109 @@ def main() -> int:
 
     # ---- 2. kernel parity ----------------------------------------------
     worst = {k: {"float32": 0.0, "bfloat16": 0.0} for k in LAUNCHES}
-    worst["rwkv6_chunked"] = {"float32": 0.0}          # f32 only
+    for name in ("rwkv6_chunked", "ssd_chunked"):      # f32 only
+        worst[name] = {"float32": 0.0}
+    # the attention kernels' errors per head shape (query/kv heads, hd)
+    by_heads: dict = {}
 
-    def hold(name, out, ref, dtype, zero_row=None):
+    def hold(name, out, ref, dtype, heads, zero_row=None):
         torch.cuda.synchronize()
         e = err(out, ref)
-        worst[name][str(dtype).split(".")[-1]] = max(
-            worst[name][str(dtype).split(".")[-1]], e)
-        tol = TOL[str(dtype).split(".")[-1]]
+        d = str(dtype).split(".")[-1]
+        worst[name][d] = max(worst[name][d], e)
+        per = by_heads.setdefault(heads, {}).setdefault(name, {})
+        per[d] = max(per.get(d, 0.0), e)
+        tol = TOL[d]
         if not (e <= tol and torch.isfinite(out.float()).all()):
-            raise AssertionError(f"{name} {dtype}: max |kernel - plain| = "
-                                 f"{e:.3e} > {tol}")
+            raise AssertionError(f"{name} {dtype} {heads}: max |kernel - "
+                                 f"plain| = {e:.3e} > {tol}")
         if zero_row is not None and not bool((out[zero_row] == 0).all()):
             raise AssertionError(f"{name}: a length-0 row is not exact zeros")
 
-    for dt in (torch.bfloat16, torch.float32):
-        for B, S, window in ((8, 128, 0), (2, 100, 0), (2, 77, 40),
-                             (1, 300, 0)):
-            # q/k/v as the model hands them over: [B, S, heads, hd] memory
+    def attention_parity(H, KV, hd):
+        heads = f"{H}/{KV}x{hd}"
+        for dt in (torch.bfloat16, torch.float32):
+            for B, S, window in ((8, 128, 0), (2, 100, 0), (2, 77, 40),
+                                 (1, 300, 0)):
+                # q/k/v as the model hands them over: [B, S, heads, hd]
+                q = randn(B, S, H, hd, dtype=dt).transpose(1, 2)
+                k = randn(B, S, KV, hd, dtype=dt).transpose(1, 2)
+                v = randn(B, S, KV, hd, dtype=dt).transpose(1, 2)
+                hold("flash_attention_fwd",
+                     flash_attention_fwd(q, k, v, causal=True, window=window),
+                     kref.attention_ref(q, k, v, causal=True, window=window),
+                     dt, heads)
+            B, S = 8, 160
+            cache_k = randn(3, B, S, KV, hd, dtype=dt)
+            cache_v = randn(3, B, S, KV, hd, dtype=dt)
+            q1 = randn(B, H, hd, dtype=dt)
+            lens = torch.tensor([0, 1, 15, 16, 17, 77, 159, 160], device=dev,
+                                dtype=torch.int32)
+            for window in (0, 48):
+                kv = (cache_k[1].transpose(1, 2), cache_v[1].transpose(1, 2))
+                hold("flash_decode",
+                     flash_decode(q1, *kv, lens, window=window),
+                     kref.decode_ref(q1, *kv, lens, window=window), dt,
+                     heads, zero_row=0)
+            ps, npg = 16, 10
+            P1 = B * npg + 1
+            perm = torch.randperm(B * npg, generator=gen, device=dev)
+            tab = perm.to(torch.int32).reshape(B, npg)
+            for b in range(B):      # pages past each row's length unmapped
+                tab[b, (int(lens[b]) + ps - 1) // ps:] = -1
+            for pool_dt in (dt, torch.float8_e4m3fn):
+                kp = randn(3, P1, ps, KV, hd, dtype=pool_dt)
+                vp = randn(3, P1, ps, KV, hd, dtype=pool_dt)
+                hold("flash_decode_paged",
+                     flash_decode_paged(q1, kp, vp, tab, lens, layer=2),
+                     kref.decode_paged_ref(q1, kp, vp, tab, lens, layer=2),
+                     dt, heads, zero_row=0)
+
+    def attention_parity_long(H, KV, hd, B, S, n_new):
+        """flash_attention_fwd and flash_decode at a generate path's own
+        shapes: the causal prefill of B full rows of S tokens, and decode
+        over a strided [B, S + n_new] cache at lengths S + 1 .. S + n_new."""
+        heads = f"{H}/{KV}x{hd} S{S}"
+        Sc = S + n_new
+        lens = torch.linspace(S + 1, Sc, B, device=dev).round().to(
+            torch.int32)
+        for dt in (torch.bfloat16, torch.float32):
             q = randn(B, S, H, hd, dtype=dt).transpose(1, 2)
             k = randn(B, S, KV, hd, dtype=dt).transpose(1, 2)
             v = randn(B, S, KV, hd, dtype=dt).transpose(1, 2)
             hold("flash_attention_fwd",
-                 flash_attention_fwd(q, k, v, causal=True, window=window),
-                 kref.attention_ref(q, k, v, causal=True, window=window), dt)
-        B, S = 8, 160
-        cache_k = randn(3, B, S, KV, hd, dtype=dt)
-        cache_v = randn(3, B, S, KV, hd, dtype=dt)
-        q1 = randn(B, H, hd, dtype=dt)
-        lens = torch.tensor([0, 1, 15, 16, 17, 77, 159, 160], device=dev,
-                            dtype=torch.int32)
-        for window in (0, 48):
+                 flash_attention_fwd(q, k, v, causal=True),
+                 kref.attention_ref(q, k, v, causal=True), dt, heads)
+            del q, k, v
+            cache_k = randn(3, B, Sc, KV, hd, dtype=dt)
+            cache_v = randn(3, B, Sc, KV, hd, dtype=dt)
             kv = (cache_k[1].transpose(1, 2), cache_v[1].transpose(1, 2))
-            hold("flash_decode", flash_decode(q1, *kv, lens, window=window),
-                 kref.decode_ref(q1, *kv, lens, window=window), dt,
-                 zero_row=0)
-        ps, npg = 16, 10
-        P1 = B * npg + 1
-        perm = torch.randperm(B * npg, generator=gen, device=dev)
-        tab = perm.to(torch.int32).reshape(B, npg)
-        for b in range(B):          # pages past each row's length unmapped
-            tab[b, (int(lens[b]) + ps - 1) // ps:] = -1
-        for pool_dt in (dt, torch.float8_e4m3fn):
-            kp = randn(3, P1, ps, KV, hd, dtype=pool_dt)
-            vp = randn(3, P1, ps, KV, hd, dtype=pool_dt)
-            hold("flash_decode_paged",
-                 flash_decode_paged(q1, kp, vp, tab, lens, layer=2),
-                 kref.decode_paged_ref(q1, kp, vp, tab, lens, layer=2), dt,
-                 zero_row=0)
+            q1 = randn(B, H, hd, dtype=dt)
+            hold("flash_decode", flash_decode(q1, *kv, lens),
+                 kref.decode_ref(q1, *kv, lens), dt, heads)
+
+    attention_parity(16, 8, 128)          # qwen3-0.6b: G 2
+    attention_parity(25, 5, 64)           # hymba-1.5b: G 5
+    # hymba-1.5b's generate phase (11): batch 4 x prompt 1100 + 32 tokens
+    attention_parity_long(25, 5, 64, 4, 1100, 32)
+    H, KV, hd = 16, 8, 128
+
+    def hold_recurrence(name, tol, S, got, want):
+        """A chunked kernel's (y, final state) against its sequential plain
+        version: |kernel - plain| <= tol + tol |plain| everywhere."""
+        for what, a, b in zip(("y", "state"), got, want):
+            e = err(a, b)
+            worst[name]["float32"] = max(worst[name]["float32"], e)
+            if not (torch.isfinite(a).all() and bool(
+                    ((a - b).abs() <= tol + tol * b.abs()).all())):
+                raise AssertionError(
+                    f"{name} S {S} {what}: max |kernel - plain| = {e:.3e} "
+                    f"outside atol = rtol = {tol}")
+
+    def row_lens(S):
+        return torch.tensor([S, S - 1, S // 2, 1, S, 3, S // 3, 2],
+                            device=dev).clamp(1, S)
+
     # the chunked WKV6 kernel, f32 only, at the rwkv6-3b shapes: S a multiple
     # of the chunk, a masked tail chunk, a prime, one token; r/k/v/w handed
     # over as the model does ([B, S, H, hd] memory through a [B, H, S, hd]
@@ -226,29 +301,49 @@ def main() -> int:
         return r, k, v, w
 
     for S in (128, 100, 17, 1):
-        B = 8
-        r, k, v, w = wkv_inputs(B, S)
-        lens = torch.tensor([S, S - 1, S // 2, 1, S, 3, S // 3, 2],
-                            device=dev).clamp(1, S)
-        live = (torch.arange(S, device=dev)[None, :] < lens[:, None])
+        r, k, v, w = wkv_inputs(8, S)
+        live = (torch.arange(S, device=dev)[None, :] < row_lens(S)[:, None])
         live = live[:, None, :, None]
         k, w = torch.where(live, k, 0.0), torch.where(live, w, 0.0)
         got = rwkv6_chunked(r, k, v, w, u_r)
         torch.cuda.synchronize()
-        want = kref.rwkv6_ref(r, k, v, w, u_r)
-        for what, a, b in zip(("y", "state"), got, want):
-            e = err(a, b)
-            worst["rwkv6_chunked"]["float32"] = max(
-                worst["rwkv6_chunked"]["float32"], e)
-            if not (torch.isfinite(a).all() and bool(
-                    ((a - b).abs() <= RWKV_TOL + RWKV_TOL * b.abs()).all())):
-                raise AssertionError(
-                    f"rwkv6_chunked S {S} {what}: max |kernel - plain| = "
-                    f"{e:.3e} outside atol = rtol = {RWKV_TOL}")
+        hold_recurrence("rwkv6_chunked", RWKV_TOL, S, got,
+                        kref.rwkv6_ref(r, k, v, w, u_r))
+    # the chunked SSD kernel, f32 only, at the hymba-1.5b shapes (50 heads of
+    # 64, state 16): S two full chunks of 64, a masked tail, the generate
+    # phase's 1100 (17 chunks and a 12-row tail), a prime, one token; x and
+    # B/C handed over as the model does (column slices of one [B, S, d_inner
+    # + 2N] conv output, x through a [B, H, S, P] view), dt as a [B, H, S]
+    # view of [B, S, H] memory; dt = exp(U(-7, -1.2)) against a = -(1..16),
+    # so the per-step decays exp(dt a) spread over (0.008, 0.999); each row's
+    # tail past its length made a no-op as lens padding makes it (dt = 0)
+    Hs, Ps, Ns = 50, 64, 16
+    a_s = -torch.linspace(1.0, 16.0, Hs, device=dev)   # hymba's -exp(A_log)
+
+    def ssd_inputs(B, S):
+        conv = randn(B, S, Hs * Ps + 2 * Ns).mul_(0.5)
+        x = conv[..., :Hs * Ps].reshape(B, S, Hs, Ps).transpose(1, 2)
+        Bm, Cm = conv[..., Hs * Ps:Hs * Ps + Ns], conv[..., Hs * Ps + Ns:]
+        dt = torch.empty((B, S, Hs), device=dev).uniform_(-7.0, -1.2,
+                                                          generator=gen)
+        return x, dt.exp_().transpose(1, 2), Bm, Cm, a_s
+
+    for S in (128, 100, 1100, 17, 1):
+        x, dt, Bm, Cm, _ = ssd_inputs(8, S)
+        live = torch.arange(S, device=dev)[None, :] < row_lens(S)[:, None]
+        dt = torch.where(live[:, None, :], dt, 0.0)
+        got = ssd_chunked(x, dt, Bm, Cm, a_s)
+        torch.cuda.synchronize()
+        hold_recurrence("ssd_chunked", SSD_TOL, S, got,
+                        kref.ssd_ref(x, dt, Bm, Cm, a_s))
     log("parity", "max |kernel - plain| " + json.dumps(
         {k: {d: float(f"{e:.3e}") for d, e in v.items()}
          for k, v in worst.items()}) + f" within {TOL} (rwkv6_chunked: "
-        f"f32, atol = rtol = {RWKV_TOL})")
+        f"f32, atol = rtol = {RWKV_TOL}; ssd_chunked: f32, atol = rtol = "
+        f"{SSD_TOL})")
+    log("parity", "attention kernels by query/kv heads x hd: " + json.dumps(
+        {h: {k: {d: float(f"{e:.3e}") for d, e in v.items()}
+             for k, v in per.items()} for h, per in by_heads.items()}))
 
     def time_ms(fn, argsets, reps=3):
         """Mean ms per call over `reps` passes through argsets (one set
@@ -369,6 +464,33 @@ def main() -> int:
                     B * Hr * -(-S // C) * (4 * C * C * hdr
                                            + 4 * C * hdr * hdr),
                     "float32"))
+    # the SSD prefill at the hymba-1.5b serve shape: B 8, S 128 (the prompt
+    # width), 50 heads of 64, state 16, f32, strided as the model hands
+    # them over; 32 layers' inputs (0.42 GB) cycled. The plain version is
+    # the sequential recurrence; the plain scan is the chunked torch scan
+    # kernel_backend="ref" serves.
+    B, S, C = 8, 128, 64
+    ssd_sets = [ssd_inputs(B, S)
+                for _ in range(ARCHS["hymba-1.5b"].num_layers)]
+    elems, nch, tri = B * Hs * S * Ps, -(-S // C), C * (C + 1) // 2
+    timing["ssd_chunked"] = dict(
+        ms=time_ms(ssd_chunked, ssd_sets),
+        plain_ms=time_ms(kref.ssd_ref, ssd_sets),
+        plain_scan_ms=time_ms(lambda x, dt, Bm, Cm, a: ssm.ssd_chunked_scan(
+            x.transpose(1, 2), dt.transpose(1, 2), Bm, Cm, a), ssd_sets),
+        library_ms=None,
+        library="none (no single PyTorch call computes SSD)",
+        dtype="float32", tolerance={"float32": SSD_TOL},
+        shape=f"B{B} S{S} H{Hs} P{Ps} N{Ns} f32",
+        # x, dt, B, C, a read, y and the final state written; C B^T once
+        # per (row, chunk) over the causal triangle (2 tri N), and per
+        # (row, head, chunk) y's intra-chunk term over the triangle
+        # (2 tri P), the inter-chunk term and the state update (2 x 2CNP)
+        bound=bound(4 * (2 * elems + B * Hs * S + 2 * B * S * Ns + Hs
+                         + B * Hs * Ns * Ps),
+                    B * nch * 2 * tri * Ns
+                    + B * Hs * nch * (2 * tri * Ps + 4 * C * Ns * Ps),
+                    "float32"))
     for name, t in timing.items():
         lib = "none" if t["library_ms"] is None else \
             f"{t['library_ms']:.4f} ms"
@@ -377,7 +499,7 @@ def main() -> int:
         log("timing", f"{name} [{t['shape']}]: kernel {t['ms']:.4f} ms, "
             f"plain {t['plain_ms']:.4f} ms{scan}, library {t['library']} "
             f"{lib}, bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
-    del att_sets, pg_sets, c_sets, kp, vp, ck, cv, wkv_sets
+    del att_sets, pg_sets, c_sets, kp, vp, ck, cv, wkv_sets, ssd_sets
 
     def check_launches(tag, launches, rep, need):
         """`need` maps each kernel of the path to ("prefill" | "decode", its
@@ -592,10 +714,86 @@ def main() -> int:
     del rparams32
 
     # ---- 8. rwkv6-3b Engine.generate, contiguous cache -------------------
-    generate_phase("rwkv6-3b full width", rplan, rparams_bf16, rwkv_need)
+    rw_gen_launches = generate_phase("rwkv6-3b full width", rplan,
+                                     rparams_bf16, rwkv_need)
     del rparams_bf16
 
-    # ---- 9. the kernels line -------------------------------------------
+    # ---- 9. hymba-1.5b at full width, bf16, Scheduler --------------------
+    hy = ARCHS["hymba-1.5b"]
+    n_full = hy.layer_kinds()[:hy.num_layers].count(0)   # full attention
+    hgen = torch.Generator(device=dev).manual_seed(2)
+    hparams32 = lm.init_params(hy, hgen, dtype=torch.float32, device=dev)
+    blk = hparams32["blocks"]
+    for name in HYMBA_MATS:
+        blk[name].mul_(WEIGHT_SCALE)
+    # the SSD in_proj's dt columns (its last H) stay at the init's scale:
+    # scaled, their pre-activation is ~N(0, 8) and exp(dt a) underflows to
+    # 0 for nearly every head, so no state would cross a chunk. dt_bias is
+    # drawn in [-6, -1] so the per-step decays spread over (0, 1) and some
+    # heads carry their state across a 64-row chunk; D, the SSD norm scale
+    # and the two branch norms are drawn off their constant inits
+    blk["ssd_in_proj"][..., :-hy.n_ssm_heads].mul_(WEIGHT_SCALE)
+    blk["ssd_dt_bias"].uniform_(-6.0, -1.0, generator=hgen)
+    blk["ssd_D"].uniform_(0.5, 1.5, generator=hgen)
+    for name in ("ssd_norm_scale", "bn_attn", "bn_ssm"):
+        blk[name].uniform_(-0.5, 0.5, generator=hgen)
+    hreqs = [Request(rid=i, prompt=rng.integers(
+        0, hy.vocab_size, int(rng.integers(16, 129)), dtype=np.int32))
+        for i in range(16)]
+    with torch.inference_mode():      # layer 0's SSD decays on one prompt
+        p0 = {k[4:]: v[0] for k, v in blk.items() if k.startswith("ssd_")}
+        xn = rms_norm(lm.embed_tokens(hy, hparams32, torch.as_tensor(
+            hreqs[0].prompt, device=dev)[None]), blk["ln1"][0])
+        dt0 = ssm.ssd_projections(p0, xn, hy.n_ssm_heads, hy.d_inner,
+                                  hy.ssm_state)[4]
+        la = dt0 * -torch.exp(p0["A_log"])                 # [1, S, H]
+        step_dec = torch.exp(la)
+        spread = float(((step_dec >= 0.01) & (step_dec <= 0.99)).float()
+                       .mean())
+        chunk_dec = torch.exp(la[:, :64].sum(dim=1))       # per head
+    log("weights", f"hymba-1.5b layer 0 SSD: per-step decays exp(dt a) in "
+        f"[0.01, 0.99]: {spread:.3f} of {step_dec.numel()}; heads whose "
+        f"decay over 64 steps exceeds "
+        f"0.01: {int((chunk_dec > 0.01).sum())}/{hy.n_ssm_heads}")
+    hparams_bf16 = bf16_copy(hparams32)
+    hsv = ServeSpec(prompt_len=128, gen=32, max_batch=8, page_size=16,
+                    max_pages=48, kernel_backend="cuda")
+    hplan = Plan(arch=hy, run=RunSpec(compute_dtype="bfloat16"), serve=hsv)
+    h_eng = Engine(hplan, params=hparams_bf16)
+    hy_launches = serve_phase(
+        f"hymba-1.5b full width ({hy.num_layers} layers, {n_full} "
+        f"full + {hy.num_layers - n_full} windowed at "
+        f"{hy.window_size}, d {hy.d_model}, {hy.num_heads}/"
+        f"{hy.num_kv_heads} heads of {hy.head_dim}, {hy.n_ssm_heads} SSD "
+        f"heads of {hy.d_inner // hy.n_ssm_heads} with state "
+        f"{hy.ssm_state}, d_ff {hy.d_ff}, vocab {hy.vocab_size}, untied "
+        f"head)", h_eng, hreqs,
+        {"ssd_chunked": ("prefill", hy.num_layers),
+         "flash_attention_fwd": ("prefill", n_full),
+         "flash_decode_paged": ("decode", n_full)}, pool=True)
+    kf = h_eng.serve_store().tree["kv_full"][0]
+    log("serve", f"hymba-1.5b pool: {kf.shape[0]} kv_full groups allocated "
+        f"(stages x m_full, the JAX package's stage-major layout), "
+        f"{n_full} of them written")
+    del h_eng, kf
+
+    # ---- 10. hymba-1.5b kernel path against the plain path, f32 ---------
+    f32_streams("hymba-1.5b", hplan.replace(run__compute_dtype="float32"),
+                hparams32, hreqs)
+    del hparams32
+
+    # ---- 11. hymba-1.5b Engine.generate past the window -----------------
+    hy_gen_launches = generate_phase(
+        "hymba-1.5b full width, rings wrapped",
+        Plan(arch=hy, run=RunSpec(compute_dtype="bfloat16"),
+             serve=ServeSpec(prompt_len=1100, gen=32, max_batch=4,
+                             kernel_backend="cuda")), hparams_bf16,
+        {"ssd_chunked": ("prefill", hy.num_layers),
+         "flash_attention_fwd": ("prefill", n_full),
+         "flash_decode": ("decode", n_full)})
+    del hparams_bf16
+
+    # ---- 12. the kernels line ------------------------------------------
     src = {"flash_attention_fwd": ("src/repro_torch/kernels/csrc/"
                                    "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:94"),
@@ -605,25 +803,35 @@ def main() -> int:
            "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                             "src/repro/kernels/flash_decode.py:127"),
            "rwkv6_chunked": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
-                             "src/repro/kernels/rwkv6_scan.py:67")}
-    launches = {"flash_attention_fwd": main_launches["flash_attention_fwd"],
-                "flash_decode_paged": main_launches["flash_decode_paged"],
-                "flash_decode": gen_launches["flash_decode"],
-                "rwkv6_chunked": rw_launches["rwkv6_chunked"]}
+                             "src/repro/kernels/rwkv6_scan.py:67"),
+           "ssd_chunked": ("src/repro_torch/kernels/csrc/mamba_ssd.cu",
+                           "src/repro/kernels/mamba_ssd.py:62")}
+    # each path's launch counts, read just after its measured run; a
+    # kernel's "launches" are those of the first path that runs it
+    paths = {"qwen3-0.6b serve": main_launches,
+             "qwen3-0.6b generate": gen_launches,
+             "rwkv6-3b serve": rw_launches,
+             "rwkv6-3b generate": rw_gen_launches,
+             "hymba-1.5b serve": hy_launches,
+             "hymba-1.5b generate": hy_gen_launches}
     power = smi.split(",")[-1].strip()
     kernels = []
     for name in ("flash_decode_paged", "flash_attention_fwd",
-                 "flash_decode", "rwkv6_chunked"):
+                 "flash_decode", "rwkv6_chunked", "ssd_chunked"):
+        by_path = {p: n[name] for p, n in paths.items() if n[name]}
         t = timing[name]
         errs = worst[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src[name][0],
-            "replaces": src[name][1], "launches": launches[name],
+            "replaces": src[name][1], "launches": next(iter(
+                by_path.values())), "launches_by_path": by_path,
             "max_abs_err": errs[t["dtype"]], "max_abs_err_dtype": t["dtype"],
             "max_abs_err_f32": errs["float32"], "tolerance": t["tolerance"],
             "ms": t["ms"], "kernel_ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "plain_scan_ms": t.get("plain_scan_ms"),
+            "max_abs_err_by_heads": {h: per[name] for h, per in
+                                     by_heads.items() if name in per},
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"], "library": t["library"],
             "shape": t["shape"], "card": card, "power_limit": power})

@@ -1,20 +1,28 @@
 """The Engine: one facade executing a serve Plan (repro.api.engine's serve
-half) for the dense GQA and the attention-free RWKV6 families.
+half) for the dense GQA, sliding-window, attention-free RWKV6 and SSD
+hybrid families.
 
 Serve-mode Plans (Plan.serve = ServeSpec) run on the threads backend
 through the non-pipelined `lm.forward_ref` cache path:
 
   prefill() / decode() / generate()   one aligned batch over the contiguous
                                       cache (with kernel_backend="cuda":
-                                      dense decode through flash_decode,
-                                      RWKV6 prefill through rwkv6_chunked)
+                                      full-attention decode through
+                                      flash_decode, RWKV6 prefill through
+                                      rwkv6_chunked, SSD prefill through
+                                      ssd_chunked)
   prefill_into() / decode(store)      the CacheStore the Scheduler drives
                                       (dense: the paged pool, prefill
                                       through flash_attention_fwd, decode
                                       through flash_decode_paged; RWKV6: no
                                       pool, per-slot WKV state and token
                                       shifts, prefill through rwkv6_chunked,
-                                      decode in plain torch)
+                                      decode in plain torch; windowed
+                                      layers: per-slot kv_win rings, plain
+                                      torch; hymba: the pool for its 3 full
+                                      layers, rings, per-slot SSD state and
+                                      conv tails, prefill through
+                                      ssd_chunked)
 
 The JAX Engine jit-compiles these steps; here they run eagerly under
 torch.inference_mode(), writing the caches in place. Entry points run on

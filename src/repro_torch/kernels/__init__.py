@@ -6,6 +6,8 @@
                         the block table (both in csrc/flash_decode.cu)
   rwkv6_chunked         the chunked WKV6 recurrence of RWKV6 prefill
                         (csrc/rwkv6_scan.cu)
+  ssd_chunked           the chunked Mamba-2 SSD of the hybrid (hymba)
+                        prefill (csrc/mamba_ssd.cu)
 
 Each wrapper runs its plain version (kernels/ref.py) on a CPU tensor and
 launches its kernel on a CUDA tensor, counting launches in LAUNCHES.

@@ -1,0 +1,70 @@
+"""Chunked SSD (Mamba-2, one decay scalar per head): the wrapper of
+csrc/mamba_ssd.cu.
+
+x [B, H, S, P], dt [B, H, S] (>= 0), B_ and C_ [B, S, N] (shared by every
+head), a [H] (< 0), all float32 -> (y [B, H, S, P] float32, the final
+state [B, H, N, P] float32), starting from a zero state. x, B_ and C_ may
+have any strides with their last dim contiguous, dt any strides: the model
+hands over column slices of its conv output and transposed views,
+uncopied. The CUDA y is laid out [B, S, H, P] in memory (a transposed
+view), so the model's transpose back is free.
+
+On a CPU tensor this runs the plain version (kernels/ref.py:ssd_ref, the
+sequential recurrence); on a CUDA tensor it launches the kernel or raises.
+The kernel takes float32 only, as the model hands it over.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as kref
+
+SHAPES = ((64, 16),)      # (P, N) built: hymba-1.5b, 50 heads of 64, state 16
+
+
+def ssd_chunked(x, dt, B_, C_, a):
+    """x [B,H,S,P]; dt [B,H,S]; B_/C_ [B,S,N]; a [H] < 0. Returns (y,
+    final_state)."""
+    B, H, S, P = x.shape
+    N = B_.shape[-1]
+    if tuple(dt.shape) != (B, H, S) or tuple(B_.shape) != (B, S, N) or \
+            tuple(C_.shape) != (B, S, N) or tuple(a.shape) != (H,):
+        raise ValueError(f"ssd_chunked: want x [B,H,S,P], dt [B,H,S], B_/C_ "
+                         f"[B,S,N] and a [H], got x {tuple(x.shape)} dt "
+                         f"{tuple(dt.shape)} B_ {tuple(B_.shape)} C_ "
+                         f"{tuple(C_.shape)} a {tuple(a.shape)}")
+    if x.device.type == "cpu":
+        return kref.ssd_ref(x, dt, B_, C_, a)
+    if (P, N) not in SHAPES:
+        raise ValueError(f"ssd_chunked: (P, N) = ({P}, {N}) not in {SHAPES}")
+    for t in (x, dt, B_, C_, a):
+        if t.dtype != torch.float32:
+            raise ValueError(f"ssd_chunked: the kernel takes float32 only, "
+                             f"got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"ssd_chunked: every operand must be on "
+                             f"{x.device}, got {t.device}")
+    if x.stride(3) != 1 or B_.stride(2) != 1 or C_.stride(2) != 1:
+        raise ValueError(f"ssd_chunked: x, B_ and C_ need their last dim "
+                         f"contiguous, got strides {x.stride()} "
+                         f"{B_.stride()} {C_.stride()}")
+    a = a.contiguous()
+    y = torch.empty((B, S, H, P), dtype=torch.float32,
+                    device=x.device).transpose(1, 2)
+    state = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
+    if state.numel() == 0:
+        return y, state
+    lib = _build.load("mamba_ssd")
+    fn = lib.ssd_chunked_launch
+    fn.restype = _build.INT
+    fn.argtypes = [_build.PTR] * 7 + [_build.INT] * 5 + [_build.I64] * 13 + \
+        [_build.PTR]
+    err = fn(x.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+             a.data_ptr(), y.data_ptr(), state.data_ptr(), B, H, S, P, N,
+             *x.stride()[:3], *dt.stride(), *B_.stride()[:2],
+             *C_.stride()[:2], *y.stride()[:3],
+             torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "ssd_chunked")
+    _build.LAUNCHES["ssd_chunked"] += 1
+    return y, state

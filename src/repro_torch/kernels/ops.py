@@ -7,7 +7,8 @@ BACKENDS:
 
 The model calls these only with kernel_backend="cuda"; with "ref" it takes
 its own plain paths (models/attention.py for attention, the chunked torch
-scan of models/ssm.py for the RWKV6 time-mix), as the JAX package does.
+scans of models/ssm.py for the RWKV6 time-mix and the SSD mix), as the JAX
+package does.
 The layout adapters between the model convention ([B, S, H, hd]) and the
 kernel convention ([B, H, S, hd]) live here; both are views, no copies.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
+from repro_torch.kernels.mamba_ssd import ssd_chunked
 from repro_torch.kernels.rwkv6_scan import rwkv6_chunked
 
 BACKENDS = ("ref", "cuda")
@@ -64,3 +66,11 @@ def rwkv6(r, k, v, w, u, *, backend="ref"):
     if check_backend(backend) == "ref":
         return kref.rwkv6_ref(r, k, v, w, u)
     return rwkv6_chunked(r, k, v, w, u)
+
+
+def ssd(x, dt, B_, C_, a, *, backend="ref"):
+    """Kernel layout: x [B,H,S,P], dt [B,H,S], B_/C_ [B,S,N], a [H] < 0 ->
+    (y [B,H,S,P], final state [B,H,N,P] f32), from a zero state."""
+    if check_backend(backend) == "ref":
+        return kref.ssd_ref(x, dt, B_, C_, a)
+    return ssd_chunked(x, dt, B_, C_, a)

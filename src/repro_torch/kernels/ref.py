@@ -11,6 +11,7 @@ Layouts (kernel-native):
   decode:    q1 [B, H, hd]; k, v [B, KV, S, hd]
   paged:     q1 [B, H, hd]; pools [groups, num_pages + 1, page_size, KV, hd]
   rwkv6:     r, k, v, w [B, H, S, hd] (w = log-decay <= 0); u [H, hd]
+  ssd:       x [B, H, S, P]; dt [B, H, S] (>= 0); B_, C_ [B, S, N]; a [H] < 0
 """
 from __future__ import annotations
 
@@ -103,3 +104,25 @@ def rwkv6_ref(r, k, v, w, u):
         st = torch.exp(wf[:, :, t])[..., None] * st + kv
     y = torch.stack(ys, dim=2) if ys else rf.new_zeros((B, H, 0, hd))
     return y.to(r.dtype), st
+
+
+def ssd_ref(x, dt, B_, C_, a):
+    """Sequential SSD (Mamba-2, one decay scalar per head) from a zero
+    state, one position at a time, in f32:
+        h_t = exp(dt_t a) h_{t-1} + dt_t B_t x_t^T
+        y_t = h_t^T C_t
+    Returns (y [B,H,S,P] in x's dtype, final state [B,H,N,P] f32)."""
+    B, H, S, P = x.shape
+    N = B_.shape[-1]
+    xf, dtf, bf, cf = (t.float() for t in (x, dt, B_, C_))
+    af = a.float()[None, :]
+    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        d_t = dtf[:, :, t]                                   # [B,H]
+        inj = bf[:, t, None, :, None] * (d_t[..., None] * xf[:, :, t])[
+            :, :, None, :]                                   # [B,H,N,P]
+        h = torch.exp(d_t * af)[..., None, None] * h + inj
+        ys.append(torch.einsum("bn,bhnp->bhp", cf[:, t], h))
+    y = torch.stack(ys, dim=2) if ys else xf.new_zeros((B, H, 0, P))
+    return y.to(x.dtype), h

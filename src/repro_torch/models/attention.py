@@ -70,6 +70,46 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out.to(q.dtype)
 
 
+def banded_attention(q, k, v, *, window: int, q_block: int = 256):
+    """Sliding-window causal attention with work proportional to S *
+    (window + q block): each q block attends to the contiguous kv band
+    [start, start + window + qb) sliced out of k/v, not the whole masked
+    sequence. Falls back to flash_attention(window=) when the band covers
+    all of Sk."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qb = _pick_block(Sq, q_block)
+    nq = Sq // qb
+    band = window + qb
+    if band >= Sk:
+        return flash_attention(q, k, v, causal=True, window=window,
+                               q_block=q_block)
+    scale = hd ** -0.5
+    dev = q.device
+    qr = q.reshape(B, nq, qb, KV, G, hd).permute(1, 0, 3, 4, 2, 5).float()
+    kt = k.transpose(1, 2).float()                 # [B, KV, Sk, hd]
+    vt = v.transpose(1, 2).float()
+    outs = []
+    for qi in range(nq):
+        q0 = qi * qb
+        start = min(max(q0 + qb - band, 0), Sk - band)
+        k_b = kt[:, :, start:start + band]
+        v_b = vt[:, :, start:start + band]
+        gq = q0 + torch.arange(qb, device=dev)
+        gk = start + torch.arange(band, device=dev)
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qr[qi], k_b) * scale
+        mask = (gq[:, None] >= gk[None, :]) & \
+            ((gq[:, None] - gk[None, :]) < window)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        out = torch.einsum("bkgqc,bkcd->bkgqd", p, v_b)
+        outs.append(out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30))
+    # [nq, B, KV, G, qb, hd] -> [B, Sq, H, hd]
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, H, hd)
+    return out.to(q.dtype)
+
+
 def decode_attend(q1, k_cache, v_cache, gpos, pos, *, window: int = 0):
     """Single-token attention against a KV cache.
 

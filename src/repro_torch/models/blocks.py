@@ -1,16 +1,20 @@
-"""Per-layer block application: the dense (full-attention GQA) and the
-attention-free RWKV6 families.
+"""Per-layer block application: the dense (full-attention GQA), the
+sliding-window (h2o-danube), the attention-free RWKV6 and the SSD hybrid
+(hymba: attention and SSD heads in parallel) families.
 
 A layer is applied with one signature for prefill and decode; per-layer
 behaviour (attention kind, cache group slot) rides in the LayerCtx.
 
 Conventions:
   x [B, S, d]; p the per-layer leaves (no layer dim)
-  kind: 0 = full attention, 2 = none (RWKV6: the time-mix takes its place)
+  kind: 0 = full attention, 1 = windowed, 2 = none (RWKV6: the time-mix
+        takes its place)
   cache: dict of cache groups (see serve.cache); writes are in place
 
-The windowed (h2o-danube, gemma3 local layers), MoE (granite) and SSD
-hybrid (hymba) branches are ROADMAP Queue 1 item 5 and raise.
+`kind` is a Python int, so each layer runs one path and writes only the
+cache group it owns; the JAX package computes both under a `where` on a
+traced kind, which writes the same values. MoE (granite) is ROADMAP Queue
+1 item 5 and raises.
 """
 from __future__ import annotations
 
@@ -28,8 +32,6 @@ from repro_torch.models.layers import (apply_rope, layer_norm, rms_norm,
                                        rope_cos_sin)
 from repro_torch.serve import cache as cache_lib
 
-_LATER = "ROADMAP Queue 1 item 5 (the other families)"
-
 
 @dataclass
 class LayerCtx:
@@ -44,8 +46,9 @@ class LayerCtx:
                                     # right-padded prefill; None = full rows
     kernel_backend: str = "ref"     # "ref" = plain torch paths; "cuda"
                                     # routes full-attention prefill/decode
-                                    # and the fresh-state RWKV6 prefill
-                                    # through the repro_torch.kernels
+                                    # and the fresh-state RWKV6 and SSD
+                                    # prefills through the repro_torch
+                                    # kernels (windowed layers run none)
 
 
 def _norm(cfg: ArchConfig, p, key, x):
@@ -94,45 +97,98 @@ def _qkv(cfg: ArchConfig, p, xn, ctx: LayerCtx):
 
 
 def _attn_train(cfg: ArchConfig, p, xn, ctx: LayerCtx, cache):
-    """Train/prefill attention; prefill writes the cache in place."""
-    if ctx.kind != 0:
-        raise NotImplementedError(f"windowed attention layers are {_LATER}")
+    """Train/prefill attention; prefill writes the layer's cache group in
+    place (full layers: the pool or the contiguous group; windowed layers:
+    the kv_win ring)."""
     q, k, v = _qkv(cfg, p, xn, ctx)
     B, S, Hl, hd = q.shape
-    if ctx.kernel_backend != "ref":
+    if ctx.kind == 1:
+        o = attn_lib.banded_attention(q, k, v, window=cfg.window_size)
+    elif ctx.kernel_backend != "ref":
         o = kernel_ops.attention(q, k, v, causal=True, window=0,
                                  backend=ctx.kernel_backend)
     else:
         o = attn_lib.flash_attention(q, k, v, causal=True, window=0)
 
-    if ctx.mode == "prefill" and cache is not None and "kv_full" in cache:
-        kf, vf = cache["kv_full"]
-        i = ctx.full_i
-        if cache_lib.is_paged(cache):
-            tab = cache["block_tab"]
-            sel = torch.ones(B, dtype=torch.bool, device=xn.device)
-            cache_lib.page_write_prompt(kf, i, tab, k, sel, ctx.lens)
-            cache_lib.page_write_prompt(vf, i, tab, v, sel, ctx.lens)
+    if ctx.mode == "prefill" and cache is not None:
+        if ctx.kind == 1:
+            _ring_write_prompt(cache["kv_win"], ctx, k, v)
         else:
-            Sc = kf.shape[2]
-            for grp, new in ((kf, k), (vf, v)):
-                if S >= Sc:
-                    grp[i].copy_(new[:, -Sc:])
-                else:
-                    grp[i, :, :S].copy_(new)
-                    grp[i, :, S:].zero_()
+            _full_write_prompt(cache, ctx, k, v)
     return o.reshape(B, S, Hl * hd) @ p["wo"].to(xn.dtype), cache
+
+
+def _full_write_prompt(cache, ctx: LayerCtx, k, v):
+    """Write a prompt's K/V into the layer's kv_full group in place:
+    through the block table (paged; positions at or past lens[b] keep the
+    page's contents) or into the contiguous group (its last max_len
+    positions, zeros past the prompt)."""
+    kf, vf = cache["kv_full"]
+    i = ctx.full_i
+    B, S = k.shape[:2]
+    if cache_lib.is_paged(cache):
+        tab = cache["block_tab"]
+        sel = torch.ones(B, dtype=torch.bool, device=k.device)
+        cache_lib.page_write_prompt(kf, i, tab, k, sel, ctx.lens)
+        cache_lib.page_write_prompt(vf, i, tab, v, sel, ctx.lens)
+        return
+    Sc = kf.shape[2]
+    for grp, new in ((kf, k), (vf, v)):
+        if S >= Sc:
+            grp[i].copy_(new[:, -Sc:])
+        else:
+            grp[i, :, :S].copy_(new)
+            grp[i, :, S:].zero_()
+
+
+def _ring_write_prompt(kv_win, ctx: LayerCtx, k, v):
+    """Write a prompt's K/V into the layer's ring group [m, B, W, KV, hd]
+    in place: position t lands in slot t % W. With ctx.lens the prompt is
+    walked in chunks of W (so each write's slots are unique) and a position
+    at or past lens[b] keeps the slot's old value: every row's ring ends up
+    holding exactly its own last min(W, lens[b]) tokens."""
+    i = ctx.win_i
+    W = kv_win[0].shape[2]
+    S = k.shape[1]
+    dev = k.device
+    if ctx.lens is None:
+        take = min(W, S)
+        slots = (ctx.q_offset + S - take + torch.arange(take, device=dev)) % W
+        for grp, new in zip(kv_win, (k, v)):
+            grp[i][:, slots] = new[:, -take:].to(grp.dtype)
+        return
+    for c0 in range(0, S, W):
+        take = min(W, S - c0)
+        gpos = ctx.q_offset + c0 + torch.arange(take, device=dev)
+        slots = gpos % W
+        live = (gpos[None, :] < ctx.lens[:, None])[..., None, None]
+        for grp, new in zip(kv_win, (k, v)):
+            grp[i][:, slots] = torch.where(
+                live, new[:, c0:c0 + take].to(grp.dtype), grp[i][:, slots])
 
 
 def _attn_decode(cfg: ArchConfig, p, xn, ctx: LayerCtx, cache):
     """Single-token attention: ctx.pos is a [B] tensor (each row at its own
     depth). Full-attention K/V is read through the block table (paged
-    trees) or directly (the contiguous layout)."""
-    if ctx.kind != 0 or "kv_win" in cache:
-        raise NotImplementedError(f"windowed attention layers are {_LATER}")
+    trees) or directly (the contiguous layout); a windowed layer writes
+    and reads its kv_win ring."""
     q, k, v = _qkv(cfg, p, xn, ctx)
     B, _, Hl, hd = q.shape
     pos_b = ctx.pos
+    if ctx.kind == 1:
+        # ring slot pos % W; slot j holds position pos - ((pos - j) % W)
+        # (negative: not written yet); no kernel, as in the JAX package
+        kw, vw = cache["kv_win"]
+        i = ctx.win_i
+        W = kw.shape[2]
+        sel = torch.ones(B, dtype=torch.bool, device=xn.device)
+        cache_lib.upd_kv_rows(kw, i, pos_b % W, k, sel)
+        cache_lib.upd_kv_rows(vw, i, pos_b % W, v, sel)
+        gpos = pos_b[:, None] - (
+            (pos_b[:, None] - torch.arange(W, device=xn.device)) % W)
+        o = attn_lib.decode_attend(q, kw[i], vw[i], gpos, pos_b,
+                                   window=W + 1)
+        return o.reshape(B, 1, Hl * hd) @ p["wo"].to(xn.dtype), cache
     kf, vf = cache["kv_full"]
     i = ctx.full_i
 
@@ -173,8 +229,29 @@ def _attn_decode(cfg: ArchConfig, p, xn, ctx: LayerCtx, cache):
 
 
 # ----------------------------------------------------------------------------
-# RWKV6
+# SSM branches
 # ----------------------------------------------------------------------------
+def _ssd_branch(cfg: ArchConfig, p, xn, ctx: LayerCtx, cache):
+    """The hybrid's SSD heads (p: the ssd_* leaves, prefix stripped). The
+    cache's ssm_state [Lp, B, H, N, P] and conv_tail [Lp, B, 3, di + 2N]
+    are written in place."""
+    H, N, di = cfg.n_ssm_heads, cfg.ssm_state, cfg.d_inner
+    i = ctx.ssm_i
+    if ctx.mode == "decode":
+        y, st, tail = ssm_lib.ssd_mix_step(
+            p, xn, cache["ssm_state"][i], cache["conv_tail"][i], heads=H,
+            d_state=N, d_inner=di)
+    else:
+        y, st, tail = ssm_lib.ssd_mix(
+            p, xn, heads=H, d_state=N, d_inner=di,
+            lens=ctx.lens if ctx.mode == "prefill" else None,
+            kernel_backend=ctx.kernel_backend)
+    if ctx.mode != "train" and cache is not None:
+        cache["ssm_state"][i].copy_(st)
+        cache["conv_tail"][i].copy_(tail)
+    return y, cache
+
+
 def _rwkv_layer(cfg: ArchConfig, p, x, ctx: LayerCtx, cache):
     """Full RWKV6 layer: ln1 + time-mix, ln2 + channel-mix. The cache's
     ssm_state [Lp, B, H, hd, hd] and shift [Lp, B, 2, d] (the time-mix and
@@ -210,18 +287,23 @@ def _rwkv_layer(cfg: ArchConfig, p, x, ctx: LayerCtx, cache):
 # Unified layer entry
 # ----------------------------------------------------------------------------
 def apply_layer(cfg: ArchConfig, p, x, ctx: LayerCtx, cache=None):
-    """Returns (x_out, cache) for one dense or RWKV6 layer."""
+    """Returns (x_out, cache) for one dense, windowed, RWKV6 or SSD-hybrid
+    layer."""
     if cfg.ssm_type == "rwkv6":
         return _rwkv_layer(cfg, p, x, ctx, cache)
-    if cfg.hybrid_parallel:
-        raise NotImplementedError(f"the SSD hybrid branch is {_LATER}")
     if cfg.num_experts:
-        raise NotImplementedError(f"MoE layers are {_LATER}")
+        raise NotImplementedError("MoE layers are ROADMAP Queue 1 item 5")
     xn = _norm(cfg, p, "ln1", x)
     if ctx.mode == "decode":
         att, cache = _attn_decode(cfg, p, xn, ctx, cache)
     else:
         att, cache = _attn_train(cfg, p, xn, ctx, cache)
+    if cfg.hybrid_parallel:
+        sy, cache = _ssd_branch(cfg, {k[4:]: v for k, v in p.items()
+                                      if k.startswith("ssd_")}, xn, ctx,
+                                cache)
+        att = 0.5 * (rms_norm(att, p["bn_attn"], eps=cfg.norm_eps)
+                     + rms_norm(sy, p["bn_ssm"], eps=cfg.norm_eps))
     if cfg.norm_style == "rms_sandwich":
         att = rms_norm(att, p["ln1_post"], eps=cfg.norm_eps)
     x = x + att

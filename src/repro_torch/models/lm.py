@@ -65,13 +65,14 @@ def uniform_kind(cfg: ArchConfig) -> Optional[int]:
 # Parameter init
 # ----------------------------------------------------------------------------
 def _block_shapes(cfg: ArchConfig) -> dict[str, tuple[tuple, str]]:
-    """Dense- and RWKV6-family leaf -> (per-layer shape, init)."""
+    """Dense-, RWKV6- and SSD-hybrid-family leaf -> (per-layer shape,
+    init)."""
     d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
-    if cfg.num_experts or cfg.hybrid_parallel or cfg.ssm_type == "ssd":
+    if cfg.num_experts:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and RWKV6 families are ported; MoE "
-            f"and the SSD hybrid are ROADMAP Queue 1 item 5")
+            f"{cfg.name}: the dense, RWKV6 and SSD-hybrid families are "
+            f"ported; MoE is ROADMAP Queue 1 item 5")
     G = 2 if cfg.mlp_type in ("swiglu", "geglu") else 1
     out: dict[str, tuple[tuple, str]] = {}
 
@@ -116,6 +117,17 @@ def _block_shapes(cfg: ArchConfig) -> dict[str, tuple[tuple, str]]:
     norm("ln2")
     out["mlp_wi"] = ((d, G, ff), "normal")
     out["mlp_wo"] = ((ff, d), "normal_out")
+    if cfg.hybrid_parallel:
+        di, N, Hs = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+        out["bn_attn"] = ((d,), "zeros")
+        out["bn_ssm"] = ((d,), "zeros")
+        out["ssd_in_proj"] = ((d, 2 * di + 2 * N + Hs), "normal")
+        out["ssd_conv_w"] = ((4, di + 2 * N), "normal")
+        out["ssd_dt_bias"] = ((Hs,), "dt_bias")
+        out["ssd_A_log"] = ((Hs,), "a_log")
+        out["ssd_D"] = ((Hs,), "ones")
+        out["ssd_norm_scale"] = ((di,), "zeros")
+        out["ssd_out_proj"] = ((di, d), "normal_out")
     return out
 
 
@@ -128,6 +140,11 @@ def _init_leaf(gen, shape, init, cfg: ArchConfig, dtype, device):
         return torch.full(shape, 0.5, dtype=dtype, device=device)
     if init == "w0":
         return torch.full(shape, -5.0, dtype=dtype, device=device)
+    if init == "dt_bias":
+        return torch.full(shape, -4.6, dtype=dtype, device=device)
+    if init == "a_log":     # log(1..16) over the heads, in every layer
+        a = torch.log(torch.linspace(1.0, 16.0, shape[-1], device=device))
+        return a.expand(shape).to(dtype).contiguous()
     scale = 0.02
     if init == "normal_out":
         scale = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))

@@ -1,17 +1,21 @@
-"""The RWKV6 (Finch) time-mix: data-dependent per-channel decay.
+"""SSM mixers: the RWKV6 (Finch) time-mix, data-dependent per-channel
+decay, and the Mamba-2 style SSD of the hybrid (hymba) family, one decay
+scalar per head.
 
-Per head (state S in R^{K x V}):
+RWKV6 per head (state S in R^{K x V}):
     S_t = diag(w_t) S_{t-1} + k_t v_t^T
     y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
 with w_t = exp(-exp(clip(w0 + lora(x)))).
 
+SSD per head (state h in R^{N x P}):
+    h_t = exp(a dt_t) h_{t-1} + dt_t B_t x_t^T
+    y_t = h_t^T C_t + D x_t
+
 Prefill starts from a zero state and runs a chunked form (the plain "ref"
-path: the chunked torch scan the JAX package runs; with
-kernel_backend="cuda", the rwkv6_chunked Hopper kernel); decode runs the
-single-token step in plain torch (the JAX package has no kernel for it
-either). f32 state and
-accumulation throughout. The Mamba-2 SSD half of the JAX module comes with
-the hybrid family (ROADMAP Queue 1 item 5).
+path: the chunked torch scans the JAX package runs; with
+kernel_backend="cuda", the rwkv6_chunked and ssd_chunked Hopper kernels);
+decode runs the single-token steps in plain torch (the JAX package has no
+kernel for them either). f32 state and accumulation throughout.
 """
 from __future__ import annotations
 
@@ -19,11 +23,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models.layers import rms_norm
 
 # decay-rate clamp keeping exp(-cs) representable for chunk <= 16: the
 # per-step log-decay lies in [-4, 0)
 _LOGW_CLIP = (-8.0, 1.386)  # max per-step rate e^1.386 = 4.0
 _CHUNK = 16                 # the plain scan's chunk (the kernel's too)
+_SSD_CHUNK = 64             # the plain SSD scan's largest chunk (the kernel's)
 
 
 def rwkv6_decay(x, w0, wa, wb):
@@ -155,3 +161,138 @@ def rwkv6_mix_step(p, xx, state, prev_xx, *, heads: int):
     state = torch.exp(w)[..., None] * state + kv
     out = _rwkv_head_out(p, y.reshape(B, 1, heads, hd), g, heads)
     return out.to(xx.dtype), state, xx
+
+
+# ----------------------------------------------------------------------------
+# SSD (Mamba-2 style), one decay scalar per head
+# ----------------------------------------------------------------------------
+def _dw_conv4(x, w, tail=None, lens=None):
+    """Causal depthwise conv, kernel 4, via shifts. x [B,S,c]; w [4,c];
+    tail [B,3,c] the previous inputs (decode continuity). Returns (out,
+    the new tail): the last three inputs, or with lens [B] each row's last
+    three inputs *before* position lens[b] (right-padded prefill)."""
+    B, S, c = x.shape
+    if tail is None:
+        tail = x.new_zeros((B, 3, c))
+    xp = torch.cat([tail.to(x.dtype), x], dim=1)        # [B, S+3, c]
+    out = sum(xp[:, 3 - i: 3 - i + S] * w[3 - i] for i in range(4))
+    if lens is None:
+        return out, xp[:, -3:]
+    # xp index t+3 holds input position t: a row's last real inputs sit at
+    # xp indices lens[b] .. lens[b]+2
+    idx = lens.clamp(0, S)[:, None] + torch.arange(3, device=x.device)
+    return out, xp[torch.arange(B, device=x.device)[:, None], idx]
+
+
+def ssd_projections(p, x, heads, d_inner, d_state, conv_tail=None,
+                    lens=None):
+    """in_proj + conv + activations. x [B,S,d]. Returns z, xh [B,S,H,P],
+    Bm, Cm [B,S,N], dt [B,S,H] f32, the conv tail."""
+    B, S, _ = x.shape
+    H, N = heads, d_state
+    proj = x @ p["in_proj"].to(x.dtype)
+    z, xbc, dt_raw = torch.split(proj, [d_inner, d_inner + 2 * N, H], dim=-1)
+    xbc, tail = _dw_conv4(xbc, p["conv_w"].to(x.dtype), conv_tail, lens=lens)
+    xbc = F.silu(xbc)
+    xh, Bm, Cm = torch.split(xbc, [d_inner, N, N], dim=-1)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    return z, xh.reshape(B, S, H, d_inner // H), Bm, Cm, dt, tail
+
+
+def _ssd_out(p, x, y, xh, z, d_inner):
+    """The SSD output tail: D-skip, gated RMS norm, out projection.
+    y/xh [B,S,H,P]."""
+    B, S = x.shape[:2]
+    y = y.float() + p["D"].float()[None, None, :, None] * xh.float()
+    y = rms_norm(y.reshape(B, S, d_inner), p["norm_scale"]) * F.silu(z)
+    out = y.to(p["out_proj"].dtype) @ p["out_proj"]
+    return out.to(x.dtype)
+
+
+def ssd_chunked_scan(xh, dt, Bm, Cm, a):
+    """The plain SSD scan in chunks of _SSD_CHUNK (the largest divisor of S
+    up to it, as the JAX package picks), from a zero state, in f32. xh
+    [B,S,H,P]; dt [B,S,H]; Bm, Cm [B,S,N]; a [H] < 0. Returns y [B,S,H,P]
+    f32 and the final state [B,H,N,P] f32."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    C = min(_SSD_CHUNK, S)
+    while S % C:
+        C -= 1
+    n = S // C
+
+    def chz(t):   # [B,S,...] -> [n,B,C,...]
+        return t.float().reshape(B, n, C, *t.shape[2:]).transpose(0, 1)
+
+    xc, Bc, Cc, dtc = map(chz, (xh, Bm, Cm, dt))
+    tril = torch.tril(torch.ones((C, C), dtype=torch.bool,
+                                 device=xh.device))[None, :, :, None]
+    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=xh.device)
+    ys = []
+    for i in range(n):
+        x_, B_, C_, dt_ = xc[i], Bc[i], Cc[i], dtc[i]
+        cs = torch.cumsum(dt_ * a, dim=1)                   # [B,C,H] <= 0
+        # intra-chunk: M[t,s] = (C_t . B_s) exp(cs_t - cs_s) dt_s, s <= t
+        cb = torch.einsum("btn,bsn->bts", C_, B_)
+        L = torch.where(tril, torch.exp(cs[:, :, None] - cs[:, None]), 0.0)
+        M = cb[..., None] * L * dt_[:, None]                # [B,t,s,H]
+        y = torch.einsum("btsh,bshp->bthp", M, x_)
+        # inter-chunk: y_t += (C_t exp(cs_t)) . h
+        y = y + torch.einsum("btn,bhnp->bthp", C_, h) * \
+            torch.exp(cs)[..., None]
+        w = torch.exp(cs[:, -1:] - cs) * dt_                # [B,C,H]
+        h = torch.exp(cs[:, -1])[..., None, None] * h + torch.einsum(
+            "bsn,bshp->bhnp", B_, w[..., None] * x_)
+        ys.append(y)
+    return torch.stack(ys, dim=1).reshape(B, S, H, P), h
+
+
+def ssd_mix(p, x, *, heads: int, d_state: int, d_inner: int, lens=None,
+            kernel_backend="ref"):
+    """The SSD mix of a prefill from a fresh state. x [B,S,d]. Returns y
+    [B,S,d], the final state [B,H,N,P] f32 and the conv tail.
+
+    lens [B] (optional): per-row valid prefix for right-padded variable-
+    length prompts. Padded positions are a state no-op (dt = 0, so
+    h_t = h_{t-1}) and the conv tail holds each row's last three *real*
+    inputs; y at padded positions is garbage and must not be read.
+
+    kernel_backend="cuda" routes the recurrence through the ssd_chunked
+    kernel; "ref" runs ssd_chunked_scan."""
+    B, S, d = x.shape
+    H, N = heads, d_state
+    z, xh, Bm, Cm, dt, tail = ssd_projections(p, x, H, d_inner, N,
+                                              lens=lens)
+    if lens is not None:
+        live = torch.arange(S, device=x.device)[None, :] < lens[:, None]
+        dt = torch.where(live[..., None], dt, 0.0)
+    a = -torch.exp(p["A_log"].float())                      # [H], < 0
+    if kernel_backend == "ref":
+        y, st = ssd_chunked_scan(xh, dt, Bm, Cm, a)
+    else:
+        # column slices of the conv output and [B, S, H] memory handed
+        # over as [B, H, S, *] views, uncopied (in f32)
+        y4, st = kernel_ops.ssd(xh.float().transpose(1, 2),
+                                dt.transpose(1, 2), Bm.float(), Cm.float(),
+                                a, backend=kernel_backend)
+        y = y4.transpose(1, 2)
+    return _ssd_out(p, x, y, xh, z, d_inner), st, tail
+
+
+def ssd_mix_step(p, x, state, conv_tail, *, heads: int, d_state: int,
+                 d_inner: int):
+    """Single-token SSD step. x [B,1,d]; state [B,H,N,P] f32; conv_tail
+    [B,3,d_inner+2N]. Returns y, the new state and the new conv tail."""
+    B = x.shape[0]
+    H, N = heads, d_state
+    z, xh, Bm, Cm, dt, tail = ssd_projections(p, x, H, d_inner, N, conv_tail)
+    a = -torch.exp(p["A_log"].float())
+    x0 = xh[:, 0].float()                                   # [B,H,P]
+    B0, C0 = Bm[:, 0].float(), Cm[:, 0].float()             # [B,N]
+    inj = B0[:, None, :, None] * (dt[:, 0, :, None] * x0)[:, :, None, :]
+    state = torch.exp(dt[:, 0] * a)[..., None, None] * state + inj
+    y = torch.einsum("bn,bhnp->bhp", C0, state)
+    y = y + p["D"].float()[None, :, None] * x0
+    y = rms_norm(y.reshape(B, 1, d_inner), p["norm_scale"]) * F.silu(z)
+    out = y.to(p["out_proj"].dtype) @ p["out_proj"]
+    return out.to(x.dtype), state, tail

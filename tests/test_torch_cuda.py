@@ -7,8 +7,9 @@ sm_90 card and no JAX:
 
 Elsewhere they skip. Each kernel is held against its plain PyTorch version
 on the same CUDA inputs (2e-5 in f32: the sums run in another order; 5e-2
-in bf16: one rounding of the output; 5e-4 for the chunked WKV6 against the
-sequential recurrence, the tolerance of tests/test_kernels.py), and the
+in bf16: one rounding of the output; 5e-4 for the chunked WKV6 and 1e-4
+for the chunked SSD against their sequential recurrences, the tolerances
+of tests/test_kernels.py), and the
 serve_kernels preset on the card streams the same greedy tokens as its
 plain path on the CPU.
 """
@@ -22,6 +23,7 @@ from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
+from repro_torch.kernels.mamba_ssd import ssd_chunked
 from repro_torch.kernels.rwkv6_scan import rwkv6_chunked
 from repro_torch.models import lm
 
@@ -44,7 +46,7 @@ def _tol(dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd,H,KV", [(16, 2, 2), (128, 16, 8)])
+@pytest.mark.parametrize("hd,H,KV", [(16, 2, 2), (128, 16, 8), (64, 25, 5)])
 def test_kernels_match_plain_versions(card, dtype, hd, H, KV):
     g = torch.Generator(device=card).manual_seed(hd)
 
@@ -109,6 +111,40 @@ def test_rwkv6_chunked_matches_plain_version(card, B, H, S, hd):
     torch.testing.assert_close(st, st_ref, atol=5e-4, rtol=5e-4)
     with pytest.raises(ValueError, match="float32"):
         rwkv6_chunked(*(t.to(torch.bfloat16) for t in (r, k, v, w)), u)
+
+
+@pytest.mark.parametrize("B,H,S", [(2, 3, 64), (3, 2, 100), (2, 4, 17),
+                                   (1, 50, 1)])
+def test_ssd_chunked_matches_plain_version(card, B, H, S):
+    """The chunked SSD kernel against the sequential recurrence at P 64,
+    N 16 (hymba's heads): y and the final state, a masked tail chunk (S not
+    a multiple of 64), x and B/C as column slices of one conv output and dt
+    as a transposed [B, S, H] view (as the model hands them over), per-step
+    decays spread over (0, 1), and rows whose tail is lens padding (dt = 0:
+    the state must not move)."""
+    P, N = 64, 16
+    g = torch.Generator(device=card).manual_seed(S)
+    conv = 0.5 * torch.randn((B, S, H * P + 2 * N), generator=g, device=card)
+    x = conv[..., :H * P].reshape(B, S, H, P).transpose(1, 2)
+    Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    a = -torch.linspace(1.0, 16.0, H, device=card)
+    logdt = torch.empty((B, S, H), device=card).uniform_(-7.0, -1.2,
+                                                         generator=g)
+    dt = torch.exp(logdt).transpose(1, 2)
+    live = (torch.arange(S, device=card)[None, :] <
+            torch.tensor([S, max(1, S // 3)] * B, device=card)[:B, None])
+    dt = torch.where(live[:, None, :], dt, 0.0)
+    reset_launches()
+    y, st = ssd_chunked(x, dt, Bm, Cm, a)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_chunked"] == 1
+    y_ref, st_ref = tref.ssd_ref(x, dt, Bm, Cm, a)
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st, st_ref, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_chunked(x.to(torch.bfloat16), dt, Bm, Cm, a)
+    with pytest.raises(ValueError, match="not in"):
+        ssd_chunked(x[..., :32], dt, Bm, Cm, a)
 
 
 def test_serve_kernels_on_card_match_cpu(card):

@@ -40,6 +40,7 @@ from repro_torch.kernels.rwkv6_scan import rwkv6_chunked
 from repro_torch.models import lm as tlm
 from repro_torch.models import ssm as tssm
 from repro_torch.serve import cache as tcache
+from test_torch_serve import assert_scheduler_matches, make_requests
 
 KERNEL_TOL = dict(atol=5e-4, rtol=5e-4)
 LOGIT_TOL = 1e-4
@@ -252,13 +253,6 @@ def _serve(**over):
     return dict(dict(prompt_len=PROMPT, gen=GEN, max_batch=4), **over)
 
 
-def _requests(seed, n=8):
-    rng = np.random.default_rng(seed)
-    return [(i, rng.integers(0, 256, int(rng.integers(2, PROMPT + 1)),
-                             dtype=np.int32), int(rng.integers(1, GEN + 1)))
-            for i in range(n)]
-
-
 @pytest.mark.parametrize("kernel_backend", ["ref", "cuda"])
 def test_generate_matches_reference(weights, kernel_backend):
     """Engine.generate over the contiguous cache: the port's stream is the
@@ -289,10 +283,8 @@ def test_scheduler_matches_reference(weights, kernel_backend, policy, knobs):
     whatever the memory knobs say."""
     arch, jarch = _archs()
     jp, tp, _ = weights
-    reqs = _requests(1)
-    if knobs.get("share_prefix"):
-        reqs = [(i, (reqs[0] if i % 2 == 0 else reqs[i])[1], n)
-                for i, _, n in reqs]
+    reqs = make_requests(1, prompt=PROMPT, gen=GEN,
+                         shared=bool(knobs.get("share_prefix")))
     deadline = (lambda i: 3 * (8 - i)) if policy == "deadline" else \
         (lambda i: 0)
     want = JScheduler(JEngine(JPlan(arch=jarch, serve=JServeSpec(
@@ -302,19 +294,9 @@ def test_scheduler_matches_reference(weights, kernel_backend, policy, knobs):
         **_serve(kernel_backend=kernel_backend, **knobs))), params=tp,
         device="cpu"), policy=policy).run(
         [Request(i, p.copy(), n, deadline(i)) for i, p, n in reqs])
-    assert [r.rid for r in got.requests] == [r.rid for r in want.requests]
-    for a, b in zip(got.requests, want.requests):
-        assert a.tokens == b.tokens, (a.rid, a.tokens, b.tokens)
-        assert (a.slot, a.group, a.admitted_step, a.finished_step) == \
-            (b.slot, b.group, b.admitted_step, b.finished_step)
-    for f in ("peak_pages", "pages_total", "prefill_calls", "decode_steps",
-              "slot_steps", "page_steps", "admit_blocked",
-              "prefix_hit_tokens", "pages_shared", "cow_copies",
-              "evictions", "preemptions"):
-        assert getattr(got, f) == getattr(want, f), f
+    assert_scheduler_matches(got, want, reqs)
     assert got.pages_total == 0 and got.prefix_hit_tokens == 0
     assert got.admit_blocked == 0
-    assert got.tokens_out == sum(n for *_, n in reqs)
     assert len({t for r in got.requests for t in r.tokens}) > 6
 
 

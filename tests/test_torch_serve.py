@@ -28,11 +28,38 @@ from test_torch_model import carried_params
 PROMPT, GEN = 8, 8
 
 
-def _requests(seed, n=8, vocab=256):
+COUNTERS = ("peak_pages", "pages_total", "prefill_calls", "decode_steps",
+            "slot_steps", "page_steps", "admit_blocked", "prefix_hit_tokens",
+            "pages_shared", "cow_copies", "evictions", "preemptions")
+
+
+def make_requests(seed, *, lo=2, prompt=PROMPT, gen=GEN, n=8, vocab=256,
+                  shared=False):
+    """n (rid, prompt, max_new_tokens) triples: prompts of lo..prompt
+    tokens, 1..gen new tokens; with `shared` the even requests repeat
+    request 0's prompt (prefixes to share)."""
     rng = np.random.default_rng(seed)
-    return [(i, rng.integers(0, vocab, int(rng.integers(2, PROMPT + 1)),
-                             dtype=np.int32), int(rng.integers(1, GEN + 1)))
+    reqs = [(i, rng.integers(0, vocab, int(rng.integers(lo, prompt + 1)),
+                             dtype=np.int32), int(rng.integers(1, gen + 1)))
             for i in range(n)]
+    if shared:
+        reqs = [(i, (reqs[0] if i % 2 == 0 else reqs[i])[1], m)
+                for i, _, m in reqs]
+    return reqs
+
+
+def assert_scheduler_matches(got, want, reqs):
+    """The port's ServeReport is the JAX package's: the requests in the same
+    order, each with the same stream, slot, group and admit / finish steps,
+    every counter equal, and every requested token out."""
+    assert [r.rid for r in got.requests] == [r.rid for r in want.requests]
+    for a, b in zip(got.requests, want.requests):
+        assert a.tokens == b.tokens, (a.rid, a.tokens, b.tokens)
+        assert (a.slot, a.group, a.admitted_step, a.finished_step) == \
+            (b.slot, b.group, b.admitted_step, b.finished_step)
+    for f in COUNTERS:
+        assert getattr(got, f) == getattr(want, f), f
+    assert got.tokens_out == sum(n for *_, n in reqs)
 
 
 def _port_run(plan, tp, reqs, **kw):
@@ -73,12 +100,10 @@ def test_scheduler_matches_reference(weights, preset, policy):
     memory counters equal the JAX package's (serve_kernels: Pallas in
     interpret mode against the port's kernel wrappers)."""
     jp, tp = weights
-    reqs = _requests(1)
+    # serve_shared: repeated prompts share pages; the port builds the JAX
+    # preset from serve_paged and the memory knobs
+    reqs = make_requests(1, shared=preset == "serve_shared")
     if preset == "serve_shared":
-        # repeated prompts share pages; the port builds the JAX preset from
-        # serve_paged and the memory knobs
-        reqs = [(i, (reqs[0] if i % 2 == 0 else reqs[i])[1], n)
-                for i, _, n in reqs]
         plan = get_preset("serve_paged", serve__max_pages=10,
                           serve__share_prefix=True, serve__evict=True,
                           serve__preempt=True)
@@ -88,17 +113,7 @@ def test_scheduler_matches_reference(weights, preset, policy):
         plan = get_preset(preset)
     want = _jax_run(j_preset(preset), jp, reqs, policy=policy)
     got = _port_run(plan, tp, reqs, policy=policy)
-    assert [r.rid for r in got.requests] == [r.rid for r in want.requests]
-    for a, b in zip(got.requests, want.requests):
-        assert a.tokens == b.tokens, (a.rid, a.tokens, b.tokens)
-        assert (a.slot, a.group, a.admitted_step, a.finished_step) == \
-            (b.slot, b.group, b.admitted_step, b.finished_step)
-    for f in ("peak_pages", "pages_total", "prefill_calls", "decode_steps",
-              "slot_steps", "page_steps", "admit_blocked",
-              "prefix_hit_tokens", "pages_shared", "cow_copies",
-              "evictions", "preemptions"):
-        assert getattr(got, f) == getattr(want, f), f
-    assert got.tokens_out == sum(n for *_, n in reqs)
+    assert_scheduler_matches(got, want, reqs)
     if preset == "serve_shared":
         assert got.prefix_hit_tokens > 0 and got.pages_shared > 0
 
@@ -108,7 +123,7 @@ def test_paged_streams_equal_contiguous(weights, cache_dtype):
     """Inside the port: 4-token pages, one page per slot (page_size 0) and
     the kernel backend give one stream per request — fp8 pools too."""
     _, tp = weights
-    reqs = _requests(2)
+    reqs = make_requests(2)
     base = get_preset("serve_paged", serve__cache_dtype=cache_dtype)
     runs = [_port_run(base.replace(serve__page_size=ps,
                                    serve__max_pages=mp,
@@ -123,7 +138,7 @@ def test_paged_streams_equal_contiguous(weights, cache_dtype):
 def test_fp8_pool_matches_reference(weights):
     """An fp8 e4m3 KV pool quantizes identically on both sides."""
     jp, tp = weights
-    reqs = _requests(3)
+    reqs = make_requests(3)
     want = _jax_run(j_preset("serve_paged", serve__cache_dtype="f8"), jp,
                     reqs)
     got = _port_run(get_preset("serve_kernels", serve__cache_dtype="f8"), tp,
@@ -138,7 +153,7 @@ def test_sampled_streams_independent_of_cobatching(weights):
     draws differ from jax.random, the invariance holds)."""
     _, tp = weights
     plan = get_preset("serve_paged", serve__temperature=0.8)
-    reqs = _requests(4)
+    reqs = make_requests(4)
     together = _port_run(plan, tp, reqs)
     for r in reqs[:3]:
         alone = _port_run(plan, tp, [r])
