@@ -7,8 +7,9 @@ Phases (each prints a line; any failure exits nonzero):
   1. device and build: the card's name and power limit (nvidia-smi), then
      the Hopper kernels compiled from src/repro_torch/kernels/csrc;
   2. kernel parity: each attention kernel against its plain PyTorch version
-     at the qwen3-0.6b attention shapes (hd 128, 16 query / 8 kv heads) and
-     at the hymba-1.5b ones (hd 64, 25 query / 5 kv heads, G 5), bf16 and
+     at the qwen3-0.6b attention shapes (hd 128, 16 query / 8 kv heads), at
+     the hymba-1.5b ones (hd 64, 25 query / 5 kv heads, G 5) and at the
+     granite-moe-1b-a400m ones (hd 64, 16 query / 8 kv heads, G 2), bf16 and
      f32, and at the shapes of phase 11 (prefill B 4 x S 1100, decode over
      a [4, 1132] cache at lengths 1101..1132) — zero-length rows, per-row and ragged lengths, unmapped pages, an
      fp8 pool, a window; the chunked WKV6 kernel against the sequential
@@ -16,9 +17,12 @@ Phases (each prints a line; any failure exits nonzero):
      final state, S 128 / 100 / 17 / 1, lens-padded row tails); the chunked
      SSD kernel against its sequential recurrence at the hymba-1.5b shapes
      (50 heads of 64, state 16, f32, y and the final state, S 128 / 100 /
-     1100 / 17 / 1, strided inputs, lens-padded row tails); then the
-     kernel, plain and library times (for WKV6 and SSD also the chunked
-     torch scans that the plain serve path runs);
+     1100 / 17 / 1, strided inputs, lens-padded row tails); the grouped
+     matmul against its plain version at granite-moe-1b-a400m's expert GEMMs
+     (E 32, C 8 in decode and 320 in prefill, [d 1024 -> 1024] for w_in and
+     [512 -> 1024] for w_out) and a ragged C 13 / d 72 / f 40, bf16 and
+     f32; then the kernel, plain and library times (for WKV6 and SSD also
+     the chunked torch scans that the plain serve path runs);
   3. qwen3-0.6b at full width (28 layers, random weights from a seeded
      generator, bf16) served through the continuous-batching Scheduler over
      a 48-page pool, with the kernel launch counts of that run asserted,
@@ -47,7 +51,25 @@ Phases (each prints a line; any failure exits nonzero):
  11. hymba-1.5b through Engine.generate at batch 4 x prompt 1100 + 32: the
      1024-slot rings wrap in prefill and decode, the SSD kernel walks 17
      chunks and a tail; then a profiled short run;
- 12. one JSON line of per-kernel numbers.
+ 12. granite-moe-1b-a400m at full width (24 layers, d 1024, 16/8 heads of
+     64, 32 experts top-8 with d_ff 512, vocab 49155, tied; random weights,
+     bf16) served through the Scheduler over a 48-page pool: both expert
+     GEMMs of every layer through grouped_matmul in every prefill group and
+     decode step, flash_attention_fwd and flash_decode_paged by every
+     layer, the launch counts asserted exactly; the router's logit spread,
+     the first group's expert loads and each group's dropped choices (real
+     and padding) printed; then a profiled short run;
+ 13. granite-moe-1b-a400m in f32, kernels against the plain path: first
+     every layer alone on the same input (the plain path's hidden state
+     into both), outputs within 1e-5 and the same routing except at router
+     near-ties; then the requests of phase 12 with the routing of both
+     sides recorded: streams may diverge only at a top-2 near-tie or after
+     a flipped expert choice that reached the request (the random model
+     amplifies the paths' 1e-6 differences layer over layer, and a flip
+     moves the capacity drops of its whole group);
+ 14. granite-moe-1b-a400m through Engine.generate (batch 8 x prompt 128 +
+     32, flash_decode and grouped_matmul), then a profiled short run;
+ 15. one JSON line of per-kernel numbers.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script fails before printing any
 result. It imports neither jax nor the JAX package.
@@ -76,6 +98,9 @@ N_RWKV_LAYERS = 32
 RWKV_MATS = ("wr", "wk", "wv", "wg", "wo", "cm_k", "cm_v", "cm_r")
 HYMBA_MATS = ("wq", "wk", "wv", "wo", "mlp_wi", "mlp_wo", "ssd_conv_w",
               "ssd_out_proj")
+GRANITE_MATS = ("wq", "wk", "wv", "wo", "moe_w_in", "moe_w_out")
+ROUTE_TOL = 1e-4                   # router logit K/K+1 margins counted as
+                                   # near-ties in phase 13
 # The block matrices are drawn at the JAX init's std 0.02 and then scaled by
 # this: at 0.02 the tied-embedding residual dominates every layer's update
 # and each greedy stream repeats its last prompt token, which would leave
@@ -143,8 +168,9 @@ def main() -> int:
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_paged)
     from repro_torch.kernels.mamba_ssd import ssd_chunked
+    from repro_torch.kernels.moe_gmm import grouped_matmul
     from repro_torch.kernels.rwkv6_scan import rwkv6_chunked
-    from repro_torch.models import lm, ssm
+    from repro_torch.models import blocks, lm, moe, ssm
     from repro_torch.models.layers import rms_norm
 
     if not torch.cuda.is_available():
@@ -192,8 +218,9 @@ def main() -> int:
         e = err(out, ref)
         d = str(dtype).split(".")[-1]
         worst[name][d] = max(worst[name][d], e)
-        per = by_heads.setdefault(heads, {}).setdefault(name, {})
-        per[d] = max(per.get(d, 0.0), e)
+        if heads is not None:
+            per = by_heads.setdefault(heads, {}).setdefault(name, {})
+            per[d] = max(per.get(d, 0.0), e)
         tol = TOL[d]
         if not (e <= tol and torch.isfinite(out.float()).all()):
             raise AssertionError(f"{name} {dtype} {heads}: max |kernel - "
@@ -265,6 +292,7 @@ def main() -> int:
 
     attention_parity(16, 8, 128)          # qwen3-0.6b: G 2
     attention_parity(25, 5, 64)           # hymba-1.5b: G 5
+    attention_parity(16, 8, 64)           # granite-moe-1b-a400m: G 2
     # hymba-1.5b's generate phase (11): batch 4 x prompt 1100 + 32 tokens
     attention_parity_long(25, 5, 64, 4, 1100, 32)
     H, KV, hd = 16, 8, 128
@@ -336,6 +364,28 @@ def main() -> int:
         torch.cuda.synchronize()
         hold_recurrence("ssd_chunked", SSD_TOL, S, got,
                         kref.ssd_ref(x, dt, Bm, Cm, a_s))
+    # the grouped matmul at granite-moe-1b-a400m's expert GEMMs: w_in as the
+    # [E, d, G ff] view of [E, d, 2, 512], w_out [E, 512, d], C 8 (a decode
+    # step of 8 slots) and 320 (a prefill group of 8 x 128 at top-8 of 32,
+    # capacity factor 1.25), and a ragged shape; x a strided view with its
+    # last dim contiguous; w scaled by d^-1/2 so the outputs are O(1)
+    gmm_shapes = {"decode w_in": (32, 8, 1024, 2, 512),
+                  "decode w_out": (32, 8, 512, 1, 1024),
+                  "prefill w_in": (32, 320, 1024, 2, 512),
+                  "prefill w_out": (32, 320, 512, 1, 1024),
+                  "ragged": (4, 13, 72, 1, 40)}
+
+    def gmm_inputs(E, C, d, G, ff, dt):
+        x = randn(C, E, d, dtype=dt).transpose(0, 1)
+        w = (randn(E, d, G, ff) * d ** -0.5).to(dt).reshape(E, d, G * ff)
+        return x, w
+
+    for dt in (torch.bfloat16, torch.float32):
+        for E, C, d, G, ff in gmm_shapes.values():
+            x, w = gmm_inputs(E, C, d, G, ff, dt)
+            hold("grouped_matmul", grouped_matmul(x, w), kref.gmm_ref(x, w),
+                 dt, None)
+    del x, w
     log("parity", "max |kernel - plain| " + json.dumps(
         {k: {d: float(f"{e:.3e}") for d, e in v.items()}
          for k, v in worst.items()}) + f" within {TOL} (rwkv6_chunked: "
@@ -491,7 +541,34 @@ def main() -> int:
                     B * nch * 2 * tri * Ns
                     + B * Hs * nch * (2 * tri * Ps + 4 * C * Ns * Ps),
                     "float32"))
+    # the grouped matmul at granite-moe-1b-a400m's four expert GEMM shapes,
+    # bf16; 24 layers' inputs cycled (1.5 GB of w_in alone). The library
+    # call is torch.bmm in the same dtype; the headline shape is decode
+    # w_in (48 launches of the two shapes per decode step)
+    gmm_times = {}
+    for what, (E, C, d, G, ff) in list(gmm_shapes.items())[:4]:
+        sets = [gmm_inputs(E, C, d, G, ff, bf) for _ in range(24)]
+        f = G * ff
+        gmm_times[what] = dict(
+            ms=time_ms(grouped_matmul, sets),
+            plain_ms=time_ms(kref.gmm_ref, sets),
+            library_ms=time_ms(torch.bmm, sets),
+            shape=f"E{E} C{C} d{d} f{f} bf16",
+            # x and w read once, out written once; 2 E C d f flops
+            bound=bound(2 * (E * C * d + E * d * f + E * C * f),
+                        2 * E * C * d * f))
+        del sets
+    timing["grouped_matmul"] = dict(
+        gmm_times["decode w_in"], library="torch.bmm (bf16)",
+        dtype="bfloat16", tolerance=TOL, by_shape=gmm_times)
+    for what, t in gmm_times.items():
+        log("timing", f"grouped_matmul {what} [{t['shape']}]: kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"torch.bmm {t['library_ms']:.4f} ms, bound "
+            f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
     for name, t in timing.items():
+        if name == "grouped_matmul":
+            continue
         lib = "none" if t["library_ms"] is None else \
             f"{t['library_ms']:.4f} ms"
         scan = "" if "plain_scan_ms" not in t else \
@@ -502,25 +579,28 @@ def main() -> int:
     del att_sets, pg_sets, c_sets, kp, vp, ck, cv, wkv_sets, ssd_sets
 
     def check_launches(tag, launches, rep, need):
-        """`need` maps each kernel of the path to ("prefill" | "decode", its
-        launches per prefill group or per decode step)."""
+        """`need` maps each kernel of the path to ("prefill" | "decode" |
+        "both", its launches per prefill group, decode step or either); the
+        counts must equal that."""
         ok = rep.prefill_calls and rep.decode_steps
         for name, (per, n) in need.items():
-            groups = rep.prefill_calls if per == "prefill" else \
-                rep.decode_steps
-            ok = ok and launches[name] >= n * groups
+            calls = {"prefill": rep.prefill_calls, "decode": rep.decode_steps,
+                     "both": rep.prefill_calls + rep.decode_steps}[per]
+            ok = ok and launches[name] == n * calls
         if not ok:
             raise AssertionError(f"{tag} missed its kernels: {launches} for "
                                  f"{rep.prefill_calls} prefill groups, "
                                  f"{rep.decode_steps} decode steps; needed "
-                                 f"{need}")
+                                 f"exactly {need}")
 
-    def serve_phase(tag, eng, reqs, need, pool):
+    def serve_phase(tag, eng, reqs, need, pool, routing=None):
         """`reqs` through the Scheduler once to warm up (cuBLAS, the
         allocator) and once with the launch counts at 0: every kernel of
         `need` launched, every request's tokens out and in the vocabulary,
         a page pool only if `pool`; then a profiled short run. Returns the
-        launch counts of the measured run."""
+        launch counts of the measured run. With `routing` (a callable of the
+        MoE routing records and the report), the measured run records the
+        routing of every MoE layer and hands it over."""
         arch, sv = eng.plan.arch, eng.plan.serve
         t0 = time.monotonic()
         Scheduler(eng).run(reqs[:2])
@@ -528,8 +608,9 @@ def main() -> int:
         warm_s = time.monotonic() - t0
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        rep = Scheduler(eng).run(reqs)
-        torch.cuda.synchronize()
+        with moe.record_routing() as records:
+            rep = Scheduler(eng).run(reqs)
+            torch.cuda.synchronize()
         launches = dict(LAUNCHES)
         check_launches(tag, launches, rep, need)
         toks = [t for r in rep.requests for t in r.tokens]
@@ -552,7 +633,10 @@ def main() -> int:
             f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
             f"warm-up {warm_s:.1f} s")
         log("serve", f"{tag} launches {launches} (needed per prefill group "
-            f"/ decode step: {need})")
+            f"/ decode step, exactly: {need})")
+        if routing is not None:
+            routing(records, rep)
+        del records
         short = [Request(rid=100 + i, prompt=r.prompt, max_new_tokens=8)
                  for i, r in enumerate(reqs[:8])]
         profile_run(f"{tag} Scheduler, 8 requests x 8 tokens",
@@ -608,26 +692,110 @@ def main() -> int:
 
     # ---- 4. kernel path against the plain path, f32 --------------------
     class MarginScheduler(Scheduler):
-        """Records each pick's top-2 logit margin, keyed (rid, k)."""
+        """Records each pick's top-2 logit margin, keyed (rid, k), and with
+        `records` (an MoE routing log of `layers` layers a forward call) the
+        index of the forward call the pick came from."""
 
-        def __init__(self, engine):
+        def __init__(self, engine, records=None, layers=1):
             super().__init__(engine)
-            self.margins = {}
+            self.margins, self.calls = {}, {}
+            self.records, self.layers = records, layers
 
         def _pick_one(self, row, rid, k):
             top = np.partition(row, -2)[-2:]
             self.margins[(rid, k)] = float(top[1] - top[0])
+            if self.records is not None:
+                self.calls[(rid, k)] = len(self.records) // self.layers - 1
             return super()._pick_one(row, rid, k)
 
-    def f32_streams(tag, plan32, params32, reqs):
+    def swapped(a, b):
+        """[T] expert choices that differ between two routing records of one
+        MoE layer call (the kernel and the plain side), per position."""
+        hot = [torch.nn.functional.one_hot(r["idx"], r["logits"].shape[1])
+               .sum(1) for r in (a, b)]
+        return (hot[0] != hot[1]).sum(-1) // 2
+
+    def row_flips(recs_k, recs_r):
+        """[B] expert choices that differ between the two sides' routing of
+        one forward call (its layers' records), by row."""
+        return sum(swapped(a, b).view(*a["shape"]).sum(-1)
+                   for a, b in zip(recs_k, recs_r)).cpu()
+
+    def first_flip(recs_k, recs_r):
+        """One forward call recorded on both sides: (its first layer whose
+        expert choices differ, or None; the positions that flip there; the
+        largest router-logit difference at layer 0 and at the last layer
+        before it). A flip moves the capacity drops of the whole group, so
+        the layers after it are a cascade."""
+        diffs = []
+        for layer, (a, b) in enumerate(zip(recs_k, recs_r)):
+            flipped = swapped(a, b) > 0
+            if flipped.any():
+                return layer, int(flipped.sum()), diffs[:1] + diffs[-1:]
+            diffs.append(err(a["logits"], b["logits"]))
+        return None, 0, diffs[:1] + diffs[-1:]
+
+    def moe_layer_parity(arch, params, prompts):
+        """Every layer of `arch` in f32 on the same input: the plain path's
+        hidden state enters both backends (teacher forcing; prefill over
+        full rows, no cache), so each layer's kernel path is held alone,
+        not through the layers before it. The outputs agree within 1e-5 of
+        their scale, the routing is the same except at near-ties (a layer
+        with a flip is counted, not compared). Returns (the worst relative
+        output difference, positions flipped)."""
+        x = lm.embed_tokens(arch, params, prompts)
+        worst, tied = 0.0, 0
+        with torch.inference_mode():
+            for layer in range(arch.num_layers):
+                p_l = {k: v[layer] for k, v in params["blocks"].items()}
+                out = {}
+                for be in ("cuda", "ref"):
+                    with moe.record_routing() as rec:
+                        y, _ = blocks.apply_layer(arch, p_l, x, blocks.LayerCtx(
+                            mode="prefill", kernel_backend=be))
+                    out[be] = y, rec[0]
+                (yk, rk), (yr, rr) = out["cuda"], out["ref"]
+                flipped = swapped(rk, rr) > 0
+                if flipped.any():
+                    m = float(moe.topk_margin(rr["logits"], arch.top_k)[
+                        flipped].max())
+                    if m >= ROUTE_TOL:
+                        raise AssertionError(
+                            f"{arch.name} layer {layer}: on the same input a "
+                            f"choice with a K/K+1 margin {m:.3e} >= "
+                            f"{ROUTE_TOL} flipped")
+                    tied += int(flipped.sum())
+                else:
+                    rel = err(yk, yr) / float(yr.abs().max())
+                    if not rel <= 1e-5:
+                        raise AssertionError(
+                            f"{arch.name} layer {layer}: on the same input "
+                            f"the kernel path differs by {rel:.3e} of the "
+                            f"output's scale (> 1e-5)")
+                    worst = max(worst, rel)
+                x = yr
+        return worst, tied
+
+    def near_ties(recs):
+        """Routed positions whose K-th and (K+1)-th router logits are closer
+        than ROUTE_TOL (summed over the records' layers)."""
+        return sum(int((moe.topk_margin(r["logits"], r["idx"].shape[1])
+                        < ROUTE_TOL).sum()) for r in recs)
+
+    def f32_streams(tag, plan32, params32, reqs, moe_layers=0):
         """`reqs` in f32 through the kernels and through the plain path: the
         first prefill's logits agree within LOGIT_TOL and the greedy streams
-        match except at a step whose plain top-2 margin is under it."""
+        match except at a step whose plain top-2 margin is under it. With
+        `moe_layers`, the routing of both sides is recorded: the first
+        prefill's logits may differ only if an expert choice flipped there,
+        and a stream may also diverge after a flipped choice that reached it
+        (in its prefill group, where capacity couples the rows, or in its
+        own row of a later decode step)."""
         sv = plan32.serve
         e_k = Engine(plan32, params=params32)
         e_r = Engine(plan32.replace(serve__kernel_backend="ref"),
                      params=params32)
-        first = []
+        first, first_recs = [], []
         for e in (e_k, e_r):
             store = e.serve_store()
             prompts = np.zeros((sv.max_batch, sv.prompt_len), np.int32)
@@ -636,33 +804,69 @@ def main() -> int:
                 store.alloc(j, len(r.prompt) + sv.gen)
                 prompts[j, :len(r.prompt)] = r.prompt
                 lens[j] = len(r.prompt)
-            first.append(e.prefill_into(store, prompts, lens,
-                                        [0, 1, 2, 3])[:4])
+            with moe.record_routing() as recs:
+                first.append(e.prefill_into(store, prompts, lens,
+                                            [0, 1, 2, 3])[:4])
+            first_recs.append(recs)
             del store
         d_logits = err(first[0], first[1])
-        if not (d_logits <= LOGIT_TOL and torch.isfinite(first[0]).all()):
+        flips0 = int(row_flips(*first_recs).sum()) if moe_layers else 0
+        if moe_layers:
+            ff0 = first_flip(*first_recs)
+        if not (torch.isfinite(first[0]).all() and
+                (d_logits <= LOGIT_TOL or flips0)):
             raise AssertionError(f"{tag}: f32 first-prefill logits differ by "
                                  f"{d_logits:.3e} > {LOGIT_TOL}")
-        out_k = Scheduler(e_k).run(reqs)
-        ref_sched = MarginScheduler(e_r)
-        out_r = ref_sched.run(reqs)
-        near_ties, diverged = 0, 0
+        with moe.record_routing() as recs_k:
+            out_k = Scheduler(e_k).run(reqs)
+        with moe.record_routing() as recs_r:
+            ref_sched = MarginScheduler(e_r, recs_r, max(moe_layers, 1))
+            out_r = ref_sched.run(reqs)
+        L = moe_layers
+        if L and len(recs_k) != len(recs_r):
+            raise AssertionError(f"{tag}: the two runs made "
+                                 f"{len(recs_k)} and {len(recs_r)} MoE calls")
+
+        flips = [row_flips(recs_k[c * L:(c + 1) * L], recs_r[c * L:(c + 1) * L])
+                 for c in range(len(recs_r) // L)] if L else []
+        ties, after_flip, diverged = 0, 0, 0
         for a, b in zip(out_k.requests, out_r.requests):
             if a.tokens != b.tokens:
                 k = next(i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
                          if x != y)
                 margin = ref_sched.margins[(b.rid, k)]
-                if margin >= LOGIT_TOL:
+                if margin < LOGIT_TOL:
+                    ties += 1
+                elif L and (int(flips[ref_sched.calls[(b.rid, 0)]].sum()) or
+                            any(int(flips[c][b.slot]) for c in range(
+                                ref_sched.calls[(b.rid, 0)] + 1,
+                                ref_sched.calls[(b.rid, k)] + 1))):
+                    after_flip += 1
+                else:
                     raise AssertionError(
                         f"{tag}: rid {a.rid}: streams diverge at token {k} "
-                        f"with a top-2 margin {margin:.3e} >= {LOGIT_TOL}")
-                near_ties += 1
+                        f"with a top-2 margin {margin:.3e} >= {LOGIT_TOL}"
+                        + (" and no expert choice flipped before it"
+                           if L else ""))
             diverged += a.tokens != b.tokens
+        route = ""
+        if L:
+            route = (f"; routing: first prefill {flips0} flipped choice(s), "
+                     f"the first at layer {ff0[0]} ({ff0[1]} position(s); "
+                     f"router logits kernel vs plain differ by "
+                     f"{' growing to '.join(f'{v:.1e}' for v in ff0[2]) or '-'} "
+                     f"over the layers before it), "
+                     f"{near_ties(first_recs[1])} position(s) with a K/K+1 router "
+                     f"margin under {ROUTE_TOL} (of "
+                     f"{sum(r['idx'].shape[0] for r in first_recs[1])} "
+                     f"routed positions); {after_flip} divergence(s) after "
+                     f"a flipped choice in the request's prefill group or "
+                     f"its row")
         log("f32", f"{tag}: first-prefill logits max |cuda - ref| "
             f"{d_logits:.3e} (tolerance {LOGIT_TOL}); streams identical for "
-            f"{len(reqs) - diverged}/{len(reqs)} requests, {near_ties} "
+            f"{len(reqs) - diverged}/{len(reqs)} requests, {ties} "
             f"divergence(s) at a top-2 margin under {LOGIT_TOL}; "
-            f"min margin {min(ref_sched.margins.values()):.3e}")
+            f"min margin {min(ref_sched.margins.values()):.3e}" + route)
 
     f32_streams("qwen3-0.6b", plan.replace(run__compute_dtype="float32"),
                 params32, reqs)
@@ -793,7 +997,100 @@ def main() -> int:
          "flash_decode": ("decode", n_full)})
     del hparams_bf16
 
-    # ---- 12. the kernels line ------------------------------------------
+    # ---- 12. granite-moe-1b-a400m at full width, bf16, Scheduler ---------
+    gr = ARCHS["granite-moe-1b-a400m"]
+    NG = gr.num_layers
+    ggen = torch.Generator(device=dev).manual_seed(3)
+    gparams32 = lm.init_params(gr, ggen, dtype=torch.float32, device=dev)
+    blk = gparams32["blocks"]
+    for name in GRANITE_MATS:
+        blk[name].mul_(WEIGHT_SCALE)
+    # the router stays at the init's std 0.02: the spread printed below says
+    # whether it routes evenly
+    greqs = [Request(rid=i, prompt=rng.integers(
+        0, gr.vocab_size, int(rng.integers(16, 129)), dtype=np.int32))
+        for i in range(16)]
+    gparams_bf16 = bf16_copy(gparams32)
+    gsv = ServeSpec(prompt_len=128, gen=32, max_batch=8, page_size=16,
+                    max_pages=48, kernel_backend="cuda")
+    gplan = Plan(arch=gr, run=RunSpec(compute_dtype="bfloat16"), serve=gsv)
+    g_need = {"grouped_matmul": ("both", 2 * NG),
+              "flash_attention_fwd": ("prefill", NG),
+              "flash_decode_paged": ("decode", NG)}
+
+    def routing_report(records, rep):
+        """The router's logit spread and K/K+1 margins, the first prefill
+        group's expert loads per layer, and each group's dropped choices at
+        real prompt positions and at padding (short prompts, dead rows)."""
+        pre = [r for r in records if r["shape"][1] == gsv.prompt_len]
+        if len(pre) != NG * rep.prefill_calls:
+            raise AssertionError(f"{len(pre)} MoE prefill records for "
+                                 f"{rep.prefill_calls} groups")
+        std = [float(r["logits"].std()) for r in pre[:NG]]
+        marg = torch.cat([moe.topk_margin(r["logits"], gr.top_k)
+                          for r in pre[:NG]])
+        log("routing", f"granite router logits (first group) std per layer "
+            f"{min(std):.3f}..{max(std):.3f}; K/K+1 margin median "
+            f"{float(marg.median()):.3e}, min {float(marg.min()):.3e}; "
+            f"routed positions with a margin under {ROUTE_TOL}: "
+            f"{int((marg < ROUTE_TOL).sum())}/{marg.numel()}")
+        loads = [torch.bincount(r["idx"][r["keep"]], minlength=gr.num_experts)
+                 for r in pre[:NG]]
+        log("routing", f"granite first group expert loads (capacity "
+            f"{pre[0]['cap']}): max per layer "
+            f"{[int(x.max()) for x in loads]}, mean "
+            f"{float(torch.stack(loads).float().mean()):.1f}")
+        drops = []
+        for g in range(rep.prefill_calls):
+            rows = sorted((r for r in rep.requests if r.group == g),
+                          key=lambda r: r.slot)
+            live = torch.zeros(gsv.max_batch, gsv.prompt_len,
+                               dtype=torch.bool, device=dev)
+            for j, r in enumerate(rows):
+                live[j, :r.prompt_len] = True
+            real = pad = 0
+            for r in pre[g * NG:(g + 1) * NG]:
+                drop = (~r["keep"]).view(gsv.max_batch, gsv.prompt_len, -1)
+                real += int(drop[live].sum())
+                pad += int(drop[~live].sum())
+            drops.append((len(rows), real, pad))
+        log("routing", "granite dropped choices per prefill group (rows, "
+            "real, padding), over all layers: " + "; ".join(
+                f"g{g} {n} rows: {a}/{b}" for g, (n, a, b) in
+                enumerate(drops)))
+
+    gr_launches = serve_phase(
+        f"granite-moe-1b-a400m full width ({NG} layers, d {gr.d_model}, "
+        f"{gr.num_heads}/{gr.num_kv_heads} heads of {gr.head_dim}, "
+        f"{gr.num_experts} experts top-{gr.top_k} with d_ff {gr.d_ff}, vocab "
+        f"{gr.vocab_size}, tied)", Engine(gplan, params=gparams_bf16), greqs,
+        g_need, pool=True, routing=routing_report)
+
+    # ---- 13. granite kernel path against the plain path, f32 -------------
+    lp_prompts = torch.as_tensor(np.random.default_rng(14).integers(
+        0, gr.vocab_size, (8, 128)), device=dev)
+    worst_rel, tied = moe_layer_parity(gr, gparams32, lp_prompts)
+    log("f32", f"granite-moe-1b-a400m layer by layer on the same input (8 x "
+        f"128 tokens, the plain path's hidden state into both): outputs "
+        f"within {worst_rel:.3e} of their scale (tolerance 1e-5), "
+        f"{tied} position(s) flipped at a near-tie")
+    f32_streams("granite-moe-1b-a400m",
+                gplan.replace(run__compute_dtype="float32"), gparams32, greqs,
+                moe_layers=NG)
+    del gparams32
+
+    # ---- 14. granite Engine.generate, contiguous cache -------------------
+    gr_gen_launches = generate_phase(
+        "granite-moe-1b-a400m full width",
+        Plan(arch=gr, run=RunSpec(compute_dtype="bfloat16"),
+             serve=ServeSpec(prompt_len=128, gen=32, max_batch=8,
+                             kernel_backend="cuda")), gparams_bf16,
+        {"grouped_matmul": ("both", 2 * NG),
+         "flash_attention_fwd": ("prefill", NG),
+         "flash_decode": ("decode", NG)})
+    del gparams_bf16
+
+    # ---- 15. the kernels line ------------------------------------------
     src = {"flash_attention_fwd": ("src/repro_torch/kernels/csrc/"
                                    "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:94"),
@@ -805,7 +1102,9 @@ def main() -> int:
            "rwkv6_chunked": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                              "src/repro/kernels/rwkv6_scan.py:67"),
            "ssd_chunked": ("src/repro_torch/kernels/csrc/mamba_ssd.cu",
-                           "src/repro/kernels/mamba_ssd.py:62")}
+                           "src/repro/kernels/mamba_ssd.py:62"),
+           "grouped_matmul": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
+                              "src/repro/kernels/moe_gmm.py:49")}
     # each path's launch counts, read just after its measured run; a
     # kernel's "launches" are those of the first path that runs it
     paths = {"qwen3-0.6b serve": main_launches,
@@ -813,11 +1112,14 @@ def main() -> int:
              "rwkv6-3b serve": rw_launches,
              "rwkv6-3b generate": rw_gen_launches,
              "hymba-1.5b serve": hy_launches,
-             "hymba-1.5b generate": hy_gen_launches}
+             "hymba-1.5b generate": hy_gen_launches,
+             "granite-moe-1b-a400m serve": gr_launches,
+             "granite-moe-1b-a400m generate": gr_gen_launches}
     power = smi.split(",")[-1].strip()
     kernels = []
     for name in ("flash_decode_paged", "flash_attention_fwd",
-                 "flash_decode", "rwkv6_chunked", "ssd_chunked"):
+                 "flash_decode", "rwkv6_chunked", "ssd_chunked",
+                 "grouped_matmul"):
         by_path = {p: n[name] for p, n in paths.items() if n[name]}
         t = timing[name]
         errs = worst[name]
@@ -834,7 +1136,11 @@ def main() -> int:
                                      by_heads.items() if name in per},
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"], "library": t["library"],
-            "shape": t["shape"], "card": card, "power_limit": power})
+            "shape": t["shape"], "card": card, "power_limit": power,
+            "by_shape": {w: {k: v for k, v in b.items() if k != "bound"}
+                         | {"bound_ms": b["bound"][0],
+                            "bound_by": b["bound"][1]}
+                         for w, b in t.get("by_shape", {}).items()} or None})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,8 @@
                         (csrc/rwkv6_scan.cu)
   ssd_chunked           the chunked Mamba-2 SSD of the hybrid (hymba)
                         prefill (csrc/mamba_ssd.cu)
+  grouped_matmul        the expert-batched GEMMs of the MoE (granite)
+                        expert FFN (csrc/moe_gmm.cu)
 
 Each wrapper runs its plain version (kernels/ref.py) on a CPU tensor and
 launches its kernel on a CUDA tensor, counting launches in LAUNCHES.

@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: dict[str, int] = {"flash_attention_fwd": 0, "flash_decode": 0,
                             "flash_decode_paged": 0, "rwkv6_chunked": 0,
-                            "ssd_chunked": 0}
+                            "ssd_chunked": 0, "grouped_matmul": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

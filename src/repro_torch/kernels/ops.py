@@ -7,8 +7,8 @@ BACKENDS:
 
 The model calls these only with kernel_backend="cuda"; with "ref" it takes
 its own plain paths (models/attention.py for attention, the chunked torch
-scans of models/ssm.py for the RWKV6 time-mix and the SSD mix), as the JAX
-package does.
+scans of models/ssm.py for the RWKV6 time-mix and the SSD mix, the einsums
+of models/moe.py for the MoE expert FFN), as the JAX package does.
 The layout adapters between the model convention ([B, S, H, hd]) and the
 kernel convention ([B, H, S, hd]) live here; both are views, no copies.
 """
@@ -18,6 +18,7 @@ from repro_torch.kernels import ref as kref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
 from repro_torch.kernels.mamba_ssd import ssd_chunked
+from repro_torch.kernels.moe_gmm import grouped_matmul
 from repro_torch.kernels.rwkv6_scan import rwkv6_chunked
 
 BACKENDS = ("ref", "cuda")
@@ -74,3 +75,11 @@ def ssd(x, dt, B_, C_, a, *, backend="ref"):
     if check_backend(backend) == "ref":
         return kref.ssd_ref(x, dt, B_, C_, a)
     return ssd_chunked(x, dt, B_, C_, a)
+
+
+def gmm(x, w, *, backend="ref"):
+    """Grouped (expert-batched) matmul x [E,C,d] @ w [E,d,f] -> [E,C,f] in
+    x's dtype, summed in f32."""
+    if check_backend(backend) == "ref":
+        return kref.gmm_ref(x, w)
+    return grouped_matmul(x, w)

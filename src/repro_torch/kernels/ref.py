@@ -12,6 +12,7 @@ Layouts (kernel-native):
   paged:     q1 [B, H, hd]; pools [groups, num_pages + 1, page_size, KV, hd]
   rwkv6:     r, k, v, w [B, H, S, hd] (w = log-decay <= 0); u [H, hd]
   ssd:       x [B, H, S, P]; dt [B, H, S] (>= 0); B_, C_ [B, S, N]; a [H] < 0
+  gmm:       x [E, C, d]; w [E, d, f]
 """
 from __future__ import annotations
 
@@ -126,3 +127,9 @@ def ssd_ref(x, dt, B_, C_, a):
         ys.append(torch.einsum("bn,bhnp->bhp", cf[:, t], h))
     y = torch.stack(ys, dim=2) if ys else xf.new_zeros((B, H, 0, P))
     return y.to(x.dtype), h
+
+
+def gmm_ref(x, w):
+    """Grouped (expert-batched) matmul [E, C, d] x [E, d, f] -> [E, C, f]:
+    both operands widened to f32, f32 sums, one cast to x's dtype."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

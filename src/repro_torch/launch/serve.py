@@ -17,12 +17,19 @@ the paged KV pool and prints throughput, occupancy, pages and latency.
       --compute-dtype bfloat16 --requests 16 --batch 8 --prompt-len 128 \
       --gen 32 --page-size 16 --max-pages 48 --kernel-backend cuda
                                                       # hymba-1.5b full width
+  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m \
+      --no-reduced --compute-dtype bfloat16 --requests 16 --batch 8 \
+      --prompt-len 128 --gen 32 --page-size 16 --max-pages 48 \
+      --kernel-backend cuda                           # granite MoE full width
   python -m repro_torch.launch.serve --device cpu --requests 4
   python -m repro_torch.launch.serve --arch rwkv6-3b --device cpu --requests 4
   python -m repro_torch.launch.serve --arch hymba-1.5b --device cpu \
       --requests 4 --prompt-len 40        # reduced: prompts past window 32
   python -m repro_torch.launch.serve --arch h2o-danube-1.8b --device cpu \
       --requests 4 --prompt-len 40
+  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m \
+      --device cpu --requests 4 --batch 2 --prompt-len 16 --gen 4 \
+      --page-size 4 --max-pages 12
 
 --reduced (the default) serves the config cut down by configs.reduced();
 --no-reduced serves the real widths. (The JAX CLI declares --reduced as a
@@ -45,9 +52,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "runs the kernels' plain PyTorch versions")
     ap.add_argument("--kernel-backend", choices=("ref", "cuda"),
                     default="ref",
-                    help="hot-path attention and WKV / SSD prefill "
-                         "(ServeSpec.kernel_backend): 'ref' = plain torch, "
-                         "'cuda' = the Hopper kernels")
+                    help="hot-path attention, WKV / SSD prefill and MoE "
+                         "expert GEMMs (ServeSpec.kernel_backend): 'ref' = "
+                         "plain torch, 'cuda' = the Hopper kernels")
     ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"),
                     default="float32",
                     help="params and activations (RunSpec.compute_dtype)")

@@ -1,6 +1,7 @@
 """Per-layer block application: the dense (full-attention GQA), the
-sliding-window (h2o-danube), the attention-free RWKV6 and the SSD hybrid
-(hymba: attention and SSD heads in parallel) families.
+sliding-window (h2o-danube), the attention-free RWKV6, the SSD hybrid
+(hymba: attention and SSD heads in parallel) and the MoE (granite: the
+dense attention, a routed expert FFN) families.
 
 A layer is applied with one signature for prefill and decode; per-layer
 behaviour (attention kind, cache group slot) rides in the LayerCtx.
@@ -13,8 +14,7 @@ Conventions:
 
 `kind` is a Python int, so each layer runs one path and writes only the
 cache group it owns; the JAX package computes both under a `where` on a
-traced kind, which writes the same values. MoE (granite) is ROADMAP Queue
-1 item 5 and raises.
+traced kind, which writes the same values.
 """
 from __future__ import annotations
 
@@ -27,9 +27,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (apply_rope, layer_norm, rms_norm,
-                                       rope_cos_sin)
+from repro_torch.models.layers import (apply_rope, gated_act, layer_norm,
+                                       rms_norm, rope_cos_sin)
 from repro_torch.serve import cache as cache_lib
 
 
@@ -46,9 +47,10 @@ class LayerCtx:
                                     # right-padded prefill; None = full rows
     kernel_backend: str = "ref"     # "ref" = plain torch paths; "cuda"
                                     # routes full-attention prefill/decode
-                                    # and the fresh-state RWKV6 and SSD
-                                    # prefills through the repro_torch
-                                    # kernels (windowed layers run none)
+                                    # the fresh-state RWKV6 and SSD
+                                    # prefills and the MoE expert GEMMs
+                                    # through the repro_torch kernels
+                                    # (windowed layers run none)
 
 
 def _norm(cfg: ArchConfig, p, key, x):
@@ -61,16 +63,20 @@ def _mlp_dense(cfg: ArchConfig, p, x):
     """wi [d, G, ffl] (fused gate/up), wo [ffl, d]."""
     wi = p["mlp_wi"].to(x.dtype)
     h = (x @ wi.reshape(wi.shape[0], -1)).unflatten(-1, wi.shape[1:])
-    if cfg.mlp_type == "swiglu":
-        a = F.silu(h[..., 0, :]) * h[..., 1, :]
-    elif cfg.mlp_type == "geglu":
-        a = F.gelu(h[..., 0, :], approximate="tanh") * h[..., 1, :]
-    elif cfg.mlp_type == "gelu":
-        a = F.gelu(h[..., 0, :], approximate="tanh")
-    else:  # relu2
-        r = F.relu(h[..., 0, :])
-        a = r * r
-    return a @ p["mlp_wo"].to(x.dtype)
+    return gated_act(h, cfg.mlp_type) @ p["mlp_wo"].to(x.dtype)
+
+
+def _mlp_moe(cfg: ArchConfig, p, x, ctx: LayerCtx):
+    """router [d, E], moe_w_in [E, d, G, ffl], moe_w_out [E, ffl, d]; the
+    expert GEMMs run ctx.kernel_backend's path. The aux loss is dropped:
+    serving has no use for it."""
+    moe_p = {"router": p["router"], "w_in": p["moe_w_in"],
+             "w_out": p["moe_w_out"]}
+    out, _ = moe_lib.moe_mlp(
+        moe_p, x, num_experts=cfg.num_experts, top_k=cfg.top_k,
+        mlp_type=cfg.mlp_type, capacity_factor=cfg.capacity_factor,
+        backend=ctx.kernel_backend)
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -287,12 +293,10 @@ def _rwkv_layer(cfg: ArchConfig, p, x, ctx: LayerCtx, cache):
 # Unified layer entry
 # ----------------------------------------------------------------------------
 def apply_layer(cfg: ArchConfig, p, x, ctx: LayerCtx, cache=None):
-    """Returns (x_out, cache) for one dense, windowed, RWKV6 or SSD-hybrid
-    layer."""
+    """Returns (x_out, cache) for one dense, windowed, RWKV6, SSD-hybrid or
+    MoE layer."""
     if cfg.ssm_type == "rwkv6":
         return _rwkv_layer(cfg, p, x, ctx, cache)
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are ROADMAP Queue 1 item 5")
     xn = _norm(cfg, p, "ln1", x)
     if ctx.mode == "decode":
         att, cache = _attn_decode(cfg, p, xn, ctx, cache)
@@ -307,7 +311,9 @@ def apply_layer(cfg: ArchConfig, p, x, ctx: LayerCtx, cache=None):
     if cfg.norm_style == "rms_sandwich":
         att = rms_norm(att, p["ln1_post"], eps=cfg.norm_eps)
     x = x + att
-    m = _mlp_dense(cfg, p, _norm(cfg, p, "ln2", x))
+    xn2 = _norm(cfg, p, "ln2", x)
+    m = _mlp_moe(cfg, p, xn2, ctx) if cfg.num_experts else \
+        _mlp_dense(cfg, p, xn2)
     if cfg.norm_style == "rms_sandwich":
         m = rms_norm(m, p["ln2_post"], eps=cfg.norm_eps)
     return x + m, cache

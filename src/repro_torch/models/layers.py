@@ -1,4 +1,5 @@
-"""Primitive layers: norms, rope, MLP activations. Functions over tensors."""
+"""Primitive layers: norms, rope, the MLP activation. Functions over
+tensors."""
 from __future__ import annotations
 
 import torch
@@ -53,19 +54,16 @@ def apply_rope(x, cos, sin):
 
 
 # ----------------------------------------------------------------------------
-# MLPs (all return the pre-output-projection activation given fused wi)
+# MLP activation
 # ----------------------------------------------------------------------------
-def mlp_act(h, mlp_type: str, d_ff: int):
-    """h = x @ wi where wi fuses [gate; up] for gated types."""
+def gated_act(h, mlp_type: str):
+    """h [..., G, ff] = x @ wi with the gate at [..., 0, :] and, for the
+    gated types (G = 2), the up projection at [..., 1, :] -> [..., ff]."""
     if mlp_type == "swiglu":
-        g, u = h.chunk(2, dim=-1)
-        return F.silu(g) * u
+        return F.silu(h[..., 0, :]) * h[..., 1, :]
     if mlp_type == "geglu":
-        g, u = h.chunk(2, dim=-1)
-        return F.gelu(g, approximate="tanh") * u
+        return F.gelu(h[..., 0, :], approximate="tanh") * h[..., 1, :]
     if mlp_type == "gelu":
-        return F.gelu(h, approximate="tanh")
-    if mlp_type == "relu2":
-        r = F.relu(h)
-        return r * r
-    raise ValueError(mlp_type)
+        return F.gelu(h[..., 0, :], approximate="tanh")
+    r = F.relu(h[..., 0, :])      # relu2
+    return r * r

@@ -65,14 +65,10 @@ def uniform_kind(cfg: ArchConfig) -> Optional[int]:
 # Parameter init
 # ----------------------------------------------------------------------------
 def _block_shapes(cfg: ArchConfig) -> dict[str, tuple[tuple, str]]:
-    """Dense-, RWKV6- and SSD-hybrid-family leaf -> (per-layer shape,
-    init)."""
+    """Dense-, RWKV6-, SSD-hybrid- and MoE-family leaf -> (per-layer
+    shape, init)."""
     d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the dense, RWKV6 and SSD-hybrid families are "
-            f"ported; MoE is ROADMAP Queue 1 item 5")
     G = 2 if cfg.mlp_type in ("swiglu", "geglu") else 1
     out: dict[str, tuple[tuple, str]] = {}
 
@@ -115,8 +111,14 @@ def _block_shapes(cfg: ArchConfig) -> dict[str, tuple[tuple, str]]:
         out["ln1_post"] = ((d,), "zeros")
         out["ln2_post"] = ((d,), "zeros")
     norm("ln2")
-    out["mlp_wi"] = ((d, G, ff), "normal")
-    out["mlp_wo"] = ((ff, d), "normal_out")
+    if cfg.num_experts:
+        E = cfg.num_experts
+        out["router"] = ((d, E), "normal")
+        out["moe_w_in"] = ((E, d, G, ff), "normal")
+        out["moe_w_out"] = ((E, ff, d), "normal_out")
+    else:
+        out["mlp_wi"] = ((d, G, ff), "normal")
+        out["mlp_wo"] = ((ff, d), "normal_out")
     if cfg.hybrid_parallel:
         di, N, Hs = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
         out["bn_attn"] = ((d,), "zeros")

@@ -9,7 +9,8 @@ Elsewhere they skip. Each kernel is held against its plain PyTorch version
 on the same CUDA inputs (2e-5 in f32: the sums run in another order; 5e-2
 in bf16: one rounding of the output; 5e-4 for the chunked WKV6 and 1e-4
 for the chunked SSD against their sequential recurrences, the tolerances
-of tests/test_kernels.py), and the
+of tests/test_kernels.py; for the grouped matmul 2e-5 relative to the
+output's scale in f32, its sums over d running in another order), and the
 serve_kernels preset on the card streams the same greedy tokens as its
 plain path on the CPU.
 """
@@ -24,6 +25,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
 from repro_torch.kernels.mamba_ssd import ssd_chunked
+from repro_torch.kernels.moe_gmm import grouped_matmul
 from repro_torch.kernels.rwkv6_scan import rwkv6_chunked
 from repro_torch.models import lm
 
@@ -145,6 +147,37 @@ def test_ssd_chunked_matches_plain_version(card, B, H, S):
         ssd_chunked(x.to(torch.bfloat16), dt, Bm, Cm, a)
     with pytest.raises(ValueError, match="not in"):
         ssd_chunked(x[..., :32], dt, Bm, Cm, a)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,d,G,ff", [(32, 8, 1024, 2, 512),
+                                        (32, 8, 512, 1, 1024),
+                                        (32, 320, 1024, 2, 512),
+                                        (32, 320, 512, 1, 1024),
+                                        (3, 13, 72, 1, 40), (2, 1, 5, 1, 3)])
+def test_grouped_matmul_matches_plain_version(card, dtype, E, C, d, G, ff):
+    """The grouped matmul against gmm_ref at granite-moe-1b's decode (C 8)
+    and prefill (C 320) shapes of w_in (the [E, d, G ff] view of [E, d, G,
+    ff]) and w_out, a ragged C 13 / d 72 / f 40 and a tiny one; x a strided
+    view (last dim contiguous), as the model may hand it over."""
+    g = torch.Generator(device=card).manual_seed(C + d + ff)
+    x = torch.randn((C, E, d), generator=g, device=card).to(dtype)
+    x = x.transpose(0, 1)
+    w = (torch.randn((E, d, G, ff), generator=g, device=card) *
+         d ** -0.5).to(dtype).reshape(E, d, G * ff)
+    reset_launches()
+    out = grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["grouped_matmul"] == 1
+    assert out.dtype == dtype and out.shape == (E, C, G * ff)
+    want = tref.gmm_ref(x, w)
+    if dtype == torch.float32:
+        scale = float(want.abs().max())
+        torch.testing.assert_close(out, want, atol=2e-5 * scale, rtol=2e-5)
+    else:
+        torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
+    with pytest.raises(ValueError, match="share"):
+        grouped_matmul(x, w.float() if dtype != torch.float32 else w.double())
 
 
 def test_serve_kernels_on_card_match_cpu(card):

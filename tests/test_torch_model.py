@@ -204,7 +204,15 @@ def test_paged_prefill_decode_match_reference(kernel_backend):
 
 
 def test_unported_families_raise():
-    for name in ("granite-moe-1b-a400m", "granite-moe-3b-a800m"):
+    """The stub-frontend archs (inputs are embeddings, not token ids) are
+    the families still unported: the Engine's serve surface raises naming
+    the ROADMAP item."""
+    from repro_torch.api import Engine, Plan, ServeSpec
+    for name in ("chameleon-34b", "musicgen-medium"):
         arch = reduced(ARCHS[name])
+        assert arch.frontend != "none"
+        eng = Engine(Plan(arch=arch, serve=ServeSpec(prompt_len=4, gen=2,
+                                                     max_batch=2)),
+                     device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.init_params(arch, torch.Generator().manual_seed(0))
+            eng.generate()
