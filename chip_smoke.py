@@ -5,7 +5,9 @@
 
 Phases (each prints a line; any failure exits nonzero):
   1. device and build: the card's name and power limit (nvidia-smi), then
-     the Hopper kernels compiled from src/repro_torch/kernels/csrc;
+     the Hopper kernels compiled from src/repro_torch/kernels/csrc, with the
+     tensor-core kernels' registers and spills (nvcc -Xptxas -v) and their
+     dynamic shared memory;
   2. kernel parity: each attention kernel against its plain PyTorch version
      at the qwen3-0.6b attention shapes (hd 128, 16 query / 8 kv heads), at
      the hymba-1.5b ones (hd 64, 25 query / 5 kv heads, G 5) and at the
@@ -21,12 +23,19 @@ Phases (each prints a line; any failure exits nonzero):
      matmul against its plain version at granite-moe-1b-a400m's expert GEMMs
      (E 32, C 8 in decode and 320 in prefill, [d 1024 -> 1024] for w_in and
      [512 -> 1024] for w_out) and a ragged C 13 / d 72 / f 40, bf16 and
-     f32; then the kernel, plain and library times (for WKV6 and SSD also
-     the chunked torch scans that the plain serve path runs);
+     f32 (grouped_matmul and flash_attention_fwd in bf16 through both their
+     tensor-core and their SIMT route); then the kernel, plain and library
+     times (kernels and library calls as device time, a CUDA graph replayed
+     over 24-32 layers' inputs, and eager; for WKV6 and SSD also the chunked
+     torch scans that the plain serve path runs); grouped_matmul and
+     flash_attention_fwd per route (tc, simt_bf16, simt_f32), attention at
+     qwen3's, granite's and hymba's heads and at hymba's S 1100 prefill;
   3. qwen3-0.6b at full width (28 layers, random weights from a seeded
      generator, bf16) served through the continuous-batching Scheduler over
-     a 48-page pool, with the kernel launch counts of that run asserted,
-     then a short profiled run for the device's busy and idle share;
+     a 48-page pool, with the kernel launch counts of that run asserted
+     (here and in every bf16 phase below: exact, and every launch of
+     grouped_matmul and flash_attention_fwd on its tensor-core route), then
+     a short profiled run for the device's busy and idle share;
   4. the same requests in f32 through the kernels and through the plain
      path: the first prefill's logits agree and the greedy streams match
      except at a step whose top-2 margin is under the tolerance;
@@ -99,6 +108,29 @@ RWKV_MATS = ("wr", "wk", "wv", "wg", "wo", "cm_k", "cm_v", "cm_r")
 HYMBA_MATS = ("wq", "wk", "wv", "wo", "mlp_wi", "mlp_wo", "ssd_conv_w",
               "ssd_out_proj")
 GRANITE_MATS = ("wq", "wk", "wv", "wo", "moe_w_in", "moe_w_out")
+# each kernel's design, as the kernels line reports it
+DESIGN = {
+    "flash_decode_paged": "f32-FMA SIMT: one block per (row, kv head) walks "
+                          "the block table, K/V read once for the G query "
+                          "rows, fp8 pools widened in registers",
+    "flash_attention_fwd": "bf16 (route tc): flash-attention-2 on "
+                           "mma.sync.m16n8k16, Q fragments and P (bf16) in "
+                           "registers, K/V double-buffered by cp.async; "
+                           "f32, hd 256 or unaligned rows (simt): f32-FMA "
+                           "tiles through shared memory",
+    "flash_decode": "f32-FMA SIMT, the flash_decode_paged body over a "
+                    "strided contiguous cache",
+    "rwkv6_chunked": "f32-FMA SIMT: one block per (row, head) walks chunks "
+                     "of 16 with the 64x64 state in shared memory",
+    "ssd_chunked": "f32-FMA SIMT: one block per (row, head) walks chunks of "
+                   "64 with the 16x64 state in shared memory",
+    "grouped_matmul": "bf16 C > 16 (tc_prefill): swapped (f on M, C on N) "
+                      "wgmma.m64n160k16, 2 consumer warpgroups a 128x160 "
+                      "tile, a producer warp's TMA copies into a 4-stage "
+                      "ring handed over by mbarriers; bf16 C <= 16 "
+                      "(tc_decode): swapped mma.sync.m16n8k16 over "
+                      "128-column weight tiles, 4-stage cp.async ring; f32 "
+                      "or unaligned (simt): f32-FMA tiles"}
 ROUTE_TOL = 1e-4                   # router logit K/K+1 margins counted as
                                    # near-ties in phase 13
 # The block matrices are drawn at the JAX init's std 0.02 and then scaled by
@@ -147,6 +179,29 @@ def profile_run(label, run):
         "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
 
 
+def ptxas_entries(lib_name, tag):
+    """(kernel, registers line, spill line) for each kernel of
+    csrc/<lib_name>.cu whose name holds `tag`, from nvcc's -Xptxas -v log
+    (names demangled with c++filt where the machine has it)."""
+    import shutil
+    from repro_torch.kernels import _build
+
+    lines = _build.build_log(lib_name).splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or tag not in line:
+            continue
+        name = line.split("'")[1]
+        if shutil.which("c++filt"):
+            name = subprocess.run(["c++filt", name], capture_output=True,
+                                  text=True).stdout.strip()
+        name = name.replace("(anonymous namespace)::", "")
+        info = [x.split("info    : ")[-1].strip() for x in lines[i + 1:i + 4]]
+        out.append((name, next((x for x in info if "registers" in x), "?"),
+                    next((x for x in info if "spill" in x), "?")))
+    return out
+
+
 def bf16_copy(params):
     """A bfloat16 copy of a param tree (blocks nested one level down)."""
     import torch
@@ -162,7 +217,8 @@ def main() -> int:
     from repro_torch.api import Engine, Plan, RunSpec, ServeSpec
     from repro_torch.api.serving import Request, Scheduler
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels import LAUNCHES, _build, build_all, reset_launches
+    from repro_torch.kernels import (LAUNCHES, ROUTES, _build, build_all,
+                                     reset_launches)
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.flash_decode import (flash_decode,
@@ -194,6 +250,21 @@ def main() -> int:
         regs = [line.split("info    : ")[-1] for line in
                 _build.build_log(name).splitlines() if "registers" in line]
         log("build", f"{name}: {len(regs)} instantiations, e.g. {regs[:1]}")
+    # the tensor-core kernels' registers, spills (nvcc -Xptxas -v) and
+    # dynamic shared memory (set at launch, so not in that log)
+    for lib_name in ("moe_gmm", "flash_attention"):
+        for kern, regs, spill in ptxas_entries(lib_name, "_tc_"):
+            log("build", f"{lib_name}: {kern}: {regs}; {spill}")
+    gmm_smem = _build.load("moe_gmm").grouped_matmul_smem_bytes
+    gmm_smem.restype, gmm_smem.argtypes = _build.INT, [_build.INT]
+    att_smem = _build.load("flash_attention").flash_attention_smem_bytes
+    att_smem.restype, att_smem.argtypes = _build.INT, [_build.INT] * 3
+    log("build", f"dynamic shared memory a block: grouped_matmul tc_decode "
+        f"{gmm_smem(1)} B, tc_prefill {gmm_smem(2)} B; flash_attention_fwd "
+        f"tc (1 / 2 query heads a block) and simt at hd 64 "
+        f"{att_smem(64, 1, 1)} / {att_smem(64, 2, 1)} and "
+        f"{att_smem(64, 1, 0)} B, at hd 128 {att_smem(128, 1, 1)} / "
+        f"{att_smem(128, 2, 1)} and {att_smem(128, 1, 0)} B")
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -212,12 +283,18 @@ def main() -> int:
         worst[name] = {"float32": 0.0}
     # the attention kernels' errors per head shape (query/kv heads, hd)
     by_heads: dict = {}
+    # the routes held against the plain version: each dtype's own (None:
+    # the wrapper's pick), and in bf16 the SIMT route too
+    ROUTE_CHECKS = {torch.bfloat16: (None, "simt_bf16"), torch.float32: (None,)}
 
-    def hold(name, out, ref, dtype, heads, zero_row=None):
+    def hold(name, out, ref, dtype, heads, zero_row=None, route=None):
+        """`out` against `ref` within TOL; `route` names a forced route
+        (its errors kept apart from the default route's)."""
         torch.cuda.synchronize()
         e = err(out, ref)
         d = str(dtype).split(".")[-1]
-        worst[name][d] = max(worst[name][d], e)
+        key = d if route is None else f"{d} {route}"
+        worst[name][key] = max(worst[name].get(key, 0.0), e)
         if heads is not None:
             per = by_heads.setdefault(heads, {}).setdefault(name, {})
             per[d] = max(per.get(d, 0.0), e)
@@ -237,10 +314,11 @@ def main() -> int:
                 q = randn(B, S, H, hd, dtype=dt).transpose(1, 2)
                 k = randn(B, S, KV, hd, dtype=dt).transpose(1, 2)
                 v = randn(B, S, KV, hd, dtype=dt).transpose(1, 2)
-                hold("flash_attention_fwd",
-                     flash_attention_fwd(q, k, v, causal=True, window=window),
-                     kref.attention_ref(q, k, v, causal=True, window=window),
-                     dt, heads)
+                ref = kref.attention_ref(q, k, v, causal=True, window=window)
+                for route in ROUTE_CHECKS[dt]:
+                    hold("flash_attention_fwd", flash_attention_fwd(
+                        q, k, v, causal=True, window=window, route=route),
+                         ref, dt, heads, route=route)
             B, S = 8, 160
             cache_k = randn(3, B, S, KV, hd, dtype=dt)
             cache_v = randn(3, B, S, KV, hd, dtype=dt)
@@ -279,9 +357,12 @@ def main() -> int:
             q = randn(B, S, H, hd, dtype=dt).transpose(1, 2)
             k = randn(B, S, KV, hd, dtype=dt).transpose(1, 2)
             v = randn(B, S, KV, hd, dtype=dt).transpose(1, 2)
-            hold("flash_attention_fwd",
-                 flash_attention_fwd(q, k, v, causal=True),
-                 kref.attention_ref(q, k, v, causal=True), dt, heads)
+            ref = kref.attention_ref(q, k, v, causal=True)
+            for route in ROUTE_CHECKS[dt]:
+                hold("flash_attention_fwd",
+                     flash_attention_fwd(q, k, v, causal=True, route=route),
+                     ref, dt, heads, route=route)
+            del ref
             del q, k, v
             cache_k = randn(3, B, Sc, KV, hd, dtype=dt)
             cache_v = randn(3, B, Sc, KV, hd, dtype=dt)
@@ -383,8 +464,10 @@ def main() -> int:
     for dt in (torch.bfloat16, torch.float32):
         for E, C, d, G, ff in gmm_shapes.values():
             x, w = gmm_inputs(E, C, d, G, ff, dt)
-            hold("grouped_matmul", grouped_matmul(x, w), kref.gmm_ref(x, w),
-                 dt, None)
+            ref = kref.gmm_ref(x, w)
+            for route in ROUTE_CHECKS[dt]:
+                hold("grouped_matmul", grouped_matmul(x, w, route=route), ref,
+                     dt, None, route=route)
     del x, w
     log("parity", "max |kernel - plain| " + json.dumps(
         {k: {d: float(f"{e:.3e}") for d, e in v.items()}
@@ -395,18 +478,33 @@ def main() -> int:
         {h: {k: {d: float(f"{e:.3e}") for d, e in v.items()}
              for k, v in per.items()} for h, per in by_heads.items()}))
 
-    def time_ms(fn, argsets, reps=3):
+    def time_ms(fn, argsets, reps=3, graph=True):
         """Mean ms per call over `reps` passes through argsets (one set
-        per layer, so the working set exceeds the 50 MB L2)."""
+        per layer, so the working set exceeds the 50 MB L2). With `graph`
+        (kernels and library calls) each pass replays one CUDA graph
+        captured over argsets, so the time is the device's alone; without
+        it (the plain versions, and every `eager_ms`) the host dispatches
+        each call, as on the serve path."""
         for a in argsets[:2]:
             fn(*a)
+        torch.cuda.synchronize()
+        if graph:
+            cg = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(cg):
+                for a in argsets:
+                    fn(*a)
+            run = cg.replay
+        else:
+            def run():
+                for a in argsets:
+                    fn(*a)
+        run()
         torch.cuda.synchronize()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
         for _ in range(reps):
-            for a in argsets:
-                fn(*a)
+            run()
         t1.record()
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / (reps * len(argsets))
@@ -416,24 +514,47 @@ def main() -> int:
         return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
     import torch.nn.functional as F
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     timing = {}
-    # prefill attention at the serve shapes: B 8, S 128 (the prompt width)
-    B, S = 8, 128
-    att_sets = [tuple(randn(B, S, n, hd, dtype=bf).transpose(1, 2)
-                      for n in (H, KV, KV)) for _ in range(N_LAYERS)]
-    pairs = S * (S + 1) // 2
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    # prefill attention at the serve shapes (B 8, S 128: the prompt width)
+    # of qwen3 (16/8 heads of 128), granite (16/8 of 64) and hymba (25/5 of
+    # 64), and at hymba's generate prefill (B 4, S 1100): each route (the
+    # tensor-core bf16 one, the SIMT bf16 and f32 ones) beside SDPA
+    att_shapes = {"qwen3 16/8x128": (8, 128, 16, 8, 128),
+                  "granite 16/8x64": (8, 128, 16, 8, 64),
+                  "hymba 25/5x64": (8, 128, 25, 5, 64),
+                  "hymba generate 25/5x64 S1100": (4, 1100, 25, 5, 64)}
+    att_times = {}
+    for what, (B, S, Hq, KVq, hdq) in att_shapes.items():
+        sets = {dt: [tuple(randn(B, S, n, hdq, dtype=dt).transpose(1, 2)
+                           for n in (Hq, KVq, KVq))
+                     for _ in range(N_LAYERS if S <= 128 else 3)]
+                for dt in (bf, f32)}
+        nbytes = B * S * (2 * Hq + 2 * KVq) * hdq
+        flops = 4 * B * Hq * hdq * (S * (S + 1) // 2)
+        t = att_times[what] = dict(
+            routes={"tc": time_ms(flash_attention_fwd, sets[bf]),
+                    "simt_bf16": time_ms(lambda q, k, v: flash_attention_fwd(
+                        q, k, v, route="simt_bf16"), sets[bf]),
+                    "simt_f32": time_ms(flash_attention_fwd, sets[f32])},
+            eager_ms=time_ms(flash_attention_fwd, sets[bf], graph=False),
+            plain_ms=time_ms(kref.attention_ref, sets[bf], graph=False),
+            library_ms=time_ms(sdpa, sets[bf]),
+            library_eager_ms=time_ms(sdpa, sets[bf], graph=False),
+            shape=f"B{B} S{S} H{Hq} KV{KVq} hd{hdq} bf16",
+            bound=bound(2 * nbytes, flops),
+            bound_f32=bound(4 * nbytes, flops, "float32"))
+        t["ms"] = t["routes"]["tc"]
+        del sets
     timing["flash_attention_fwd"] = dict(
-        ms=time_ms(lambda q, k, v: flash_attention_fwd(q, k, v), att_sets),
-        plain_ms=time_ms(lambda q, k, v: kref.attention_ref(q, k, v),
-                         att_sets),
-        library_ms=time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), att_sets),
+        att_times["qwen3 16/8x128"],
         library="scaled_dot_product_attention(is_causal, enable_gqa)",
-        dtype="bfloat16", tolerance=TOL,
-        shape=f"B{B} S{S} H{H} KV{KV} hd{hd} bf16",
-        bound=bound(2 * B * S * (2 * H + 2 * KV) * hd,
-                    4 * B * H * hd * pairs))
+        dtype="bfloat16", tolerance=TOL, by_shape=att_times)
     # paged decode at the serve pool: 28 layer groups, 49 pages of 16
     B, ps, npg, P1 = 8, 16, 10, 49
     dlens = torch.tensor(np.random.default_rng(0).integers(17, 161, B),
@@ -462,10 +583,13 @@ def main() -> int:
     timing["flash_decode_paged"] = dict(
         ms=time_ms(lambda *a: flash_decode_paged(*a[:5], layer=a[5]),
                    pg_sets),
+        eager_ms=time_ms(lambda *a: flash_decode_paged(*a[:5], layer=a[5]),
+                         pg_sets, graph=False),
         plain_ms=time_ms(lambda *a: kref.decode_paged_ref(*a[:5],
                                                           layer=a[5]),
-                         pg_sets),
+                         pg_sets, graph=False),
         library_ms=time_ms(gathered_sdpa, pg_sets),
+        library_eager_ms=time_ms(gathered_sdpa, pg_sets, graph=False),
         library="page gather + scaled_dot_product_attention(mask)",
         dtype="bfloat16", tolerance=TOL,
         shape=f"B{B} pool[{N_LAYERS},{P1},{ps},{KV},{hd}] live {live} "
@@ -481,11 +605,16 @@ def main() -> int:
               for i in range(N_LAYERS)]
     cmask = (torch.arange(S, device=dev)[None] < glens[:, None])[:, None,
                                                                 None, :]
+    def masked_sdpa(q, k, v, n):
+        return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                              attn_mask=cmask, enable_gqa=True)
+
     timing["flash_decode"] = dict(
         ms=time_ms(flash_decode, c_sets),
-        plain_ms=time_ms(kref.decode_ref, c_sets),
-        library_ms=time_ms(lambda q, k, v, n: F.scaled_dot_product_attention(
-            q[:, :, None], k, v, attn_mask=cmask, enable_gqa=True), c_sets),
+        eager_ms=time_ms(flash_decode, c_sets, graph=False),
+        plain_ms=time_ms(kref.decode_ref, c_sets, graph=False),
+        library_ms=time_ms(masked_sdpa, c_sets),
+        library_eager_ms=time_ms(masked_sdpa, c_sets, graph=False),
         library="scaled_dot_product_attention(mask)",
         dtype="bfloat16", tolerance=TOL,
         shape=f"B{B} cache[{N_LAYERS},{B},{S},{KV},{hd}] length 140 bf16",
@@ -500,9 +629,11 @@ def main() -> int:
     elems = B * Hr * S * hdr
     timing["rwkv6_chunked"] = dict(
         ms=time_ms(rwkv6_chunked, wkv_sets),
-        plain_ms=time_ms(kref.rwkv6_ref, wkv_sets),
+        eager_ms=time_ms(rwkv6_chunked, wkv_sets, graph=False),
+        plain_ms=time_ms(kref.rwkv6_ref, wkv_sets, graph=False),
         plain_scan_ms=time_ms(lambda r, k, v, w, u: ssm.wkv6_chunked_scan(
-            *(a.transpose(1, 2) for a in (r, k, v, w)), u), wkv_sets),
+            *(a.transpose(1, 2) for a in (r, k, v, w)), u), wkv_sets,
+            graph=False),
         library_ms=None,
         library="none (no single PyTorch call computes WKV6)",
         dtype="float32", tolerance={"float32": RWKV_TOL},
@@ -525,9 +656,11 @@ def main() -> int:
     elems, nch, tri = B * Hs * S * Ps, -(-S // C), C * (C + 1) // 2
     timing["ssd_chunked"] = dict(
         ms=time_ms(ssd_chunked, ssd_sets),
-        plain_ms=time_ms(kref.ssd_ref, ssd_sets),
+        eager_ms=time_ms(ssd_chunked, ssd_sets, graph=False),
+        plain_ms=time_ms(kref.ssd_ref, ssd_sets, graph=False),
         plain_scan_ms=time_ms(lambda x, dt, Bm, Cm, a: ssm.ssd_chunked_scan(
-            x.transpose(1, 2), dt.transpose(1, 2), Bm, Cm, a), ssd_sets),
+            x.transpose(1, 2), dt.transpose(1, 2), Bm, Cm, a), ssd_sets,
+            graph=False),
         library_ms=None,
         library="none (no single PyTorch call computes SSD)",
         dtype="float32", tolerance={"float32": SSD_TOL},
@@ -541,42 +674,59 @@ def main() -> int:
                     B * nch * 2 * tri * Ns
                     + B * Hs * nch * (2 * tri * Ps + 4 * C * Ns * Ps),
                     "float32"))
-    # the grouped matmul at granite-moe-1b-a400m's four expert GEMM shapes,
-    # bf16; 24 layers' inputs cycled (1.5 GB of w_in alone). The library
-    # call is torch.bmm in the same dtype; the headline shape is decode
-    # w_in (48 launches of the two shapes per decode step)
+    # the grouped matmul at granite-moe-1b-a400m's four expert GEMM shapes;
+    # 24 layers' inputs cycled (1.5 GB of bf16 w_in alone): each route (the
+    # tensor-core bf16 one, the SIMT bf16 and f32 ones) beside torch.bmm in
+    # bf16; the headline shape is decode w_in (48 launches of the two
+    # shapes per decode step)
     gmm_times = {}
     for what, (E, C, d, G, ff) in list(gmm_shapes.items())[:4]:
-        sets = [gmm_inputs(E, C, d, G, ff, bf) for _ in range(24)]
+        sets = {dt: [gmm_inputs(E, C, d, G, ff, dt) for _ in range(24)]
+                for dt in (bf, f32)}
         f = G * ff
-        gmm_times[what] = dict(
-            ms=time_ms(grouped_matmul, sets),
-            plain_ms=time_ms(kref.gmm_ref, sets),
-            library_ms=time_ms(torch.bmm, sets),
+        tc = "tc_decode" if C <= 16 else "tc_prefill"
+        nbytes = E * C * d + E * d * f + E * C * f
+        t = gmm_times[what] = dict(
+            routes={tc: time_ms(grouped_matmul, sets[bf]),
+                    "simt_bf16": time_ms(lambda x, w: grouped_matmul(
+                        x, w, route="simt_bf16"), sets[bf]),
+                    "simt_f32": time_ms(grouped_matmul, sets[f32])},
+            eager_ms=time_ms(grouped_matmul, sets[bf], graph=False),
+            plain_ms=time_ms(kref.gmm_ref, sets[bf], graph=False),
+            library_ms=time_ms(torch.bmm, sets[bf]),
+            library_eager_ms=time_ms(torch.bmm, sets[bf], graph=False),
             shape=f"E{E} C{C} d{d} f{f} bf16",
             # x and w read once, out written once; 2 E C d f flops
-            bound=bound(2 * (E * C * d + E * d * f + E * C * f),
-                        2 * E * C * d * f))
+            bound=bound(2 * nbytes, 2 * E * C * d * f),
+            bound_f32=bound(4 * nbytes, 2 * E * C * d * f, "float32"))
+        t["ms"] = t["routes"][tc]
         del sets
     timing["grouped_matmul"] = dict(
         gmm_times["decode w_in"], library="torch.bmm (bf16)",
         dtype="bfloat16", tolerance=TOL, by_shape=gmm_times)
-    for what, t in gmm_times.items():
-        log("timing", f"grouped_matmul {what} [{t['shape']}]: kernel "
-            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
-            f"torch.bmm {t['library_ms']:.4f} ms, bound "
-            f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
+    for name, by in (("flash_attention_fwd", att_times),
+                     ("grouped_matmul", gmm_times)):
+        for what, t in by.items():
+            log("timing", f"{name} {what} [{t['shape']}]: routes " + ", ".join(
+                f"{r} {ms:.4f} ms" for r, ms in t["routes"].items()) +
+                f" (device time, CUDA graph); the tensor-core route eager "
+                f"{t['eager_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
+                f"library {t['library_ms']:.4f} ms (eager "
+                f"{t['library_eager_ms']:.4f}); bound {t['bound'][0]:.4f} ms "
+                f"({t['bound'][1]}), in f32 {t['bound_f32'][0]:.4f} ms "
+                f"({t['bound_f32'][1]})")
     for name, t in timing.items():
-        if name == "grouped_matmul":
+        if "by_shape" in t:
             continue
         lib = "none" if t["library_ms"] is None else \
-            f"{t['library_ms']:.4f} ms"
+            f"{t['library_ms']:.4f} ms (eager {t['library_eager_ms']:.4f})"
         scan = "" if "plain_scan_ms" not in t else \
             f", plain chunked scan {t['plain_scan_ms']:.4f} ms"
-        log("timing", f"{name} [{t['shape']}]: kernel {t['ms']:.4f} ms, "
-            f"plain {t['plain_ms']:.4f} ms{scan}, library {t['library']} "
-            f"{lib}, bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
-    del att_sets, pg_sets, c_sets, kp, vp, ck, cv, wkv_sets, ssd_sets
+        log("timing", f"{name} [{t['shape']}]: kernel {t['ms']:.4f} ms "
+            f"(device time, CUDA graph; eager {t['eager_ms']:.4f}), plain "
+            f"{t['plain_ms']:.4f} ms{scan}, library {t['library']} {lib}, "
+            f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
+    del pg_sets, c_sets, kp, vp, ck, cv, wkv_sets, ssd_sets
 
     def check_launches(tag, launches, rep, need):
         """`need` maps each kernel of the path to ("prefill" | "decode" |
@@ -592,6 +742,20 @@ def main() -> int:
                                  f"{rep.prefill_calls} prefill groups, "
                                  f"{rep.decode_steps} decode steps; needed "
                                  f"exactly {need}")
+
+    def check_routes(tag, launches):
+        """Every launch of a kernel with routes (the bf16 serve and generate
+        paths') took its tensor-core route."""
+        for name, routes in launches["routes"].items():
+            tc = sum(n for r, n in routes.items() if r.startswith("tc"))
+            if tc != launches[name]:
+                raise AssertionError(
+                    f"{tag}: {name} launched {launches[name]} times, {tc} of "
+                    f"them on its tensor-core route: {routes}")
+
+    def measured_launches():
+        """LAUNCHES, with ROUTES beside them under "routes"."""
+        return dict(LAUNCHES, routes={n: dict(r) for n, r in ROUTES.items()})
 
     def serve_phase(tag, eng, reqs, need, pool, routing=None):
         """`reqs` through the Scheduler once to warm up (cuBLAS, the
@@ -611,8 +775,9 @@ def main() -> int:
         with moe.record_routing() as records:
             rep = Scheduler(eng).run(reqs)
             torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
+        launches = measured_launches()
         check_launches(tag, launches, rep, need)
+        check_routes(tag, launches)
         toks = [t for r in rep.requests for t in r.tokens]
         if rep.tokens_out != len(reqs) * sv.gen or \
                 bool(rep.pages_total) != pool or \
@@ -633,7 +798,8 @@ def main() -> int:
             f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
             f"warm-up {warm_s:.1f} s")
         log("serve", f"{tag} launches {launches} (needed per prefill group "
-            f"/ decode step, exactly: {need})")
+            f"/ decode step, exactly: {need}; every launch of a kernel with "
+            f"routes on its tensor-core route)")
         if routing is not None:
             routing(records, rep)
         del records
@@ -653,8 +819,9 @@ def main() -> int:
         reset_launches()
         rep = eg.generate()
         torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
+        launches = measured_launches()
         check_launches(f"{tag} generate", launches, rep, need)
+        check_routes(f"{tag} generate", launches)
         if rep.tokens.shape != (sv.max_batch, sv.gen) or not (
                 (rep.tokens >= 0) & (rep.tokens < arch.vocab_size)).all():
             raise AssertionError(f"{tag}: bad generate output "
@@ -1124,22 +1291,35 @@ def main() -> int:
         t = timing[name]
         errs = worst[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src[name][0],
+            "name": name, "route": "cuda", "design": DESIGN[name],
+            "source": src[name][0],
             "replaces": src[name][1], "launches": next(iter(
                 by_path.values())), "launches_by_path": by_path,
             "max_abs_err": errs[t["dtype"]], "max_abs_err_dtype": t["dtype"],
             "max_abs_err_f32": errs["float32"], "tolerance": t["tolerance"],
-            "ms": t["ms"], "kernel_ms": t["ms"],
+            "max_abs_err_by_route": {k: v for k, v in errs.items()
+                                     if " " in k} or None,
+            "ms": t["ms"], "kernel_ms": t["ms"], "eager_ms": t["eager_ms"],
+            "timing": "ms: device time, CUDA graph over 24-32 layers' "
+                      "inputs; eager_ms: host-dispatched calls",
+            "routes": t.get("routes"),
+            "routes_by_path": {p: n["routes"][name] for p, n in paths.items()
+                               if n[name]} if name in ROUTES else None,
             "plain_ms": t["plain_ms"],
             "plain_scan_ms": t.get("plain_scan_ms"),
             "max_abs_err_by_heads": {h: per[name] for h, per in
                                      by_heads.items() if name in per},
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-            "library_ms": t["library_ms"], "library": t["library"],
+            "library_ms": t["library_ms"],
+            "library_eager_ms": t.get("library_eager_ms"),
+            "library": t["library"],
             "shape": t["shape"], "card": card, "power_limit": power,
-            "by_shape": {w: {k: v for k, v in b.items() if k != "bound"}
+            "by_shape": {w: {k: v for k, v in b.items()
+                             if k not in ("bound", "bound_f32")}
                          | {"bound_ms": b["bound"][0],
-                            "bound_by": b["bound"][1]}
+                            "bound_by": b["bound"][1],
+                            "bound_f32_ms": b["bound_f32"][0],
+                            "bound_f32_by": b["bound_f32"][1]}
                          for w, b in t.get("by_shape", {}).items()} or None})
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -14,7 +14,10 @@ plain version: without nvcc or a CUDA device, loading raises.
 
 `LAUNCHES[name]` counts the launches each wrapper makes (only where it
 launches its kernel), so a run can show that its path went through the
-kernels.
+kernels. The kernels with more than one route (grouped_matmul,
+flash_attention_fwd: bf16 tensor-core tiles beside f32-FMA tiles) count each
+launch once more in `ROUTES[name][route]`; a route is picked before the
+launch by the wrapper's `_route`, never switched after an error.
 """
 from __future__ import annotations
 
@@ -36,12 +39,43 @@ LAUNCHES: dict[str, int] = {"flash_attention_fwd": 0, "flash_decode": 0,
                             "flash_decode_paged": 0, "rwkv6_chunked": 0,
                             "ssd_chunked": 0, "grouped_matmul": 0}
 
+ROUTES: dict[str, dict[str, int]] = {
+    "flash_attention_fwd": {"tc": 0, "simt_bf16": 0, "simt_f32": 0},
+    "grouped_matmul": {"tc_decode": 0, "tc_prefill": 0, "simt_bf16": 0,
+                       "simt_f32": 0}}
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for routes in ROUTES.values():
+        for route in routes:
+            routes[route] = 0
+
+
+def count(name: str, route: str | None = None) -> None:
+    """One launch of `name` (through `route`, for a kernel with routes)."""
+    LAUNCHES[name] += 1
+    if route is not None:
+        ROUTES[name][route] += 1
+
+
+def simt_route(dtype) -> str:
+    """The f32-FMA route of a kernel with routes, for operands of `dtype`."""
+    import torch
+    return "simt_f32" if dtype == torch.float32 else "simt_bf16"
+
+
+def vec16_ok(t) -> bool:
+    """Whether `t` can be copied in 16-byte vectors along its last dim (which
+    is contiguous): a 16-byte aligned base, and the last dim's length and
+    every other stride (of a dim longer than 1) whole multiples of 16
+    bytes. The tensor-core routes' cp.async and TMA copies need it."""
+    per = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and t.shape[-1] % per == 0 and all(
+        n == 1 or s % per == 0 for n, s in zip(t.shape[:-1], t.stride()[:-1]))
 
 
 def find_nvcc() -> str:
@@ -120,6 +154,21 @@ def load(name: str) -> ctypes.CDLL:
         so = _compile(find_nvcc(), name, _build_dir())
         lib = _LIBS.setdefault(name, ctypes.CDLL(str(so)))
     return lib
+
+
+_ENTRIES: dict = {}
+
+
+def entry(name: str, fn: str, argtypes: list):
+    """The C entry `fn` of csrc/<name>.cu with its ctypes signature (an int
+    result, `argtypes`), set up once: a launch then pays only the call."""
+    key = (name, fn)
+    f = _ENTRIES.get(key)
+    if f is None:
+        f = getattr(load(name), fn)
+        f.restype, f.argtypes = INT, argtypes
+        _ENTRIES[key] = f
+    return f
 
 
 def build_log(name: str) -> str:

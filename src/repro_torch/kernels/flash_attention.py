@@ -8,8 +8,18 @@ the ends — the two agree only at Sq == Sk, the one case every caller
 passes, so the wrapper refuses the rest on every device.
 
 On a CPU tensor this runs the plain version; on a CUDA tensor it launches
-the kernel or raises. See csrc/flash_attention.cu for what bounds the
-kernel on the H100 and what its design does about it.
+the kernel of one route or raises. `_route` picks the route from dtype,
+head dim, strides and alignment:
+
+  tc         bf16 at hd 16 / 32 / 64 / 128 with 16-byte aligned rows:
+             flash-attention-2 on mma.sync tensor-core tiles, P kept in
+             registers as bf16
+  simt_bf16  other bf16 (hd 256, unaligned rows): f32-FMA tiles
+  simt_f32   float32: the same f32-FMA tiles, so f32 stays true f32
+
+`_build.ROUTES["flash_attention_fwd"]` counts the launches of each route.
+See csrc/flash_attention.cu for what bounds each route on the H100 and
+what its design does about it.
 """
 from __future__ import annotations
 
@@ -18,13 +28,31 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
 
+NAME = "flash_attention_fwd"
 HEAD_DIMS = (16, 32, 64, 128, 256)
+TC_HEAD_DIMS = (16, 32, 64, 128)
+_ARGTYPES = [_build.PTR] * 4 + [_build.INT] * 8 + [_build.I64] * 12 + \
+    [_build.INT, _build.INT, _build.PTR]
 
 
-def flash_attention_fwd(q, k, v, *, causal=True, window=0):
+def _route(q, k, v) -> str:
+    """The route a CUDA launch of flash_attention_fwd(q, k, v) takes: a pure
+    function of dtype, head dim, strides and alignment (the CPU tests call
+    it on CPU tensors)."""
+    if q.dtype == torch.float32:
+        return _build.simt_route(q.dtype)
+    if q.shape[3] in TC_HEAD_DIMS and all(_build.vec16_ok(t)
+                                          for t in (q, k, v)):
+        return "tc"
+    return "simt_bf16"
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, window=0, route=None):
     """q [B,H,Sq,hd]; k,v [B,KV,Sk,hd] -> [B,H,Sq,hd]. The CUDA result is
     laid out [B, Sq, H, hd] in memory (a transposed view), so the model
-    layout's transpose back (kernels/ops.py:attention) is free."""
+    layout's transpose back (kernels/ops.py:attention) is free. `route`
+    (for measurement) forces the SIMT route of q's dtype instead of
+    `_route`'s pick; any other route than those two raises."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if Sq != Sk:
@@ -54,16 +82,19 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0):
                       device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_fwd_launch
-    fn.restype = _build.INT
-    fn.argtypes = [_build.PTR] * 4 + [_build.INT] * 8 + [_build.I64] * 12 + \
-        [_build.INT, _build.PTR]
+    picked = _route(q, k, v)
+    if route is None:
+        route = picked
+    elif route not in (picked, _build.simt_route(q.dtype)):
+        raise ValueError(f"flash_attention_fwd: route {route!r} cannot take "
+                         f"these operands (their route is {picked!r})")
+    fn = _build.entry("flash_attention", "flash_attention_fwd_launch",
+                      _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              B, H, KV, Sq, Sk, hd, int(bool(causal)), int(window),
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              *out.stride()[:3], _build.dtype_code(q.dtype),
-             torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "flash_attention_fwd")
-    _build.LAUNCHES["flash_attention_fwd"] += 1
+             int(route == "tc"), torch.cuda.current_stream().cuda_stream)
+    _build.check(_build.load("flash_attention"), err, NAME)
+    _build.count(NAME, route)
     return out

@@ -91,17 +91,15 @@ def flash_decode(q1, k, v, length, *, window=0):
         raise ValueError("flash_decode: q1/k/v rows are not vector-aligned")
     lens = kref._row_lengths(length, B, q1.device).contiguous()
     out = torch.empty_like(q1)
-    lib = _build.load("flash_decode")
-    fn = lib.flash_decode_launch
-    fn.restype = _build.INT
-    fn.argtypes = [_build.PTR] * 5 + [_build.INT] * 5 + [_build.I64] * 3 + \
-        [_build.INT] * 3 + [_build.PTR]
+    fn = _build.entry("flash_decode", "flash_decode_launch",
+                      [_build.PTR] * 5 + [_build.INT] * 5 + [_build.I64] * 3
+                      + [_build.INT] * 3 + [_build.PTR])
     err = fn(q1.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lens.data_ptr(), B, H, KV, hd, S, k.stride(0), k.stride(1),
              k.stride(2), int(window), _build.dtype_code(q1.dtype),
              _build.dtype_code(k.dtype), _stream())
-    _build.check(lib, err, "flash_decode")
-    _build.LAUNCHES["flash_decode"] += 1
+    _build.check(_build.load("flash_decode"), err, "flash_decode")
+    _build.count("flash_decode")
     return out
 
 
@@ -138,14 +136,12 @@ def flash_decode_paged(q1, k_pool, v_pool, block_tab, lengths, *, layer=0):
     tab = block_tab.contiguous()
     lens = kref._row_lengths(lengths, B, q1.device).contiguous()
     out = torch.empty_like(q1)
-    lib = _build.load("flash_decode")
-    fn = lib.flash_decode_paged_launch
-    fn.restype = _build.INT
-    fn.argtypes = [_build.PTR] * 6 + [_build.INT] * 10 + [_build.PTR]
+    fn = _build.entry("flash_decode", "flash_decode_paged_launch",
+                      [_build.PTR] * 6 + [_build.INT] * 10 + [_build.PTR])
     err = fn(q1.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              out.data_ptr(), tab.data_ptr(), lens.data_ptr(), B, H, KV, hd,
              P1, ps, tab.shape[1], int(layer), _build.dtype_code(q1.dtype),
              _build.dtype_code(k_pool.dtype), _stream())
-    _build.check(lib, err, "flash_decode_paged")
-    _build.LAUNCHES["flash_decode_paged"] += 1
+    _build.check(_build.load("flash_decode"), err, "flash_decode_paged")
+    _build.count("flash_decode_paged")
     return out

@@ -55,16 +55,14 @@ def ssd_chunked(x, dt, B_, C_, a):
     state = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
     if state.numel() == 0:
         return y, state
-    lib = _build.load("mamba_ssd")
-    fn = lib.ssd_chunked_launch
-    fn.restype = _build.INT
-    fn.argtypes = [_build.PTR] * 7 + [_build.INT] * 5 + [_build.I64] * 13 + \
-        [_build.PTR]
+    fn = _build.entry("mamba_ssd", "ssd_chunked_launch",
+                      [_build.PTR] * 7 + [_build.INT] * 5 + [_build.I64] * 13
+                      + [_build.PTR])
     err = fn(x.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(),
              a.data_ptr(), y.data_ptr(), state.data_ptr(), B, H, S, P, N,
              *x.stride()[:3], *dt.stride(), *B_.stride()[:2],
              *C_.stride()[:2], *y.stride()[:3],
              torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "ssd_chunked")
-    _build.LAUNCHES["ssd_chunked"] += 1
+    _build.check(_build.load("mamba_ssd"), err, "ssd_chunked")
+    _build.count("ssd_chunked")
     return y, state

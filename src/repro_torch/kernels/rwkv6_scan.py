@@ -54,15 +54,13 @@ def rwkv6_chunked(r, k, v, w, u):
     state = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     if state.numel() == 0:
         return y, state
-    lib = _build.load("rwkv6_scan")
-    fn = lib.rwkv6_chunked_launch
-    fn.restype = _build.INT
-    fn.argtypes = [_build.PTR] * 7 + [_build.INT] * 4 + [_build.I64] * 6 + \
-        [_build.PTR]
+    fn = _build.entry("rwkv6_scan", "rwkv6_chunked_launch",
+                      [_build.PTR] * 7 + [_build.INT] * 4 + [_build.I64] * 6
+                      + [_build.PTR])
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), y.data_ptr(), state.data_ptr(), B, H, S, hd,
              r.stride(0), r.stride(1), r.stride(2), y.stride(0), y.stride(1),
              y.stride(2), torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "rwkv6_chunked")
-    _build.LAUNCHES["rwkv6_chunked"] += 1
+    _build.check(_build.load("rwkv6_scan"), err, "rwkv6_chunked")
+    _build.count("rwkv6_chunked")
     return y, state

@@ -20,7 +20,9 @@ import torch
 
 from repro_torch.api import Engine, get_preset
 from repro_torch.api.serving import Request, Scheduler
-from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_gmm
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
@@ -47,6 +49,14 @@ def _tol(dtype):
         else dict(atol=2e-5, rtol=2e-5)
 
 
+def _ran(name):
+    """The one route `name` launched through since reset_launches()."""
+    ran = [r for r, n in ROUTES[name].items() if n]
+    assert len(ran) == 1 and ROUTES[name][ran[0]] == LAUNCHES[name], \
+        ROUTES[name]
+    return ran[0]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,H,KV", [(16, 2, 2), (128, 16, 8), (64, 25, 5)])
 def test_kernels_match_plain_versions(card, dtype, hd, H, KV):
@@ -58,9 +68,12 @@ def test_kernels_match_plain_versions(card, dtype, hd, H, KV):
     q = rnd(2, 100, H, hd).transpose(1, 2)
     k = rnd(2, 100, KV, hd).transpose(1, 2)
     for window in (0, 40):
+        reset_launches()
         torch.testing.assert_close(
             flash_attention_fwd(q, k, k, window=window).float(),
             tref.attention_ref(q, k, k, window=window).float(), **_tol(dtype))
+        assert _ran("flash_attention_fwd") == (
+            "tc" if dtype == torch.bfloat16 else "simt_f32")
     q1 = rnd(4, H, hd)
     cache = rnd(4, 77, KV, hd).transpose(1, 2)
     lens = torch.tensor([0, 1, 40, 77], dtype=torch.int32, device=card)
@@ -154,12 +167,21 @@ def test_ssd_chunked_matches_plain_version(card, B, H, S):
                                         (32, 8, 512, 1, 1024),
                                         (32, 320, 1024, 2, 512),
                                         (32, 320, 512, 1, 1024),
-                                        (3, 13, 72, 1, 40), (2, 1, 5, 1, 3)])
+                                        (3, 13, 72, 1, 40), (2, 1, 5, 1, 3),
+                                        (3, 1, 72, 1, 40), (3, 8, 72, 1, 40),
+                                        (3, 16, 72, 1, 40),
+                                        (3, 17, 72, 1, 40),
+                                        (3, 100, 72, 1, 40),
+                                        (3, 320, 72, 1, 40),
+                                        (3, 321, 72, 1, 40)])
 def test_grouped_matmul_matches_plain_version(card, dtype, E, C, d, G, ff):
     """The grouped matmul against gmm_ref at granite-moe-1b's decode (C 8)
     and prefill (C 320) shapes of w_in (the [E, d, G ff] view of [E, d, G,
-    ff]) and w_out, a ragged C 13 / d 72 / f 40 and a tiny one; x a strided
-    view (last dim contiguous), as the model may hand it over."""
+    ff]) and w_out, a ragged C 13 / d 72 / f 40, C across the decode /
+    prefill seam (16 / 17) and past the 128-row prefill tiles (100, 320,
+    321), and a tiny one; x a strided view (last dim contiguous), as the
+    model may hand it over. bf16 takes a tensor-core route (decode at C <=
+    16) except at d 5 / f 3; f32 the f32 one."""
     g = torch.Generator(device=card).manual_seed(C + d + ff)
     x = torch.randn((C, E, d), generator=g, device=card).to(dtype)
     x = x.transpose(0, 1)
@@ -169,6 +191,13 @@ def test_grouped_matmul_matches_plain_version(card, dtype, E, C, d, G, ff):
     out = grouped_matmul(x, w)
     torch.cuda.synchronize()
     assert LAUNCHES["grouped_matmul"] == 1
+    if dtype == torch.float32:
+        want_route = "simt_f32"
+    elif d % 8 or ff % 8:
+        want_route = "simt_bf16"
+    else:
+        want_route = "tc_decode" if C <= 16 else "tc_prefill"
+    assert _ran("grouped_matmul") == want_route == moe_gmm._route(x, w)
     assert out.dtype == dtype and out.shape == (E, C, G * ff)
     want = tref.gmm_ref(x, w)
     if dtype == torch.float32:
@@ -178,6 +207,65 @@ def test_grouped_matmul_matches_plain_version(card, dtype, E, C, d, G, ff):
         torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
     with pytest.raises(ValueError, match="share"):
         grouped_matmul(x, w.float() if dtype != torch.float32 else w.double())
+
+
+@pytest.mark.parametrize("C", [8, 13, 320])
+def test_grouped_matmul_simt_bf16_route(card, C):
+    """bf16 operands the tensor-core routes cannot take (x at an odd element
+    offset; w's rows off the 16-byte grid) take the SIMT route, counted as
+    such, and so does a forced route="simt_bf16"; both match gmm_ref, and
+    forcing a tensor-core route on them raises."""
+    g = torch.Generator(device=card).manual_seed(C)
+    E, d, f = 4, 72, 40
+    buf = torch.randn(1 + E * C * d, generator=g, device=card)
+    x = buf.to(torch.bfloat16)[1:].view(E, C, d)
+    w = (torch.randn((E, d, f + 4), generator=g, device=card) *
+         d ** -0.5).to(torch.bfloat16)
+    x_ok = x.clone()
+    for xx, ww, route in ((x, w[..., :f], None), (x_ok, w[..., :f], None),
+                          (x_ok, w[..., :f].contiguous(), "simt_bf16")):
+        reset_launches()
+        out = grouped_matmul(xx, ww, route=route)
+        torch.cuda.synchronize()
+        assert _ran("grouped_matmul") == "simt_bf16"
+        torch.testing.assert_close(out.float(), tref.gmm_ref(xx, ww).float(),
+                                   **_tol(torch.bfloat16))
+    with pytest.raises(ValueError, match="route"):
+        grouped_matmul(x, w[..., :f], route="tc_prefill")
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 100, 1100])
+def test_flash_attention_tc_route_sweep(card, hd, S):
+    """flash_attention_fwd in bf16 on its tensor-core route at lengths
+    around the 64-row tiles and hymba's 1100, GQA 4/2, window 0 and 40,
+    inputs laid out [B, S, heads, hd] as the model hands them over; the
+    same inputs through route="simt_bf16", and unaligned rows (an odd
+    element offset of q) through the SIMT route, all against the plain
+    version."""
+    g = torch.Generator(device=card).manual_seed(S + hd)
+    B = 1 if S > 200 else 2
+
+    def rnd(n):
+        return torch.randn((B, S, n, hd), generator=g,
+                           device=card).to(torch.bfloat16).transpose(1, 2)
+    q, k, v = rnd(4), rnd(2), rnd(2)
+    buf = torch.zeros(1 + q.numel(), dtype=torch.bfloat16, device=card)
+    q_odd = buf[1:].view(B, S, 4, hd).transpose(1, 2)
+    q_odd.copy_(q)
+    for window in (0, 40):
+        want = tref.attention_ref(q, k, v, window=window).float()
+        for qq, route, ran in ((q, None, "tc"), (q, "simt_bf16", "simt_bf16"),
+                               (q_odd, None, "simt_bf16")):
+            reset_launches()
+            out = flash_attention_fwd(qq, k, v, window=window, route=route)
+            torch.cuda.synchronize()
+            assert _ran("flash_attention_fwd") == ran == (
+                route or fa._route(qq, k, v))
+            torch.testing.assert_close(out.float(), want,
+                                       **_tol(torch.bfloat16))
+    with pytest.raises(ValueError, match="route"):
+        flash_attention_fwd(q_odd, k, v, route="tc")
 
 
 def test_serve_kernels_on_card_match_cpu(card):

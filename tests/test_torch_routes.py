@@ -1,0 +1,217 @@
+"""The routes of the two kernels that have more than one, on the CPU.
+
+grouped_matmul and flash_attention_fwd pick a route before each CUDA
+launch (kernels/moe_gmm.py:_route, kernels/flash_attention.py:_route): a
+pure function of dtype, shape, strides and alignment, so these tests call it
+on CPU tensors. bf16 operands whose rows are 16-byte aligned take the
+tensor-core routes (the serve path's always are); d or f not a multiple of
+8, an odd element offset, a stride off the 16-byte grid, head dim 256 or
+float32 take the f32-FMA (SIMT) routes. The card tests
+(tests/test_torch_cuda.py) assert the same routes on the launches they make.
+
+The route sweeps' shapes (C 1..321 across the decode / prefill seam, S 1,
+63, 65, 100 across the 64-row tile edge) also go through the port's plain
+versions (what the wrappers run on the CPU, and what the card holds the
+kernels to) and the Pallas kernels in interpret mode, with the same inputs
+made with numpy: 2e-5 in f32 (sums in another order), 5e-2 in bf16 (one
+rounding of the output).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention_fwd as j_attn
+from repro.kernels.moe_gmm import grouped_matmul as j_gmm
+from repro_torch.kernels import LAUNCHES, ROUTES, _build, reset_launches
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_gmm
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _tol(dtype):
+    return dict(atol=5e-2, rtol=5e-2) if dtype == "bfloat16" \
+        else dict(atol=2e-5, rtol=2e-5)
+
+
+def _offset(shape, dtype, elems=1):
+    """A contiguous tensor of `shape` whose base sits `elems` elements past
+    an aligned allocation."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + elems, dtype=dtype)[elems:].view(shape)
+
+
+def _gmm_operands(case):
+    """(x, w) for a named grouped_matmul case."""
+    if case == "decode w_in":                 # granite's decode step
+        x = torch.zeros(8, 32, 1024, dtype=BF16).transpose(0, 1)
+        w = torch.zeros(32, 1024, 2, 512, dtype=BF16).reshape(32, 1024, 1024)
+    elif case == "decode w_out":
+        x = torch.zeros(32, 8, 512, dtype=BF16)
+        w = torch.zeros(32, 512, 1024, dtype=BF16)
+    elif case == "prefill w_in":              # granite's prefill group
+        x = torch.zeros(32, 320, 1024, dtype=BF16)
+        w = torch.zeros(32, 1024, 1024, dtype=BF16)
+    elif case == "prefill w_out":
+        x = torch.zeros(320, 32, 512, dtype=BF16).transpose(0, 1)
+        w = torch.zeros(32, 512, 1024, dtype=BF16)
+    elif case == "C 16":
+        x, w = torch.zeros(3, 16, 72, dtype=BF16), torch.zeros(3, 72, 40,
+                                                                dtype=BF16)
+    elif case == "C 17":
+        x, w = torch.zeros(3, 17, 72, dtype=BF16), torch.zeros(3, 72, 40,
+                                                                dtype=BF16)
+    elif case == "C 1, odd stride of the size-1 dim":
+        x = torch.zeros(3 * 72, dtype=BF16).as_strided((3, 1, 72),
+                                                       (72, 3, 1))
+        w = torch.zeros(3, 72, 40, dtype=BF16)
+    elif case == "d 5":
+        x, w = torch.zeros(2, 1, 5, dtype=BF16), torch.zeros(2, 5, 3,
+                                                              dtype=BF16)
+    elif case == "f 12":
+        x, w = torch.zeros(2, 4, 16, dtype=BF16), torch.zeros(2, 16, 12,
+                                                               dtype=BF16)
+    elif case == "odd offset":
+        x, w = _offset((4, 13, 72), BF16), torch.zeros(4, 72, 40, dtype=BF16)
+    elif case == "odd offset of w":
+        x, w = torch.zeros(4, 13, 72, dtype=BF16), _offset((4, 72, 40), BF16)
+    elif case == "row stride off the grid":
+        x = torch.zeros(4, 13, 76, dtype=BF16)[..., :72]   # rows 152 bytes
+        w = torch.zeros(4, 72, 40, dtype=BF16)
+    elif case == "float32":
+        x, w = torch.zeros(32, 8, 1024), torch.zeros(32, 1024, 1024)
+    else:
+        raise KeyError(case)
+    return x, w
+
+
+@pytest.mark.parametrize("case,want", [
+    ("decode w_in", "tc_decode"), ("decode w_out", "tc_decode"),
+    ("prefill w_in", "tc_prefill"), ("prefill w_out", "tc_prefill"),
+    ("C 16", "tc_decode"), ("C 17", "tc_prefill"),
+    ("C 1, odd stride of the size-1 dim", "tc_decode"),
+    ("d 5", "simt_bf16"), ("f 12", "simt_bf16"), ("odd offset", "simt_bf16"),
+    ("odd offset of w", "simt_bf16"),
+    ("row stride off the grid", "simt_bf16"), ("float32", "simt_f32"),
+])
+def test_grouped_matmul_route(case, want):
+    x, w = _gmm_operands(case)
+    assert moe_gmm._route(x, w) == want
+    assert want in ROUTES["grouped_matmul"]
+
+
+def _attn_operands(case):
+    """(q, k, v) [B, H, S, hd] views for a named flash_attention_fwd case,
+    laid out [B, S, heads, hd] as the model hands them over."""
+    def model(B, S, H, KV, hd, dtype=BF16):
+        return tuple(torch.zeros(B, S, n, hd, dtype=dtype).transpose(1, 2)
+                     for n in (H, KV, KV))
+    if case == "qwen3 16/8 x 128":
+        return model(8, 128, 16, 8, 128)
+    if case == "granite 16/8 x 64":
+        return model(8, 128, 16, 8, 64)
+    if case == "hymba 25/5 x 64, S 1100":
+        return model(4, 1100, 25, 5, 64)
+    if case == "hd 16":
+        return model(2, 100, 2, 2, 16)
+    if case == "hd 32":
+        return model(2, 65, 4, 2, 32)
+    if case == "hd 256":
+        return model(1, 64, 2, 1, 256)
+    if case == "odd offset":
+        q = _offset((2, 100, 4, 64), BF16).transpose(1, 2)
+        k, v = model(2, 100, 4, 2, 64)[1:]
+        return q, k, v
+    if case == "float32":
+        return model(8, 128, 16, 8, 128, F32)
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("qwen3 16/8 x 128", "tc"), ("granite 16/8 x 64", "tc"),
+    ("hymba 25/5 x 64, S 1100", "tc"), ("hd 16", "tc"), ("hd 32", "tc"),
+    ("hd 256", "simt_bf16"), ("odd offset", "simt_bf16"),
+    ("float32", "simt_f32"),
+])
+def test_flash_attention_route(case, want):
+    q, k, v = _attn_operands(case)
+    assert fa._route(q, k, v) == want
+    assert want in ROUTES["flash_attention_fwd"]
+
+
+def test_vec16_ok_reads_base_shape_and_strides():
+    """The tensor-core routes' one precondition on a tensor."""
+    assert _build.vec16_ok(torch.zeros(3, 5, 16, dtype=BF16))
+    assert _build.vec16_ok(torch.zeros(5, 3, 8, dtype=BF16).transpose(0, 1))
+    assert _build.vec16_ok(torch.zeros(3, 5, 4))               # f32: 16 B
+    assert not _build.vec16_ok(torch.zeros(3, 5, 12, dtype=BF16))
+    assert not _build.vec16_ok(_offset((3, 5, 16), BF16))
+    assert not _build.vec16_ok(torch.zeros(3, 5, 20, dtype=BF16)[..., :16])
+    # a dim of length 1 places no constraint on its stride
+    assert _build.vec16_ok(torch.zeros(48, dtype=BF16).as_strided(
+        (3, 1, 16), (16, 3, 1)))
+
+
+def test_cpu_wrappers_launch_nothing_and_count_no_route():
+    """On CPU tensors the wrappers run their plain versions whatever the
+    route would be; launches and routes stay at 0, and reset_launches zeroes
+    both tables."""
+    reset_launches()
+    x = torch.randn(2, 17, 16).to(BF16)
+    w = torch.randn(2, 16, 24).to(BF16)
+    moe_gmm.grouped_matmul(x, w)
+    q = torch.randn(1, 2, 65, 32).to(BF16)
+    fa.flash_attention_fwd(q, q[:, :1], q[:, :1])
+    assert all(n == 0 for n in LAUNCHES.values())
+    assert all(n == 0 for r in ROUTES.values() for n in r.values())
+    _build.count("grouped_matmul", "tc_prefill")
+    _build.count("flash_attention_fwd", "tc")
+    assert LAUNCHES["grouped_matmul"] == ROUTES["grouped_matmul"][
+        "tc_prefill"] == 1
+    reset_launches()
+    assert all(n == 0 for r in ROUTES.values() for n in r.values())
+    assert LAUNCHES["flash_attention_fwd"] == 0
+
+
+@pytest.mark.parametrize("C", [1, 8, 16, 17, 100, 321])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_route_sweep_matches_pallas(C, dtype):
+    """The route sweep's shapes (d 72, f 40; C across the decode / prefill
+    seam at 16 and past the 64-row tiles) through the wrapper on the CPU
+    (its plain version) and the Pallas grouped_matmul in interpret mode;
+    x handed over strided, as the model may."""
+    E, d, f = 3, 72, 40
+    rng = np.random.default_rng(C)
+    x = rng.standard_normal((C, E, d)).astype(np.float32).transpose(1, 0, 2)
+    w = (rng.standard_normal((E, d, f)) * d ** -0.5).astype(np.float32)
+    jx, jw = (jnp.asarray(a, dtype) for a in (x, w))
+    want = j_gmm(jx, jw, block_c=16, block_f=8, block_d=24, interpret=True)
+    tdt = getattr(torch, dtype)
+    tx = torch.tensor(np.asarray(jx.astype(jnp.float32))).to(tdt)
+    tx = tx.transpose(0, 1).contiguous().transpose(0, 1)     # [C, E, d] memory
+    tw = torch.tensor(np.asarray(jw.astype(jnp.float32))).to(tdt)
+    got = moe_gmm.grouped_matmul(tx, tw)
+    assert got.dtype == tdt and got.shape == (E, C, f)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **_tol(dtype))
+
+
+@pytest.mark.parametrize("S", [1, 63, 65, 100])
+@pytest.mark.parametrize("window", [0, 40])
+def test_attention_route_sweep_matches_pallas(S, window):
+    """The route sweep's lengths (one token, either side of the 64-row
+    tile, a ragged 100) at hd 64 and GQA 4/2 in bf16 through the wrapper on
+    the CPU and the Pallas flash_attention_fwd in interpret mode."""
+    rng = np.random.default_rng(S + window)
+    arrs = [rng.standard_normal((2, n, S, 64)).astype(np.float32)
+            for n in (4, 2, 2)]
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in arrs)
+    want = j_attn(jq, jk, jv, causal=True, window=window, block_q=32,
+                  block_k=32, interpret=True)
+    tq, tk, tv = (torch.tensor(np.asarray(a.astype(jnp.float32))).to(BF16)
+                  for a in (jq, jk, jv))
+    got = fa.flash_attention_fwd(tq, tk, tv, causal=True, window=window)
+    assert got.dtype == BF16 and got.shape == tq.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **_tol("bfloat16"))
