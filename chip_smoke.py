@@ -7,34 +7,39 @@ Phases (each prints a line; any failure exits nonzero):
   1. device and build: the card's name and power limit (nvidia-smi), then
      the Hopper kernels compiled from src/repro_torch/kernels/csrc, with the
      tensor-core kernels' registers and spills (nvcc -Xptxas -v) and their
-     dynamic shared memory;
+     dynamic shared memory, and the decode SIMT kernels' register range and
+     spills;
   2. kernel parity: each attention kernel against its plain PyTorch version
      at the qwen3-0.6b attention shapes (hd 128, 16 query / 8 kv heads), at
      the hymba-1.5b ones (hd 64, 25 query / 5 kv heads, G 5) and at the
      granite-moe-1b-a400m ones (hd 64, 16 query / 8 kv heads, G 2), bf16 and
      f32, and at the shapes of phase 11 (prefill B 4 x S 1100, decode over
-     a [4, 1132] cache at lengths 1101..1132) — zero-length rows, per-row and ragged lengths, unmapped pages, an
-     fp8 pool, a window; the chunked WKV6 kernel against the sequential
-     recurrence at the rwkv6-3b shapes (40 heads of 64, f32, y and the
-     final state, S 128 / 100 / 17 / 1, lens-padded row tails); the chunked
+     a [4, 1132] cache at lengths 1101..1132) — zero-length rows, per-row
+     and ragged lengths, lengths at the decode kernels' tile and split
+     edges, unmapped pages, an fp8 pool, a window; the chunked WKV6 kernel
+     against the sequential recurrence at the rwkv6-3b shapes (40 heads of
+     64, f32, y and the final state, S 128 / 100 / 17 / 1, lens-padded row
+     tails); the chunked
      SSD kernel against its sequential recurrence at the hymba-1.5b shapes
      (50 heads of 64, state 16, f32, y and the final state, S 128 / 100 /
      1100 / 17 / 1, strided inputs, lens-padded row tails); the grouped
      matmul against its plain version at granite-moe-1b-a400m's expert GEMMs
      (E 32, C 8 in decode and 320 in prefill, [d 1024 -> 1024] for w_in and
      [512 -> 1024] for w_out) and a ragged C 13 / d 72 / f 40, bf16 and
-     f32 (grouped_matmul and flash_attention_fwd in bf16 through both their
-     tensor-core and their SIMT route); then the kernel, plain and library
-     times (kernels and library calls as device time, a CUDA graph replayed
-     over 24-32 layers' inputs, and eager; for WKV6 and SSD also the chunked
-     torch scans that the plain serve path runs); grouped_matmul and
-     flash_attention_fwd per route (tc, simt_bf16, simt_f32), attention at
-     qwen3's, granite's and hymba's heads and at hymba's S 1100 prefill;
+     f32 (grouped_matmul, flash_attention_fwd and both decode kernels in
+     bf16 through both their tensor-core and their SIMT route); then the
+     kernel, plain and library times (kernels and library calls as device
+     time, a CUDA graph replayed over 24-150 layers' inputs, and eager; for
+     WKV6 and SSD also the chunked torch scans that the plain serve path
+     runs); the kernels with routes per route (tc, simt_bf16, simt_f32):
+     attention at qwen3's, granite's and hymba's heads and at hymba's S 1100
+     prefill, paged decode at the same three head shapes, contiguous decode
+     at qwen3's [8, 160] and hymba's [4, 1132] generate caches;
   3. qwen3-0.6b at full width (28 layers, random weights from a seeded
      generator, bf16) served through the continuous-batching Scheduler over
      a 48-page pool, with the kernel launch counts of that run asserted
-     (here and in every bf16 phase below: exact, and every launch of
-     grouped_matmul and flash_attention_fwd on its tensor-core route), then
+     (here and in every bf16 phase below: exact, and every launch of a
+     kernel with routes on its tensor-core route), then
      a short profiled run for the device's busy and idle share;
   4. the same requests in f32 through the kernels and through the plain
      path: the first prefill's logits agree and the greedy streams match
@@ -110,16 +115,27 @@ HYMBA_MATS = ("wq", "wk", "wv", "wo", "mlp_wi", "mlp_wo", "ssd_conv_w",
 GRANITE_MATS = ("wq", "wk", "wv", "wo", "moe_w_in", "moe_w_out")
 # each kernel's design, as the kernels line reports it
 DESIGN = {
-    "flash_decode_paged": "f32-FMA SIMT: one block per (row, kv head) walks "
-                          "the block table, K/V read once for the G query "
-                          "rows, fp8 pools widened in registers",
+    "flash_decode_paged": "each row's positions split across blocks "
+                          "(chunks of 16k positions from static shapes; "
+                          "dead chunks load nothing), the splits merged by "
+                          "logsumexp in the same launch (a ticket: the last "
+                          "split merges); bf16 (route tc): per warp 16-"
+                          "position K/V tiles through a 2-stage cp.async "
+                          "ring, S^T = K q^T and O^T += V^T P^T on "
+                          "mma.sync.m16n8k16 (positions / hd on M, the G "
+                          "<= 8 query rows on N), P^T from S^T by "
+                          "movmatrix, the block table read in the kernel, "
+                          "fp8 widened in shared memory; f32, hd 256 or "
+                          "unaligned rows (simt): the same splits with "
+                          "f32-FMA",
     "flash_attention_fwd": "bf16 (route tc): flash-attention-2 on "
                            "mma.sync.m16n8k16, Q fragments and P (bf16) in "
                            "registers, K/V double-buffered by cp.async; "
                            "f32, hd 256 or unaligned rows (simt): f32-FMA "
                            "tiles through shared memory",
-    "flash_decode": "f32-FMA SIMT, the flash_decode_paged body over a "
-                    "strided contiguous cache",
+    "flash_decode": "the flash_decode_paged body (splits, tc / simt "
+                    "routes) over a strided contiguous cache, with the "
+                    "optional window",
     "rwkv6_chunked": "f32-FMA SIMT: one block per (row, head) walks chunks "
                      "of 16 with the 64x64 state in shared memory",
     "ssd_chunked": "f32-FMA SIMT: one block per (row, head) walks chunks of "
@@ -170,13 +186,23 @@ def profile_run(label, run):
             f"device events: device busy share not measured")
         return
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    # the port's kernels on the path, whether or not they make the top
+    mine = {n: v for n, v in by_name.items() if any(
+        f"::{k}<" in n or f"::{k}(" in n for k in (
+            "decode_tc_kernel", "decode_simt_kernel", "attn_tc_kernel",
+            "attn_kernel", "gmm_kernel", "gmm_tc_decode", "gmm_tc_prefill",
+            "wkv6_kernel", "ssd_kernel"))}
     log("profile", f"{label} ({rep.decode_steps} decode steps, "
         f"{rep.prefill_calls} prefills) "
         f"under torch.profiler: wall {wall * 1e3:.1f} ms, device busy "
         f"{busy * 1e3:.1f} ms, idle share {1 - busy / wall:.3f}, "
         f"{sum(n for _, n in by_name.values())} device kernels/copies; "
         f"top: " +
-        "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top))
+        "; ".join(f"{n[:60]} {t / 1e3:.2f} ms x{c}" for n, (t, c) in top) +
+        "; the port's kernels: " + ("; ".join(
+            f"{n.replace('(anonymous namespace)::', '')[:70]} "
+            f"{t / 1e3:.3f} ms x{c}" for n, (t, c) in sorted(mine.items()))
+            or "none"))
 
 
 def ptxas_entries(lib_name, tag):
@@ -202,6 +228,37 @@ def ptxas_entries(lib_name, tag):
     return out
 
 
+def sass_counts(lib_name, tag, ops):
+    """[(kernel, {op: count})] for each kernel of csrc/<lib_name>.cu whose
+    name holds `tag`, counting the machine instructions that start with
+    each of `ops` in `cuobjdump -sass` of the built library; [] where the
+    toolkit has no cuobjdump."""
+    import shutil
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return []
+    sass = subprocess.run([tool, "-sass", str(_build._build_dir() /
+                                               f"lib{lib_name}.so")],
+                          capture_output=True, text=True).stdout
+    out = []
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if tag not in name:
+            continue
+        if shutil.which("c++filt"):
+            name = subprocess.run(["c++filt", name], capture_output=True,
+                                  text=True).stdout.strip()
+        name = name.replace("(anonymous namespace)::", "")
+        instrs = [line.split("*/", 1)[1].strip() for line in
+                  block.splitlines() if line.strip().startswith("/*") and
+                  "*/" in line and line.split("*/", 1)[1].strip()]
+        out.append((name, {op: sum(i.lstrip("@!P0123456789T ").startswith(op)
+                                   for i in instrs) for op in ops}))
+    return out
+
+
 def bf16_copy(params):
     """A bfloat16 copy of a param tree (blocks nested one level down)."""
     import torch
@@ -221,6 +278,7 @@ def main() -> int:
                                      reset_launches)
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_paged)
     from repro_torch.kernels.mamba_ssd import ssd_chunked
@@ -252,19 +310,35 @@ def main() -> int:
         log("build", f"{name}: {len(regs)} instantiations, e.g. {regs[:1]}")
     # the tensor-core kernels' registers, spills (nvcc -Xptxas -v) and
     # dynamic shared memory (set at launch, so not in that log)
-    for lib_name in ("moe_gmm", "flash_attention"):
+    for lib_name in ("moe_gmm", "flash_attention", "flash_decode"):
         for kern, regs, spill in ptxas_entries(lib_name, "_tc_"):
             log("build", f"{lib_name}: {kern}: {regs}; {spill}")
+    simt = ptxas_entries("flash_decode", "decode_simt")
+    used = [int(r.split("Used ")[1].split()[0]) for _, r, _ in simt]
+    log("build", f"flash_decode: {len(simt)} simt instantiations, "
+        f"{min(used)}..{max(used)} registers; spills: " + (", ".join(
+            f"{k}: {sp}" for k, _, sp in simt
+            if not sp.startswith("0 bytes stack")) or "none"))
     gmm_smem = _build.load("moe_gmm").grouped_matmul_smem_bytes
     gmm_smem.restype, gmm_smem.argtypes = _build.INT, [_build.INT]
     att_smem = _build.load("flash_attention").flash_attention_smem_bytes
     att_smem.restype, att_smem.argtypes = _build.INT, [_build.INT] * 3
+    dec_smem = _build.load("flash_decode").flash_decode_tc_smem_bytes
+    dec_smem.restype, dec_smem.argtypes = _build.INT, [_build.INT] * 3
     log("build", f"dynamic shared memory a block: grouped_matmul tc_decode "
         f"{gmm_smem(1)} B, tc_prefill {gmm_smem(2)} B; flash_attention_fwd "
         f"tc (1 / 2 query heads a block) and simt at hd 64 "
         f"{att_smem(64, 1, 1)} / {att_smem(64, 2, 1)} and "
         f"{att_smem(64, 1, 0)} B, at hd 128 {att_smem(128, 1, 1)} / "
-        f"{att_smem(128, 2, 1)} and {att_smem(128, 1, 0)} B")
+        f"{att_smem(128, 2, 1)} and {att_smem(128, 1, 0)} B; flash_decode "
+        f"tc (bf16 / fp8 pool) a warp at hd 64 {dec_smem(64, 0, 1)} / "
+        f"{dec_smem(64, 1, 1)} B, at hd 128 {dec_smem(128, 0, 1)} / "
+        f"{dec_smem(128, 1, 1)} B (up to 8 warps a block)")
+    # the tensor-core instructions in the decode kernels' machine code
+    for kern, ops in sass_counts("flash_decode", "decode_tc_kernel",
+                                 ("HMMA", "LDSM", "MOVM", "LDGSTS")):
+        log("build", f"flash_decode SASS: {kern}: " + ", ".join(
+            f"{op} {n}" for op, n in ops.items()))
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -319,31 +393,43 @@ def main() -> int:
                     hold("flash_attention_fwd", flash_attention_fwd(
                         q, k, v, causal=True, window=window, route=route),
                          ref, dt, heads, route=route)
+            # decode over a 160-position cache / pool (B 8): lengths at the
+            # tile edges and at the SIMT routes' split edges (_splits' chunk:
+            # 32 at qwen3's and granite's heads, 16 at hymba's; the
+            # tensor-core route takes the 160 in one chunk), windows 0 and
+            # 48 (mid-chunk), each route of the dtype
             B, S = 8, 160
             cache_k = randn(3, B, S, KV, hd, dtype=dt)
             cache_v = randn(3, B, S, KV, hd, dtype=dt)
             q1 = randn(B, H, hd, dtype=dt)
-            lens = torch.tensor([0, 1, 15, 16, 17, 77, 159, 160], device=dev,
-                                dtype=torch.int32)
-            for window in (0, 48):
-                kv = (cache_k[1].transpose(1, 2), cache_v[1].transpose(1, 2))
-                hold("flash_decode",
-                     flash_decode(q1, *kv, lens, window=window),
-                     kref.decode_ref(q1, *kv, lens, window=window), dt,
-                     heads, zero_row=0)
-            ps, npg = 16, 10
-            P1 = B * npg + 1
-            perm = torch.randperm(B * npg, generator=gen, device=dev)
-            tab = perm.to(torch.int32).reshape(B, npg)
-            for b in range(B):      # pages past each row's length unmapped
-                tab[b, (int(lens[b]) + ps - 1) // ps:] = -1
-            for pool_dt in (dt, torch.float8_e4m3fn):
-                kp = randn(3, P1, ps, KV, hd, dtype=pool_dt)
-                vp = randn(3, P1, ps, KV, hd, dtype=pool_dt)
-                hold("flash_decode_paged",
-                     flash_decode_paged(q1, kp, vp, tab, lens, layer=2),
-                     kref.decode_paged_ref(q1, kp, vp, tab, lens, layer=2),
-                     dt, heads, zero_row=0)
+            chunk = fd._splits(B, KV, S, "simt_f32")[1]
+            for lens in ([0, 1, 15, 16, 17, 77, 159, 160],
+                         [0, chunk - 1, chunk, chunk + 1, 2 * chunk + 1,
+                          3 * chunk - 1, 131, 150]):
+                lens = torch.tensor(lens, device=dev, dtype=torch.int32)
+                for window in (0, 48):
+                    kv = (cache_k[1].transpose(1, 2),
+                          cache_v[1].transpose(1, 2))
+                    ref = kref.decode_ref(q1, *kv, lens, window=window)
+                    for route in ROUTE_CHECKS[dt]:
+                        hold("flash_decode", flash_decode(
+                            q1, *kv, lens, window=window, route=route), ref,
+                             dt, heads, zero_row=0, route=route)
+                ps, npg = 16, 10
+                P1 = B * npg + 1
+                perm = torch.randperm(B * npg, generator=gen, device=dev)
+                tab = perm.to(torch.int32).reshape(B, npg)
+                for b in range(B):   # pages past each row's length unmapped
+                    tab[b, (int(lens[b]) + ps - 1) // ps:] = -1
+                for pool_dt in (dt, torch.float8_e4m3fn):
+                    kp = randn(3, P1, ps, KV, hd, dtype=pool_dt)
+                    vp = randn(3, P1, ps, KV, hd, dtype=pool_dt)
+                    ref = kref.decode_paged_ref(q1, kp, vp, tab, lens,
+                                                layer=2)
+                    for route in ROUTE_CHECKS[dt]:
+                        hold("flash_decode_paged", flash_decode_paged(
+                            q1, kp, vp, tab, lens, layer=2, route=route),
+                             ref, dt, heads, zero_row=0, route=route)
 
     def attention_parity_long(H, KV, hd, B, S, n_new):
         """flash_attention_fwd and flash_decode at a generate path's own
@@ -368,8 +454,15 @@ def main() -> int:
             cache_v = randn(3, B, Sc, KV, hd, dtype=dt)
             kv = (cache_k[1].transpose(1, 2), cache_v[1].transpose(1, 2))
             q1 = randn(B, H, hd, dtype=dt)
-            hold("flash_decode", flash_decode(q1, *kv, lens),
-                 kref.decode_ref(q1, *kv, lens), dt, heads)
+            # the generate lengths, then the tensor-core route's split
+            # edges (chunks of 256 at this shape)
+            for dl in (lens, torch.tensor([255, 256, 257, Sc], device=dev,
+                                          dtype=torch.int32)):
+                ref = kref.decode_ref(q1, *kv, dl)
+                for route in ROUTE_CHECKS[dt]:
+                    hold("flash_decode", flash_decode(q1, *kv, dl,
+                                                      route=route),
+                         ref, dt, heads, route=route)
 
     attention_parity(16, 8, 128)          # qwen3-0.6b: G 2
     attention_parity(25, 5, 64)           # hymba-1.5b: G 5
@@ -555,7 +648,14 @@ def main() -> int:
         att_times["qwen3 16/8x128"],
         library="scaled_dot_product_attention(is_causal, enable_gqa)",
         dtype="bfloat16", tolerance=TOL, by_shape=att_times)
-    # paged decode at the serve pool: 28 layer groups, 49 pages of 16
+    # decode at the serve shapes, each route (tc, simt_bf16, simt_f32)
+    # beside the library call: paged over a pool of 16-token pages (B 8, the
+    # same lengths 17..160 and block table at every head shape, pages past
+    # each length unmapped) at qwen3's, granite's and hymba's heads;
+    # contiguous over qwen3's generate cache [8, 160] at length 140 and
+    # hymba's generate cache [4, 1132] at lengths 1101..1132. Each shape
+    # cycles its model's layer count of inputs, raised until the live K/V
+    # read is twice the 50 MB L2.
     B, ps, npg, P1 = 8, 16, 10, 49
     dlens = torch.tensor(np.random.default_rng(0).integers(17, 161, B),
                          device=dev, dtype=torch.int32)
@@ -564,62 +664,124 @@ def main() -> int:
     for b in range(B):
         for i in range((int(dlens[b]) + ps - 1) // ps):
             tab[b, i] = next(free)
-    kp = randn(N_LAYERS, P1, ps, KV, hd, dtype=bf)
-    vp = randn(N_LAYERS, P1, ps, KV, hd, dtype=bf)
-    q1 = randn(B, H, hd, dtype=bf)
-    pg_sets = [(q1, kp, vp, tab, dlens, layer) for layer in range(N_LAYERS)]
     live = int(dlens.sum())
     pos = torch.arange(npg * ps, device=dev)
+    pmask = (pos[None] < dlens[:, None])[:, None, None, :]
 
-    def gathered_sdpa(q1, kp, vp, tab, lens, layer):
-        phys = torch.where(tab >= 0, tab, P1 - 1).long()
-        kk = kp[layer][phys].reshape(B, -1, KV, hd).transpose(1, 2)
-        vv = vp[layer][phys].reshape(B, -1, KV, hd).transpose(1, 2)
-        mask = (pos[None] < lens[:, None])[:, None, None, :]
-        return F.scaled_dot_product_attention(q1[:, :, None], kk, vv,
-                                              attn_mask=mask,
-                                              enable_gqa=True)
+    def n_sets(layers, live_pos, KVq, hdq):
+        return max(layers, -(-2 * 50_000_000 // (4 * live_pos * KVq * hdq)))
 
+    def split_sweep(fn, sets, pairs, cap):
+        """The tc route's device time as its span (the floor of a chunk,
+        fd.SPAN["tc"]) moves: {span: [splits, chunk, ms]}; the span is put
+        back after."""
+        keep, out = fd.SPAN["tc"], {}
+        try:
+            for span in (16, 64, 128, 256, 512):
+                fd.SPAN["tc"] = span
+                out[span] = [*fd._splits(pairs, 1, cap, "tc"),
+                             time_ms(fn, sets)]
+        finally:
+            fd.SPAN["tc"] = keep
+        return out
+
+    def decode_times(fn, plain, library, sets, elems, int32s, flops, shape,
+                     pairs, cap):
+        """A decode kernel's routes, eager, plain and library times over
+        `sets` (per dtype), and the tc route's split sweep over `pairs`
+        (row, kv head) pairs of `cap` positions; its bound from one call's
+        `elems` elements of q, the output and the live K/V (2 bytes each in
+        bf16, 4 in f32), its `int32s` lengths and table entries and its
+        `flops`."""
+        routes = {"tc": time_ms(fn, sets[bf]),
+                  "simt_bf16": time_ms(lambda *a: fn(*a, route="simt_bf16"),
+                                       sets[bf]),
+                  "simt_f32": time_ms(fn, sets[f32])}
+        return dict(
+            ms=routes["tc"], routes=routes,
+            split_sweep=split_sweep(fn, sets[bf], pairs, cap),
+            eager_ms=time_ms(fn, sets[bf], graph=False),
+            plain_ms=time_ms(plain, sets[bf], graph=False),
+            library_ms=time_ms(library, sets[bf]),
+            library_eager_ms=time_ms(library, sets[bf], graph=False),
+            shape=shape + " bf16", bound=bound(2 * elems + 4 * int32s, flops),
+            bound_f32=bound(4 * elems + 4 * int32s, flops, "float32"))
+
+    paged_times = {}
+    for what, (Hq, KVq, hdq, layers) in {
+            "qwen3 16/8x128": (16, 8, 128, N_LAYERS),
+            "granite 16/8x64": (16, 8, 64, 24),
+            "hymba 25/5x64": (25, 5, 64, 32)}.items():
+        n = n_sets(layers, live, KVq, hdq)
+        sets = {}
+        for dt in (bf, f32):
+            kp = randn(n, P1, ps, KVq, hdq, dtype=dt)
+            vp = randn(n, P1, ps, KVq, hdq, dtype=dt)
+            q1 = randn(B, Hq, hdq, dtype=dt)
+            sets[dt] = [(q1, kp, vp, tab, dlens, layer)
+                        for layer in range(n)]
+
+        def paged(q1, kp, vp, tab, lens, layer, route=None):
+            return flash_decode_paged(q1, kp, vp, tab, lens, layer=layer,
+                                      route=route)
+
+        def paged_plain(q1, kp, vp, tab, lens, layer):
+            return kref.decode_paged_ref(q1, kp, vp, tab, lens, layer=layer)
+
+        def gathered_sdpa(q1, kp, vp, tab, lens, layer):
+            phys = torch.where(tab >= 0, tab, P1 - 1).long()
+            kk = kp[layer][phys].reshape(B, -1, *kp.shape[-2:]).transpose(1, 2)
+            vv = vp[layer][phys].reshape(B, -1, *vp.shape[-2:]).transpose(1, 2)
+            return F.scaled_dot_product_attention(
+                q1[:, :, None], kk, vv, attn_mask=pmask, enable_gqa=True)
+
+        # q read and the output written, the live K/V rows read once, the
+        # block table and lengths (int32); 4 G hd flops a live position
+        paged_times[what] = decode_times(
+            paged, paged_plain, gathered_sdpa, sets,
+            2 * B * Hq * hdq + 2 * live * KVq * hdq, B * npg + B,
+            4 * Hq * hdq * live,
+            f"B{B} pool[{n},{P1},{ps},{KVq},{hdq}] live {live} positions",
+            B * KVq, npg * ps)
+        del sets, kp, vp
     timing["flash_decode_paged"] = dict(
-        ms=time_ms(lambda *a: flash_decode_paged(*a[:5], layer=a[5]),
-                   pg_sets),
-        eager_ms=time_ms(lambda *a: flash_decode_paged(*a[:5], layer=a[5]),
-                         pg_sets, graph=False),
-        plain_ms=time_ms(lambda *a: kref.decode_paged_ref(*a[:5],
-                                                          layer=a[5]),
-                         pg_sets, graph=False),
-        library_ms=time_ms(gathered_sdpa, pg_sets),
-        library_eager_ms=time_ms(gathered_sdpa, pg_sets, graph=False),
+        paged_times["qwen3 16/8x128"],
         library="page gather + scaled_dot_product_attention(mask)",
-        dtype="bfloat16", tolerance=TOL,
-        shape=f"B{B} pool[{N_LAYERS},{P1},{ps},{KV},{hd}] live {live} "
-              f"positions bf16",
-        bound=bound(2 * (2 * B * H * hd + 2 * live * KV * hd)
-                    + 4 * (B * npg + B), 4 * H * hd * live))
-    # contiguous decode at the generate() cache: [28, 8, 160, 8, 128]
-    S = 160
-    ck = randn(N_LAYERS, B, S, KV, hd, dtype=bf)
-    cv = randn(N_LAYERS, B, S, KV, hd, dtype=bf)
-    glens = torch.full((B,), 140, device=dev, dtype=torch.int32)
-    c_sets = [(q1, ck[i].transpose(1, 2), cv[i].transpose(1, 2), glens)
-              for i in range(N_LAYERS)]
-    cmask = (torch.arange(S, device=dev)[None] < glens[:, None])[:, None,
-                                                                None, :]
-    def masked_sdpa(q, k, v, n):
-        return F.scaled_dot_product_attention(q[:, :, None], k, v,
-                                              attn_mask=cmask, enable_gqa=True)
+        dtype="bfloat16", tolerance=TOL, by_shape=paged_times)
+    cont_times = {}
+    for what, (Bc, Sc, lens, Hq, KVq, hdq, layers) in {
+            "qwen3 16/8x128 [8,160]": (8, 160, [140] * 8, 16, 8, 128,
+                                       N_LAYERS),
+            "hymba generate 25/5x64 [4,1132]": (
+                4, 1132, torch.linspace(1101, 1132, 4).round().int().tolist(),
+                25, 5, 64, 32)}.items():
+        glens = torch.tensor(lens, device=dev, dtype=torch.int32)
+        n = n_sets(layers, int(glens.sum()), KVq, hdq)
+        sets = {}
+        for dt in (bf, f32):
+            ck = randn(n, Bc, Sc, KVq, hdq, dtype=dt)
+            cv = randn(n, Bc, Sc, KVq, hdq, dtype=dt)
+            q1 = randn(Bc, Hq, hdq, dtype=dt)
+            sets[dt] = [(q1, ck[i].transpose(1, 2), cv[i].transpose(1, 2),
+                         glens) for i in range(n)]
+        cmask = (torch.arange(Sc, device=dev)[None] < glens[:, None])[
+            :, None, None, :]
 
+        def masked_sdpa(q, k, v, n, cmask=cmask):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=cmask, enable_gqa=True)
+
+        cont_times[what] = decode_times(
+            flash_decode, kref.decode_ref, masked_sdpa, sets,
+            2 * Bc * Hq * hdq + 2 * int(glens.sum()) * KVq * hdq, Bc,
+            4 * Hq * hdq * int(glens.sum()),
+            f"B{Bc} cache[{n},{Bc},{Sc},{KVq},{hdq}] strided, lengths "
+            f"{min(lens)}..{max(lens)}", Bc * KVq, Sc)
+        del sets, ck, cv
     timing["flash_decode"] = dict(
-        ms=time_ms(flash_decode, c_sets),
-        eager_ms=time_ms(flash_decode, c_sets, graph=False),
-        plain_ms=time_ms(kref.decode_ref, c_sets, graph=False),
-        library_ms=time_ms(masked_sdpa, c_sets),
-        library_eager_ms=time_ms(masked_sdpa, c_sets, graph=False),
+        cont_times["qwen3 16/8x128 [8,160]"],
         library="scaled_dot_product_attention(mask)",
-        dtype="bfloat16", tolerance=TOL,
-        shape=f"B{B} cache[{N_LAYERS},{B},{S},{KV},{hd}] length 140 bf16",
-        bound=bound(2 * (2 * B * H * hd + 2 * B * 140 * KV * hd) + 4 * B,
-                    4 * H * hd * B * 140))
+        dtype="bfloat16", tolerance=TOL, by_shape=cont_times)
     # the WKV6 prefill at the rwkv6-3b serve shape: B 8, S 128 (the prompt
     # width), 40 heads of 64, f32; 32 layers' inputs (1.3 GB) cycled. The
     # plain version is the sequential recurrence the kernel is held against;
@@ -704,7 +866,15 @@ def main() -> int:
     timing["grouped_matmul"] = dict(
         gmm_times["decode w_in"], library="torch.bmm (bf16)",
         dtype="bfloat16", tolerance=TOL, by_shape=gmm_times)
+    for name, by in (("flash_decode_paged", paged_times),
+                     ("flash_decode", cont_times)):
+        for what, t in by.items():
+            log("timing", f"{name} {what} tc route by span (splits x chunk: "
+                f"ms): " + ", ".join(f"{sp} ({n} x {c}: {ms:.4f})" for sp, (
+                    n, c, ms) in t["split_sweep"].items()))
     for name, by in (("flash_attention_fwd", att_times),
+                     ("flash_decode_paged", paged_times),
+                     ("flash_decode", cont_times),
                      ("grouped_matmul", gmm_times)):
         for what, t in by.items():
             log("timing", f"{name} {what} [{t['shape']}]: routes " + ", ".join(
@@ -726,7 +896,7 @@ def main() -> int:
             f"(device time, CUDA graph; eager {t['eager_ms']:.4f}), plain "
             f"{t['plain_ms']:.4f} ms{scan}, library {t['library']} {lib}, "
             f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
-    del pg_sets, c_sets, kp, vp, ck, cv, wkv_sets, ssd_sets
+    del wkv_sets, ssd_sets
 
     def check_launches(tag, launches, rep, need):
         """`need` maps each kernel of the path to ("prefill" | "decode" |
@@ -1300,7 +1470,7 @@ def main() -> int:
             "max_abs_err_by_route": {k: v for k, v in errs.items()
                                      if " " in k} or None,
             "ms": t["ms"], "kernel_ms": t["ms"], "eager_ms": t["eager_ms"],
-            "timing": "ms: device time, CUDA graph over 24-32 layers' "
+            "timing": "ms: device time, CUDA graph over 24-150 layers' "
                       "inputs; eager_ms: host-dispatched calls",
             "routes": t.get("routes"),
             "routes_by_path": {p: n["routes"][name] for p, n in paths.items()

@@ -13,13 +13,13 @@
 
 Each wrapper runs its plain version (kernels/ref.py) on a CPU tensor and
 launches its kernel on a CUDA tensor, counting launches in LAUNCHES.
-grouped_matmul and flash_attention_fwd have routes, picked before the
-launch by their module's `_route` from dtype, shape, strides and alignment
-and counted in ROUTES: bf16 takes tensor-core tiles (mma.sync; "tc",
-"tc_decode", "tc_prefill") where the operands' rows are 16-byte aligned,
-else f32-FMA tiles ("simt_bf16"); float32 always takes the f32-FMA tiles
-("simt_f32"). Nothing is compiled at import: kernels/_build.py builds at
-first use.
+grouped_matmul, flash_attention_fwd, flash_decode and flash_decode_paged
+have routes, picked before the launch by their module's `_route` from
+dtype, shape, strides and alignment and counted in ROUTES: bf16 takes
+tensor-core tiles (mma.sync / wgmma; "tc", "tc_decode", "tc_prefill") where
+the operands' rows are 16-byte aligned, else f32-FMA tiles ("simt_bf16");
+float32 always takes the f32-FMA tiles ("simt_f32"). Nothing is compiled at
+import: kernels/_build.py builds at first use.
 """
 from repro_torch.kernels._build import (LAUNCHES, ROUTES, build_all,
                                         reset_launches)

@@ -1,6 +1,7 @@
 // Tensor-core building blocks of the bf16 routes (moe_gmm.cu,
-// flash_attention.cu): 16-byte cp.async copies global -> shared with
-// zero-fill, ldmatrix fragment loads from shared memory, the
+// flash_attention.cu, flash_decode.cu): 16-byte cp.async copies global ->
+// shared with zero-fill, ldmatrix fragment loads from shared memory, the
+// movmatrix register transpose, the
 // mma.sync.m16n8k16 bf16 x bf16 -> f32 product, Hopper's warpgroup
 // wgmma.m64n160k16 with its shared-memory descriptors, mbarriers and TMA.
 //
@@ -64,6 +65,15 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the transpose of an 8x8 b16 matrix held one register a lane (row lane / 4,
+// cols 2 (lane % 4)..+1): the lane gets the same place of the transpose, so
+// an m16n8 accumulator tile (rows on M) becomes a B fragment (rows on K)
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 
 // two floats -> one register of two bf16 (lo in the low half), rounded to

@@ -1,6 +1,6 @@
 """One-token GQA decode attention: the wrappers of csrc/flash_decode.cu.
 
-Two entry points share the kernel's inner loop (as `flash_decode` and
+Two entry points share the kernel body (as `flash_decode` and
 `flash_decode_paged` of src/repro/kernels/flash_decode.py share theirs):
 
   flash_decode        contiguous K/V [B, KV, S, hd], any strides with hd
@@ -11,13 +11,26 @@ Two entry points share the kernel's inner loop (as `flash_decode` and
                       tail is masked, nothing is padded.
   flash_decode_paged  the serve pool [groups, num_pages + 1, page_size, KV,
                       hd] walked through the int32 block table inside the
-                      kernel (-1 = unmapped: skipped), per-row lengths, group
-                      `layer`. fp8 e4m3 pools are widened in the kernel.
+                      kernel (-1 = unmapped: never read), per-row lengths,
+                      group `layer`. fp8 e4m3 pools are widened in the kernel.
 
 Both return [B, H, hd] in q's dtype; a row with length 0 returns zeros.
 On a CPU tensor each runs its plain version (kernels/ref.py); on a CUDA
-tensor it launches the kernel or raises. See csrc/flash_decode.cu for what
-bounds the kernel on the H100 and what its design does about it.
+tensor it launches the kernel of one route or raises. `_route` picks the
+route from dtype, head dim, strides and alignment:
+
+  tc         bf16 q, a bf16 or fp8 cache at hd 16 / 32 / 64 / 128 with
+             16-byte aligned rows: the GQA group on mma.sync tensor-core
+             tiles, P kept in registers as bf16
+  simt_bf16  other bf16 (hd 256, unaligned rows): f32-FMA
+  simt_f32   float32: f32-FMA, so f32 stays true f32
+
+Every route may split each row's positions across blocks (`_splits`, from
+static shapes and the route only) and then merges the splits' partial
+softmax states inside the same launch. `_build.ROUTES[name]` counts the
+launches of each route.
+See csrc/flash_decode.cu for what bounds the kernel on the H100 and what
+its design does about it.
 """
 from __future__ import annotations
 
@@ -27,7 +40,48 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+TC_HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 8
+TILE = 16              # positions of a tensor-core tile; a chunk is a multiple
+MIN_BLOCKS = 2 * 132   # two blocks on each of the H100 SXM's 132 SMs
+MAX_SPLITS = 64        # csrc/flash_decode.cu:MAX_SPLITS, the merge's bound
+# positions a block of the route keeps in flight (tc: 8 warps, each with a
+# 2-stage ring of 16-position tiles; simt: 4 warps of 4 positions): a chunk
+# is never shorter, as a split costs its merge more than walking these
+# (chip_smoke.py phase 2's split sweep)
+SPAN = {"tc": 256, "simt_bf16": 16, "simt_f32": 16}
+_ARGS = {"flash_decode": [_build.PTR] * 7 + [_build.INT] * 5
+         + [_build.I64] * 3 + [_build.INT] * 6 + [_build.PTR],
+         "flash_decode_paged": [_build.PTR] * 8 + [_build.INT] * 13
+         + [_build.PTR]}
+_TICKETS: dict = {}
+
+
+def _splits(B: int, KV: int, cap: int, route: str) -> tuple[int, int]:
+    """(splits, chunk): each (row, kv head) pair's positions [0, cap) go to
+    `splits` blocks of `chunk` positions (a multiple of TILE, at least the
+    route's SPAN), enough that B * KV * splits reaches MIN_BLOCKS where the
+    capacity allows. A pure function of static shapes and the route: the
+    lengths live on the device, and reading them here would stall the
+    host-bound decode step and break CUDA-graph capture."""
+    want = min(MAX_SPLITS, -(-MIN_BLOCKS // max(1, B * KV)))
+    tiles = max(1, -(-cap // TILE))
+    chunk = TILE * min(tiles, max(SPAN[route] // TILE,
+                                  (cap + TILE * want // 2) // (TILE * want),
+                                  -(-cap // (TILE * MAX_SPLITS))))
+    return -(-tiles * TILE // chunk), chunk
+
+
+def _route(q1, k, v) -> str:
+    """The route a CUDA launch over q1 and the cache (k, v: the view or the
+    pools) takes: a pure function of dtype, head dim, strides and alignment
+    (the CPU tests call it on CPU tensors)."""
+    if q1.dtype == torch.float32:
+        return _build.simt_route(q1.dtype)
+    if q1.shape[-1] in TC_HEAD_DIMS and all(_build.vec16_ok(t)
+                                            for t in (q1, k, v)):
+        return "tc"
+    return "simt_bf16"
 
 
 def _check_common(q1, k, v, name):
@@ -45,9 +99,11 @@ def _check_common(q1, k, v, name):
     return H, KV, hd
 
 
-def _check_device(q1, tensors, name):
+def _check_device(q1, KV, tensors, name):
     """The kernel's own limits; raises on what it does not take."""
     H, hd = q1.shape[1], q1.shape[2]
+    if H // KV > MAX_GROUP:
+        raise ValueError(f"{name}: GQA group {H // KV} > {MAX_GROUP}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
     kv_dt = tensors[0].dtype
@@ -61,87 +117,104 @@ def _check_device(q1, tensors, name):
                              f"got {t.device}")
 
 
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
+def _pick(q1, k, v, route, name):
+    """`_route`'s pick, or the forced `route` (for measurement: the SIMT
+    route of q1's dtype); any other route raises."""
+    picked = _route(q1, k, v)
+    if route is None or route == picked:
+        return picked
+    if route != _build.simt_route(q1.dtype):
+        raise ValueError(f"{name}: route {route!r} cannot take these "
+                         f"operands (their route is {picked!r})")
+    return route
 
 
-def _aligned(t, hd):
-    """Each lane loads max(1, hd/32) elements as one vector of up to 16 bytes:
-    the base and every row start must sit on that vector's size."""
-    vb = min(16, max(1, hd // 32) * t.element_size())
-    return t.data_ptr() % vb == 0 and all(
-        s * t.element_size() % vb == 0 for s in t.stride()[:-1])
-
-
-def flash_decode(q1, k, v, length, *, window=0):
-    """q1 [B, H, hd]; k, v [B, KV, S, hd] (strided, hd contiguous); length
-    a scalar or [B] int32. Returns [B, H, hd]."""
-    B, S = q1.shape[0], k.shape[2]
-    H, KV, hd = _check_common(q1, k, v, "flash_decode")
-    if q1.device.type == "cpu":
-        return kref.decode_ref(q1, k, v, length, window=window)
-    _check_device(q1, (k, v), "flash_decode")
-    if H // KV > MAX_GROUP:
-        raise ValueError(f"flash_decode: GQA group {H // KV} > {MAX_GROUP}")
-    if k.stride() != v.stride() or k.stride(3) != 1:
-        raise ValueError(f"flash_decode: k/v need equal strides with hd "
-                         f"contiguous, got {k.stride()} / {v.stride()}")
-    q1 = q1.contiguous()
-    if not all(_aligned(t, hd) for t in (q1, k, v)):
-        raise ValueError("flash_decode: q1/k/v rows are not vector-aligned")
-    lens = kref._row_lengths(length, B, q1.device).contiguous()
+def _launch(name, q1, k, v, B, KV, cap, route, lens, extra, tail):
+    """Allocate the output and the split scratch, launch, count."""
+    H, hd = q1.shape[1], q1.shape[2]
     out = torch.empty_like(q1)
-    fn = _build.entry("flash_decode", "flash_decode_launch",
-                      [_build.PTR] * 5 + [_build.INT] * 5 + [_build.I64] * 3
-                      + [_build.INT] * 3 + [_build.PTR])
-    err = fn(q1.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lens.data_ptr(), B, H, KV, hd, S, k.stride(0), k.stride(1),
-             k.stride(2), int(window), _build.dtype_code(q1.dtype),
-             _build.dtype_code(k.dtype), _stream())
-    _build.check(_build.load("flash_decode"), err, "flash_decode")
-    _build.count("flash_decode")
+    if out.numel() == 0:
+        return out
+    nsplit, chunk = _splits(B, KV, cap, route)
+    part = tickets = None
+    if nsplit > 1:
+        part = torch.empty(B * KV * nsplit * (H // KV) * (hd + 2),
+                           dtype=torch.float32, device=q1.device)
+        tickets = _tickets(B * KV, q1.device)
+    fn = _build.entry("flash_decode", f"{name}_launch", _ARGS[name])
+    err = fn(q1.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *extra,
+             lens.data_ptr(), None if part is None else part.data_ptr(),
+             None if tickets is None else tickets.data_ptr(), B, H, KV, hd,
+             *tail, nsplit, chunk, _build.dtype_code(q1.dtype),
+             _build.dtype_code(k.dtype), int(route == "tc"),
+             torch.cuda.current_stream().cuda_stream)
+    _build.check(_build.load("flash_decode"), err, name)
+    _build.count(name, route)
     return out
 
 
-def flash_decode_paged(q1, k_pool, v_pool, block_tab, lengths, *, layer=0):
+def _tickets(n, device):
+    """The split merge's counters, one per (row, kv head): zeros made once
+    per device (grown when a launch needs more) and left at zero by every
+    launch, whose last split of a pair takes the ticket that wraps its
+    counter back. Launches on one stream run one after the other, so they
+    share it."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = _TICKETS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
+    return t
+
+
+def flash_decode(q1, k, v, length, *, window=0, route=None):
+    """q1 [B, H, hd]; k, v [B, KV, S, hd] (strided, hd contiguous); length
+    a scalar or [B] int32. Returns [B, H, hd]. `route` (for measurement)
+    forces the SIMT route of q1's dtype instead of `_route`'s pick."""
+    name = "flash_decode"
+    B, S = q1.shape[0], k.shape[2]
+    H, KV, hd = _check_common(q1, k, v, name)
+    if q1.device.type == "cpu":
+        return kref.decode_ref(q1, k, v, length, window=window)
+    _check_device(q1, KV, (k, v), name)
+    if k.stride() != v.stride() or k.stride(3) != 1:
+        raise ValueError(f"{name}: k/v need equal strides with hd "
+                         f"contiguous, got {k.stride()} / {v.stride()}")
+    q1 = q1.contiguous()
+    route = _pick(q1, k, v, route, name)
+    lens = kref._row_lengths(length, B, q1.device).contiguous()
+    return _launch(name, q1, k, v, B, KV, S, route, lens, (),
+                   (S, *k.stride()[:3], int(window)))
+
+
+def flash_decode_paged(q1, k_pool, v_pool, block_tab, lengths, *, layer=0,
+                       route=None):
     """q1 [B, H, hd]; pools [groups, num_pages + 1, page_size, KV, hd]
     (last page = trash); block_tab [B, pages_per_slot] int32, -1 =
     unmapped; lengths scalar or [B] int32; layer the group to read (an
-    int). Returns [B, H, hd]."""
+    int). Returns [B, H, hd]. `route` as in flash_decode."""
+    name = "flash_decode_paged"
     B = q1.shape[0]
-    H, KV, hd = _check_common(q1, k_pool, v_pool, "flash_decode_paged")
+    H, KV, hd = _check_common(q1, k_pool, v_pool, name)
     groups, P1, ps = k_pool.shape[:3]
     if not 0 <= int(layer) < groups:
-        raise ValueError(f"flash_decode_paged: layer {layer} outside the "
-                         f"pool's {groups} groups")
+        raise ValueError(f"{name}: layer {layer} outside the pool's {groups} "
+                         f"groups")
     if block_tab.shape[0] != B:
-        raise ValueError(f"flash_decode_paged: block_tab has "
-                         f"{block_tab.shape[0]} rows for a batch of {B}")
+        raise ValueError(f"{name}: block_tab has {block_tab.shape[0]} rows "
+                         f"for a batch of {B}")
     if q1.device.type == "cpu":
         return kref.decode_paged_ref(q1, k_pool, v_pool, block_tab, lengths,
                                      layer=layer)
-    _check_device(q1, (k_pool, v_pool, block_tab), "flash_decode_paged")
-    if H // KV > MAX_GROUP:
-        raise ValueError(f"flash_decode_paged: GQA group {H // KV} > "
-                         f"{MAX_GROUP}")
+    _check_device(q1, KV, (k_pool, v_pool, block_tab), name)
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
-        raise ValueError("flash_decode_paged: the pools must be contiguous")
+        raise ValueError(f"{name}: the pools must be contiguous")
     if block_tab.dtype != torch.int32:
-        raise ValueError(f"flash_decode_paged: block_tab must be int32, got "
+        raise ValueError(f"{name}: block_tab must be int32, got "
                          f"{block_tab.dtype}")
     q1 = q1.contiguous()
-    if not all(_aligned(t, hd) for t in (q1, k_pool, v_pool)):
-        raise ValueError("flash_decode_paged: q1/pool rows are not "
-                         "vector-aligned")
+    route = _pick(q1, k_pool, v_pool, route, name)
     tab = block_tab.contiguous()
     lens = kref._row_lengths(lengths, B, q1.device).contiguous()
-    out = torch.empty_like(q1)
-    fn = _build.entry("flash_decode", "flash_decode_paged_launch",
-                      [_build.PTR] * 6 + [_build.INT] * 10 + [_build.PTR])
-    err = fn(q1.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             out.data_ptr(), tab.data_ptr(), lens.data_ptr(), B, H, KV, hd,
-             P1, ps, tab.shape[1], int(layer), _build.dtype_code(q1.dtype),
-             _build.dtype_code(k_pool.dtype), _stream())
-    _build.check(_build.load("flash_decode"), err, "flash_decode_paged")
-    _build.count("flash_decode_paged")
-    return out
+    npg = tab.shape[1]
+    return _launch(name, q1, k_pool, v_pool, B, KV, npg * ps, route, lens,
+                   (tab.data_ptr(),), (P1, ps, npg, int(layer)))

@@ -22,6 +22,7 @@ from repro_torch.api import Engine, get_preset
 from repro_torch.api.serving import Request, Scheduler
 from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import moe_gmm
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -77,23 +78,106 @@ def test_kernels_match_plain_versions(card, dtype, hd, H, KV):
     q1 = rnd(4, H, hd)
     cache = rnd(4, 77, KV, hd).transpose(1, 2)
     lens = torch.tensor([0, 1, 40, 77], dtype=torch.int32, device=card)
+    route = "tc" if dtype == torch.bfloat16 else "simt_f32"
     for window in (0, 30):
+        reset_launches()
         out = flash_decode(q1, cache, cache, lens, window=window)
         torch.testing.assert_close(
             out.float(), tref.decode_ref(q1, cache, cache, lens,
                                          window=window).float(),
             **_tol(dtype))
         assert torch.all(out[0] == 0)
+        assert _ran("flash_decode") == route
     tab = torch.tensor([[-1] * 5, [3, -1, -1, -1, -1], [4, 7, 9, -1, -1],
                         [0, 1, 2, 5, 6]], dtype=torch.int32, device=card)
     for pool_dt in (dtype, torch.float8_e4m3fn):
         pool = rnd(2, 21, 16, KV, hd, d=pool_dt)
+        reset_launches()
         out = flash_decode_paged(q1, pool, pool, tab, lens, layer=1)
         torch.testing.assert_close(
             out.float(), tref.decode_paged_ref(q1, pool, pool, tab, lens,
                                                layer=1).float(),
             **_tol(dtype))
         assert torch.all(out[0] == 0)
+        assert _ran("flash_decode_paged") == route
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 2, 5, 8])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+def test_flash_decode_split_sweep(card, dtype, G, hd):
+    """Both decode entries across the split edges against decode_ref /
+    decode_paged_ref: 12 rows (2 kv heads, G query heads each) at lengths
+    0, 1, 15, 16, 17, chunk - 1, chunk, chunk + 1 and the capacity (the
+    contiguous cache of 700 is cut into chunks of 256 on the tensor-core
+    route and of 64 on the SIMT ones, the pools of 384 into chunks of 256
+    and 32); window 0 and 40 (mid-chunk for the long rows); pages of 4,
+    16 and 32 scattered out of order, those past each row's length
+    unmapped, pools of q's dtype and fp8. bf16 runs on its
+    tensor-core route (hd <= 128; hd 256 on simt_bf16), again forced onto
+    simt_bf16, and with the cache at an odd element offset (simt_bf16,
+    element loads); f32 on simt_f32. Each launch's route is asserted, and
+    length-0 rows are exact zeros."""
+    g = torch.Generator(device=card).manual_seed(hd * 10 + G)
+    B, KV, S, cap = 12, 2, 700, 384
+    H = KV * G
+
+    def rnd(*s, d=dtype):
+        return torch.randn(s, generator=g, device=card).to(d)
+
+    bf = dtype == torch.bfloat16
+    picked = ("tc" if hd in fd.TC_HEAD_DIMS else "simt_bf16") if bf \
+        else "simt_f32"
+    forced = (None, "simt_bf16") if bf else (None,)
+    q1 = rnd(B, H, hd)
+
+    def check(name, fn, want, zero_rows, route):
+        reset_launches()
+        out = fn(route)
+        torch.cuda.synchronize()
+        ran = _ran(name)
+        assert out.dtype == dtype and out.shape == q1.shape
+        torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
+        assert torch.all(out[zero_rows] == 0)
+        return ran
+
+    assert fd._splits(B, KV, S, "tc") == (3, 256)
+    assert fd._splits(B, KV, S, "simt_f32") == (11, 64)
+    assert fd._splits(B, KV, cap, "tc") == (2, 256)
+    assert fd._splits(B, KV, cap, "simt_f32") == (12, 32)
+    lens = torch.tensor([0, 1, 15, 16, 17, 63, 64, 65, 255, 256, 257, S],
+                        dtype=torch.int32, device=card)
+    buf = rnd(1 + 2 * B * S * KV * hd)
+    cache = buf[:-1].view(2, B, S, KV, hd)
+    odd = buf[1:].view(2, B, S, KV, hd)
+    for window in (0, 40):
+        for kv in (cache, odd) if bf else (cache,):
+            k, v = kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+            want = tref.decode_ref(q1, k, v, lens, window=window)
+            for route in forced:
+                ran = check("flash_decode", lambda r: flash_decode(
+                    q1, k, v, lens, window=window, route=r), want, 0, route)
+                assert ran == (route or (picked if kv is cache
+                                         else "simt_bf16"))
+    plens = torch.tensor([0, 1, 15, 16, 17, 31, 32, 33, 255, 256, 257, cap],
+                         dtype=torch.int32, device=card)
+    for ps in (4, 16, 32):
+        npg = cap // ps
+        perm = torch.randperm(B * npg, generator=g, device=card)
+        tab = perm.to(torch.int32).reshape(B, npg)
+        live = torch.arange(npg, device=card)[None] * ps < plens[:, None]
+        tab = torch.where(live, tab, -1).to(torch.int32)
+        for pool_dt in (dtype, torch.float8_e4m3fn):
+            kp = rnd(2, B * npg + 1, ps, KV, hd, d=pool_dt)
+            vp = rnd(2, B * npg + 1, ps, KV, hd, d=pool_dt)
+            want = tref.decode_paged_ref(q1, kp, vp, tab, plens, layer=1)
+            for route in forced:
+                ran = check("flash_decode_paged", lambda r: flash_decode_paged(
+                    q1, kp, vp, tab, plens, layer=1, route=r), want, 0, route)
+                assert ran == (route or picked) == (route or fd._route(
+                    q1, kp, vp))
+    with pytest.raises(ValueError, match="route"):
+        flash_decode(q1, k, v, lens, route="tc" if not bf else "simt_f32")
 
 
 @pytest.mark.parametrize("B,H,S,hd", [(2, 3, 100, 64), (3, 2, 17, 64),

@@ -1,20 +1,23 @@
-"""The routes of the two kernels that have more than one, on the CPU.
+"""The routes of the kernels that have more than one, on the CPU.
 
-grouped_matmul and flash_attention_fwd pick a route before each CUDA
-launch (kernels/moe_gmm.py:_route, kernels/flash_attention.py:_route): a
-pure function of dtype, shape, strides and alignment, so these tests call it
-on CPU tensors. bf16 operands whose rows are 16-byte aligned take the
+grouped_matmul, flash_attention_fwd, flash_decode and flash_decode_paged
+pick a route before each CUDA launch (kernels/moe_gmm.py:_route,
+kernels/flash_attention.py:_route, kernels/flash_decode.py:_route): a pure
+function of dtype, shape, strides and alignment, so these tests call it on
+CPU tensors. bf16 operands whose rows are 16-byte aligned take the
 tensor-core routes (the serve path's always are); d or f not a multiple of
 8, an odd element offset, a stride off the 16-byte grid, head dim 256 or
 float32 take the f32-FMA (SIMT) routes. The card tests
 (tests/test_torch_cuda.py) assert the same routes on the launches they make.
+The decode kernels also split each row's positions across blocks by
+kernels/flash_decode.py:_splits, a pure function of static shapes.
 
 The route sweeps' shapes (C 1..321 across the decode / prefill seam, S 1,
-63, 65, 100 across the 64-row tile edge) also go through the port's plain
-versions (what the wrappers run on the CPU, and what the card holds the
-kernels to) and the Pallas kernels in interpret mode, with the same inputs
-made with numpy: 2e-5 in f32 (sums in another order), 5e-2 in bf16 (one
-rounding of the output).
+63, 65, 100 across the 64-row tile edge, decode lengths at the split
+edges) also go through the port's plain versions (what the wrappers run on
+the CPU, and what the card holds the kernels to) and the Pallas kernels in
+interpret mode, with the same inputs made with numpy: 2e-5 in f32 (sums in
+another order), 5e-2 in bf16 (one rounding of the output).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,9 +25,12 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention import flash_attention_fwd as j_attn
+from repro.kernels.flash_decode import flash_decode as j_decode
+from repro.kernels.flash_decode import flash_decode_paged as j_paged
 from repro.kernels.moe_gmm import grouped_matmul as j_gmm
 from repro_torch.kernels import LAUNCHES, ROUTES, _build, reset_launches
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import moe_gmm
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -163,15 +169,26 @@ def test_cpu_wrappers_launch_nothing_and_count_no_route():
     moe_gmm.grouped_matmul(x, w)
     q = torch.randn(1, 2, 65, 32).to(BF16)
     fa.flash_attention_fwd(q, q[:, :1], q[:, :1])
+    q1 = torch.randn(2, 4, 32).to(BF16)
+    cache = torch.randn(2, 2, 40, 32).to(BF16)
+    fd.flash_decode(q1, cache, cache, 17)
+    pool = torch.randn(1, 5, 4, 2, 32).to(BF16)
+    tab = torch.tensor([[0, 1], [2, -1]], dtype=torch.int32)
+    fd.flash_decode_paged(q1, pool, pool, tab, torch.tensor(
+        [7, 3], dtype=torch.int32))
     assert all(n == 0 for n in LAUNCHES.values())
     assert all(n == 0 for r in ROUTES.values() for n in r.values())
     _build.count("grouped_matmul", "tc_prefill")
     _build.count("flash_attention_fwd", "tc")
+    _build.count("flash_decode", "simt_f32")
+    _build.count("flash_decode_paged", "tc")
     assert LAUNCHES["grouped_matmul"] == ROUTES["grouped_matmul"][
         "tc_prefill"] == 1
+    assert LAUNCHES["flash_decode_paged"] == ROUTES["flash_decode_paged"][
+        "tc"] == 1
     reset_launches()
     assert all(n == 0 for r in ROUTES.values() for n in r.values())
-    assert LAUNCHES["flash_attention_fwd"] == 0
+    assert LAUNCHES["flash_attention_fwd"] == LAUNCHES["flash_decode"] == 0
 
 
 @pytest.mark.parametrize("C", [1, 8, 16, 17, 100, 321])
@@ -215,3 +232,159 @@ def test_attention_route_sweep_matches_pallas(S, window):
     assert got.dtype == BF16 and got.shape == tq.shape
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **_tol("bfloat16"))
+
+
+def _decode_operands(case):
+    """(q1, k, v) for a named decode case: the contiguous cache as the
+    Engine hands it over (the [B, KV, S, hd] view of a [B, S, KV, hd]
+    group), or the serve pool [groups, pages + 1, page size, KV, hd]."""
+    def cache(B, S, H, KV, hd, dtype=BF16):
+        return (torch.zeros(B, H, hd, dtype=dtype),
+                *(torch.zeros(2, B, S, KV, hd, dtype=dtype)[1].transpose(1, 2)
+                  for _ in range(2)))
+
+    def pool(B, H, KV, hd, dtype=BF16, pool_dtype=None):
+        p = torch.zeros(3, 49, 16, KV, hd, dtype=pool_dtype or dtype)
+        return torch.zeros(B, H, hd, dtype=dtype), p, p
+    if case == "qwen3 16/8 x 128 cache":
+        return cache(8, 160, 16, 8, 128)
+    if case == "qwen3 16/8 x 128 pool":
+        return pool(8, 16, 8, 128)
+    if case == "granite 16/8 x 64 cache":
+        return cache(8, 160, 16, 8, 64)
+    if case == "granite 16/8 x 64 pool":
+        return pool(8, 16, 8, 64)
+    if case == "hymba 25/5 x 64 cache, S 1132":
+        return cache(4, 1132, 25, 5, 64)
+    if case == "hymba 25/5 x 64 pool":
+        return pool(8, 25, 5, 64)
+    if case == "fp8 pool":
+        return pool(8, 16, 8, 128, pool_dtype=torch.float8_e4m3fn)
+    if case == "hd 16 pool":
+        return pool(2, 4, 2, 16)
+    if case == "hd 32 cache":
+        return cache(2, 40, 4, 2, 32)
+    if case == "hd 256 cache":
+        return cache(2, 40, 4, 2, 256)
+    if case == "hd 256 pool":
+        return pool(2, 4, 2, 256)
+    if case == "odd offset of the cache":
+        q1 = torch.zeros(2, 4, 64, dtype=BF16)
+        k = _offset((2, 40, 2, 64), BF16).transpose(1, 2)
+        return q1, k, k
+    if case == "odd offset of q1":
+        _, k, v = pool(2, 4, 2, 64)
+        return _offset((2, 4, 64), BF16), k, v
+    if case == "float32 cache":
+        return cache(8, 160, 16, 8, 128, F32)
+    if case == "float32 q1, fp8 pool":
+        return pool(8, 16, 8, 128, F32, torch.float8_e4m3fn)
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("qwen3 16/8 x 128 cache", "tc"), ("qwen3 16/8 x 128 pool", "tc"),
+    ("granite 16/8 x 64 cache", "tc"), ("granite 16/8 x 64 pool", "tc"),
+    ("hymba 25/5 x 64 cache, S 1132", "tc"), ("hymba 25/5 x 64 pool", "tc"),
+    ("fp8 pool", "tc"), ("hd 16 pool", "tc"), ("hd 32 cache", "tc"),
+    # tc takes hd 16 / 32 / 64 / 128 only: hd 256 takes the SIMT route
+    ("hd 256 cache", "simt_bf16"), ("hd 256 pool", "simt_bf16"),
+    ("odd offset of the cache", "simt_bf16"),
+    ("odd offset of q1", "simt_bf16"),
+    ("float32 cache", "simt_f32"), ("float32 q1, fp8 pool", "simt_f32"),
+])
+def test_flash_decode_route(case, want):
+    q1, k, v = _decode_operands(case)
+    assert fd._route(q1, k, v) == want
+    name = "flash_decode_paged" if "pool" in case else "flash_decode"
+    assert want in ROUTES[name]
+
+
+@pytest.mark.parametrize("B,KV,cap,route,want", [
+    # the serve pools and qwen3's generate cache: one block walks a row
+    (8, 8, 160, "tc", (1, 160)), (8, 5, 160, "tc", (1, 160)),
+    (4, 5, 1132, "tc", (5, 256)),       # hymba's generate cache
+    (9, 2, 700, "tc", (3, 256)),        # the card tests' sweep
+    (8, 8, 16, "tc", (1, 16)),          # a 16-position cache: one split
+    (1, 1, 8192, "tc", (32, 256)),      # one pair: chunks of the span
+    (1, 1, 65536, "tc", (64, 1024)),    # ... and at most MAX_SPLITS
+    (64, 8, 4096, "tc", (1, 4096)),     # 512 pairs fill the card unsplit
+    (8, 8, 0, "tc", (1, 16)),           # an empty cache: zeros, one block
+    # the SIMT routes keep 16 positions in flight: short chunks, two
+    # blocks an SM
+    (8, 8, 160, "simt_f32", (5, 32)), (8, 5, 160, "simt_bf16", (10, 16)),
+    (4, 5, 1132, "simt_f32", (15, 80)), (8, 8, 16, "simt_f32", (1, 16)),
+])
+def test_decode_splits(B, KV, cap, route, want):
+    """The split of each row's positions: chunks a multiple of 16, at least
+    the route's span (or the whole capacity), covering the capacity, at
+    most MAX_SPLITS of them, and enough for two blocks per SM where the
+    span leaves room (the SIMT rows); from static shapes and the route
+    alone."""
+    splits, chunk = fd._splits(B, KV, cap, route)
+    assert (splits, chunk) == want
+    assert chunk % fd.TILE == 0 and splits * chunk >= cap
+    assert chunk >= min(fd.SPAN[route], cap)
+    assert splits <= fd.MAX_SPLITS and (splits == 1 or
+                                        (splits - 1) * chunk < cap)
+    if route != "tc" and cap >= 160:
+        assert B * KV * splits >= fd.MIN_BLOCKS
+
+
+def _decode_pair(shape, rng):
+    """The same f32 normal draws as a jnp array and a CPU torch tensor."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    return jnp.asarray(x), torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("window", [0, 100])
+def test_decode_split_edges_match_pallas(window):
+    """Lengths at the split edges of hymba's generate cache (B 8, KV 5, S
+    1132: chunks of 256 on the tensor-core route, of 160 on the SIMT
+    ones): 15 / 16 / 17 across the first tile, chunk - 1 / chunk / chunk +
+    1 of both, 1131 and the full 1132; window 100 starts mid-chunk for the
+    long rows. The contiguous wrapper on the CPU (its plain version)
+    against the Pallas flash_decode in interpret mode, f32."""
+    B, H, KV, S, hd = 12, 25, 5, 1132, 16
+    assert fd._splits(8, KV, S, "tc") == (5, 256)
+    assert fd._splits(8, KV, S, "simt_f32") == (8, 160)
+    lens = [15, 16, 17, 159, 160, 161, 255, 256, 257, 600, S - 1, S]
+    rng = np.random.default_rng(window + 1)
+    jq, tq = _decode_pair((B, H, hd), rng)
+    jk, tk = _decode_pair((B, KV, S, hd), rng)
+    jv, tv = _decode_pair((B, KV, S, hd), rng)
+    want = j_decode(jq, jk, jv, jnp.asarray(lens, jnp.int32), window=window,
+                    block_k=128, interpret=True)
+    got = fd.flash_decode(tq, tk, tv, torch.tensor(lens, dtype=torch.int32),
+                          window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               **_tol("float32"))
+
+
+@pytest.mark.parametrize("ps", [4, 16])
+def test_paged_decode_split_edges_match_pallas(ps):
+    """The paged wrapper at hymba's heads (25/5, G 5) with 16-position
+    chunks on the SIMT routes (B 8, KV 5; one chunk on the tensor-core
+    route): lengths 0, 15 / 16 / 17 across a chunk, 33, 47 and
+    the capacity, pages of 4 and 16 scattered out of order, pages past each
+    row's length unmapped; on the CPU (its plain version) against the
+    Pallas flash_decode_paged in interpret mode, f32."""
+    B, H, KV, hd, cap = 8, 25, 5, 16, 64
+    npg = cap // ps
+    assert fd._splits(B, KV, cap, "simt_f32") == (4, 16)
+    assert fd._splits(B, KV, cap, "tc") == (1, 64)
+    lens = [0, 15, 16, 17, 33, 47, 63, cap]
+    rng = np.random.default_rng(ps)
+    perm = rng.permutation(B * npg).reshape(B, npg)
+    tab = np.where(np.arange(npg)[None] * ps < np.asarray(lens)[:, None],
+                   perm, -1).astype(np.int32)
+    jq, tq = _decode_pair((B, H, hd), rng)
+    jk, tk = _decode_pair((2, B * npg + 1, ps, KV, hd), rng)
+    jv, tv = _decode_pair((2, B * npg + 1, ps, KV, hd), rng)
+    want = j_paged(jq, jk, jv, jnp.asarray(tab), jnp.asarray(lens, jnp.int32),
+                   layer=1, interpret=True)
+    got = fd.flash_decode_paged(tq, tk, tv, torch.from_numpy(tab),
+                                torch.tensor(lens, dtype=torch.int32), layer=1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               **_tol("float32"))
+    assert np.all(got[0].numpy() == 0.0)
