@@ -6,9 +6,11 @@
 Phases (each prints a line; any failure exits nonzero):
   1. device and build: the card's name and power limit (nvidia-smi), then
      the Hopper kernels compiled from src/repro_torch/kernels/csrc, with the
-     tensor-core kernels' registers and spills (nvcc -Xptxas -v) and their
-     dynamic shared memory, and the decode SIMT kernels' register range and
-     spills;
+     tensor-core and tile kernels' registers and spills (nvcc -Xptxas -v)
+     and their dynamic shared memory, the decode SIMT kernels' register
+     range and spills, and machine-instruction counts (cuobjdump -sass) of
+     the decode tc kernels and of both routes of the WKV6 and SSD kernels
+     (FFMA against shared loads: what their designs rest on);
   2. kernel parity: each attention kernel against its plain PyTorch version
      at the qwen3-0.6b attention shapes (hd 128, 16 query / 8 kv heads), at
      the hymba-1.5b ones (hd 64, 25 query / 5 kv heads, G 5) and at the
@@ -19,10 +21,10 @@ Phases (each prints a line; any failure exits nonzero):
      edges, unmapped pages, an fp8 pool, a window; the chunked WKV6 kernel
      against the sequential recurrence at the rwkv6-3b shapes (40 heads of
      64, f32, y and the final state, S 128 / 100 / 17 / 1, lens-padded row
-     tails); the chunked
-     SSD kernel against its sequential recurrence at the hymba-1.5b shapes
-     (50 heads of 64, state 16, f32, y and the final state, S 128 / 100 /
-     1100 / 17 / 1, strided inputs, lens-padded row tails); the grouped
+     tails) and the chunked SSD kernel against its sequential recurrence at
+     the hymba-1.5b shapes (50 heads of 64, state 16, f32, y and the final
+     state, S 128 / 100 / 1100 / 17 / 1, strided inputs, lens-padded row
+     tails), each through its tile and its simt route; the grouped
      matmul against its plain version at granite-moe-1b-a400m's expert GEMMs
      (E 32, C 8 in decode and 320 in prefill, [d 1024 -> 1024] for w_in and
      [512 -> 1024] for w_out) and a ragged C 13 / d 72 / f 40, bf16 and
@@ -31,15 +33,19 @@ Phases (each prints a line; any failure exits nonzero):
      kernel, plain and library times (kernels and library calls as device
      time, a CUDA graph replayed over 24-150 layers' inputs, and eager; for
      WKV6 and SSD also the chunked torch scans that the plain serve path
-     runs); the kernels with routes per route (tc, simt_bf16, simt_f32):
+     runs); WKV6 and SSD per route (tile against simt, in turns: tile,
+     simt, simt, tile) at their serve shapes and SSD also at hymba's
+     generate shape [4, 50, 1100, 64]; the kernels with routes per route
+     (tc, simt_bf16, simt_f32):
      attention at qwen3's, granite's and hymba's heads and at hymba's S 1100
      prefill, paged decode at the same three head shapes, contiguous decode
      at qwen3's [8, 160] and hymba's [4, 1132] generate caches;
   3. qwen3-0.6b at full width (28 layers, random weights from a seeded
      generator, bf16) served through the continuous-batching Scheduler over
      a 48-page pool, with the kernel launch counts of that run asserted
-     (here and in every bf16 phase below: exact, and every launch of a
-     kernel with routes on its tensor-core route), then
+     (here and in every bf16 phase below: exact, and every launch on its
+     kernel's fast route: tensor-core for attention, decode and the
+     grouped matmul, tile for WKV6 and SSD), then
      a short profiled run for the device's busy and idle share;
   4. the same requests in f32 through the kernels and through the plain
      path: the first prefill's logits agree and the greedy streams match
@@ -51,7 +57,7 @@ Phases (each prints a line; any failure exits nonzero):
      the Scheduler with no page pool, rwkv6_chunked launched by every layer
      of every prefill group, then a profiled short run;
   7. rwkv6-3b's requests in f32, kernel against the plain chunked scan, as
-     in phase 4;
+     in phase 4, every rwkv6_chunked launch on its tile route;
   8. rwkv6-3b through Engine.generate (batch 8 x prompt 128 + 32), then a
      profiled short run;
   9. hymba-1.5b at full width (32 layers, 29 of them windowed at 1024, d
@@ -61,7 +67,8 @@ Phases (each prints a line; any failure exits nonzero):
      launched by every layer and flash_attention_fwd by every full layer of
      every prefill group, flash_decode_paged by every full layer of every
      decode step; then a profiled short run;
- 10. hymba-1.5b's requests in f32, kernels against the plain paths;
+ 10. hymba-1.5b's requests in f32, kernels against the plain paths, every
+     ssd_chunked launch on its tile route;
  11. hymba-1.5b through Engine.generate at batch 4 x prompt 1100 + 32: the
      1024-slot rings wrap in prefill and decode, the SSD kernel walks 17
      chunks and a tail; then a profiled short run;
@@ -136,10 +143,27 @@ DESIGN = {
     "flash_decode": "the flash_decode_paged body (splits, tc / simt "
                     "routes) over a strided contiguous cache, with the "
                     "optional window",
-    "rwkv6_chunked": "f32-FMA SIMT: one block per (row, head) walks chunks "
-                     "of 16 with the 64x64 state in shared memory",
-    "ssd_chunked": "f32-FMA SIMT: one block per (row, head) walks chunks of "
-                   "64 with the 16x64 state in shared memory",
+    "rwkv6_chunked": "f32 (route tile): one 128-thread block per (row, "
+                     "head, slice of 32 state columns) walks chunks of 16, "
+                     "each chunk's r/k/w rows and v slice landing by "
+                     "cp.async in a 2-stage ring while the one before "
+                     "computes; cumsum as a shuffle scan across lanes; "
+                     "scores, y = [r' | A] [S ; v] (K split over the 4 "
+                     "warps) and the state update on 4x4 register tiles "
+                     "fed by LDS.128, the slice's state in registers; "
+                     "unaligned rows (simt): one block per (row, head), the "
+                     "64x64 state in shared memory",
+    "ssd_chunked": "f32 (route tile): one 256-thread block per (row, head, "
+                   "slice of 32 state columns) walks chunks of 64, x/B/C/dt "
+                   "landing by cp.async in a 2-stage ring; C B^T on 4x4 "
+                   "register tiles once per chunk for the block's heads, "
+                   "turned into M = C B^T exp(cs_t - cs_s) dt_s (f64 cs) "
+                   "in shared memory; y = [M | exp(cs) C] [x ; h] on 4x4 "
+                   "register tiles fed by LDS.128, K split across warp "
+                   "pairs, the causal triangle skipped by 16-row band; the "
+                   "slice's state in registers; unaligned rows (simt): one "
+                   "block per (row, head), the 16x64 state in shared "
+                   "memory",
     "grouped_matmul": "bf16 C > 16 (tc_prefill): swapped (f on M, C on N) "
                       "wgmma.m64n160k16, 2 consumer warpgroups a 128x160 "
                       "tile, a producer warp's TMA copies into a 4-stage "
@@ -147,6 +171,8 @@ DESIGN = {
                       "(tc_decode): swapped mma.sync.m16n8k16 over "
                       "128-column weight tiles, 4-stage cp.async ring; f32 "
                       "or unaligned (simt): f32-FMA tiles"}
+# the kernels whose machine-instruction counts the kernels line carries
+SASS_TAG = {"rwkv6_chunked": "wkv6_", "ssd_chunked": "ssd_"}
 ROUTE_TOL = 1e-4                   # router logit K/K+1 margins counted as
                                    # near-ties in phase 13
 # The block matrices are drawn at the JAX init's std 0.02 and then scaled by
@@ -191,7 +217,8 @@ def profile_run(label, run):
         f"::{k}<" in n or f"::{k}(" in n for k in (
             "decode_tc_kernel", "decode_simt_kernel", "attn_tc_kernel",
             "attn_kernel", "gmm_kernel", "gmm_tc_decode", "gmm_tc_prefill",
-            "wkv6_kernel", "ssd_kernel"))}
+            "wkv6_kernel", "wkv6_tile_kernel", "ssd_kernel",
+            "ssd_tile_kernel"))}
     log("profile", f"{label} ({rep.decode_steps} decode steps, "
         f"{rep.prefill_calls} prefills) "
         f"under torch.profiler: wall {wall * 1e3:.1f} ms, device busy "
@@ -339,6 +366,27 @@ def main() -> int:
                                  ("HMMA", "LDSM", "MOVM", "LDGSTS")):
         log("build", f"flash_decode SASS: {kern}: " + ", ".join(
             f"{op} {n}" for op, n in ops.items()))
+    # the WKV6 and SSD tile kernels' registers, spills and shared memory, and
+    # both routes' machine instructions: FFMA against the shared loads (LDS
+    # counts every width, LDS.128 among them), the cp.async copies (LDGSTS),
+    # shuffles, barriers, exponentials and f64 adds
+    for lib_name in ("rwkv6_scan", "mamba_ssd"):
+        for kern, regs, spill in ptxas_entries(lib_name, "_tile_"):
+            log("build", f"{lib_name}: {kern}: {regs}; {spill}")
+    wkv_smem = _build.load("rwkv6_scan").rwkv6_tile_smem_bytes
+    ssd_smem = _build.load("mamba_ssd").ssd_tile_smem_bytes
+    for fn in (wkv_smem, ssd_smem):
+        fn.restype, fn.argtypes = _build.INT, []
+    log("build", f"dynamic shared memory a block: rwkv6_chunked tile "
+        f"{wkv_smem()} B, ssd_chunked tile {ssd_smem()} B")
+    scan_sass = {}
+    for lib_name, tag in (("rwkv6_scan", "wkv6_"), ("mamba_ssd", "ssd_")):
+        for kern, ops in sass_counts(lib_name, tag, (
+                "FFMA", "LDS.128", "LDS.64", "LDS", "STS", "LDGSTS", "SHFL",
+                "BAR", "MUFU.EX2", "DADD")):
+            scan_sass[kern] = ops
+            log("build", f"{lib_name} SASS: {kern}: " + ", ".join(
+                f"{op} {n}" for op, n in ops.items()))
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -471,17 +519,19 @@ def main() -> int:
     attention_parity_long(25, 5, 64, 4, 1100, 32)
     H, KV, hd = 16, 8, 128
 
-    def hold_recurrence(name, tol, S, got, want):
+    def hold_recurrence(name, tol, S, got, want, route=None):
         """A chunked kernel's (y, final state) against its sequential plain
-        version: |kernel - plain| <= tol + tol |plain| everywhere."""
+        version: |kernel - plain| <= tol + tol |plain| everywhere; `route`
+        names a forced route (its errors kept apart)."""
+        key = "float32" if route is None else f"float32 {route}"
         for what, a, b in zip(("y", "state"), got, want):
             e = err(a, b)
-            worst[name]["float32"] = max(worst[name]["float32"], e)
+            worst[name][key] = max(worst[name].get(key, 0.0), e)
             if not (torch.isfinite(a).all() and bool(
                     ((a - b).abs() <= tol + tol * b.abs()).all())):
                 raise AssertionError(
-                    f"{name} S {S} {what}: max |kernel - plain| = {e:.3e} "
-                    f"outside atol = rtol = {tol}")
+                    f"{name} S {S} {what} (route {route or 'tile'}): max "
+                    f"|kernel - plain| = {e:.3e} outside atol = rtol = {tol}")
 
     def row_lens(S):
         return torch.tensor([S, S - 1, S // 2, 1, S, 3, S // 3, 2],
@@ -507,10 +557,11 @@ def main() -> int:
         live = (torch.arange(S, device=dev)[None, :] < row_lens(S)[:, None])
         live = live[:, None, :, None]
         k, w = torch.where(live, k, 0.0), torch.where(live, w, 0.0)
-        got = rwkv6_chunked(r, k, v, w, u_r)
-        torch.cuda.synchronize()
-        hold_recurrence("rwkv6_chunked", RWKV_TOL, S, got,
-                        kref.rwkv6_ref(r, k, v, w, u_r))
+        want = kref.rwkv6_ref(r, k, v, w, u_r)
+        for route in (None, "simt"):
+            got = rwkv6_chunked(r, k, v, w, u_r, route=route)
+            torch.cuda.synchronize()
+            hold_recurrence("rwkv6_chunked", RWKV_TOL, S, got, want, route)
     # the chunked SSD kernel, f32 only, at the hymba-1.5b shapes (50 heads of
     # 64, state 16): S two full chunks of 64, a masked tail, the generate
     # phase's 1100 (17 chunks and a 12-row tail), a prime, one token; x and
@@ -534,10 +585,11 @@ def main() -> int:
         x, dt, Bm, Cm, _ = ssd_inputs(8, S)
         live = torch.arange(S, device=dev)[None, :] < row_lens(S)[:, None]
         dt = torch.where(live[:, None, :], dt, 0.0)
-        got = ssd_chunked(x, dt, Bm, Cm, a_s)
-        torch.cuda.synchronize()
-        hold_recurrence("ssd_chunked", SSD_TOL, S, got,
-                        kref.ssd_ref(x, dt, Bm, Cm, a_s))
+        want = kref.ssd_ref(x, dt, Bm, Cm, a_s)
+        for route in (None, "simt"):
+            got = ssd_chunked(x, dt, Bm, Cm, a_s, route=route)
+            torch.cuda.synchronize()
+            hold_recurrence("ssd_chunked", SSD_TOL, S, got, want, route)
     # the grouped matmul at granite-moe-1b-a400m's expert GEMMs: w_in as the
     # [E, d, G ff] view of [E, d, 2, 512], w_out [E, 512, d], C 8 (a decode
     # step of 8 slots) and 320 (a prefill group of 8 x 128 at top-8 of 32,
@@ -782,6 +834,27 @@ def main() -> int:
         cont_times["qwen3 16/8x128 [8,160]"],
         library="scaled_dot_product_attention(mask)",
         dtype="bfloat16", tolerance=TOL, by_shape=cont_times)
+    def in_turns(fn, sets):
+        """A chunked kernel's device time on its tile route (the pick) and
+        on the simt route, timed in turns (tile, simt, simt, tile) on the
+        same inputs: {route: mean ms}."""
+        def simt(*a):
+            return fn(*a, route="simt")
+        t = [time_ms(f, sets) for f in (fn, simt, simt, fn)]
+        return {"tile": (t[0] + t[3]) / 2, "simt": (t[1] + t[2]) / 2}
+
+    def scan_times(fn, plain, plain_scan, sets, shape, bnd):
+        """A chunked kernel's routes in turns, eager, plain and plain-scan
+        times over `sets`, its f32 bound."""
+        routes = in_turns(fn, sets)
+        return dict(
+            ms=routes["tile"], routes=routes,
+            eager_ms=time_ms(fn, sets, graph=False),
+            plain_ms=time_ms(plain, sets, graph=False),
+            plain_scan_ms=time_ms(plain_scan, sets, graph=False),
+            library_ms=None, library_eager_ms=None, shape=shape,
+            bound=bnd, bound_f32=bnd)
+
     # the WKV6 prefill at the rwkv6-3b serve shape: B 8, S 128 (the prompt
     # width), 40 heads of 64, f32; 32 layers' inputs (1.3 GB) cycled. The
     # plain version is the sequential recurrence the kernel is held against;
@@ -789,53 +862,57 @@ def main() -> int:
     B, S, C = 8, 128, 16
     wkv_sets = [(*wkv_inputs(B, S), u_r) for _ in range(N_RWKV_LAYERS)]
     elems = B * Hr * S * hdr
-    timing["rwkv6_chunked"] = dict(
-        ms=time_ms(rwkv6_chunked, wkv_sets),
-        eager_ms=time_ms(rwkv6_chunked, wkv_sets, graph=False),
-        plain_ms=time_ms(kref.rwkv6_ref, wkv_sets, graph=False),
-        plain_scan_ms=time_ms(lambda r, k, v, w, u: ssm.wkv6_chunked_scan(
+    # r, k, v, w read, y written, u read, the final state written; per
+    # chunk: scores and y's intra-chunk term (2 x 2C^2 hd), the inter-chunk
+    # term and the state update (2 x 2C hd^2)
+    timing["rwkv6_chunked"] = dict(scan_times(
+        rwkv6_chunked, kref.rwkv6_ref,
+        lambda r, k, v, w, u: ssm.wkv6_chunked_scan(
             *(a.transpose(1, 2) for a in (r, k, v, w)), u), wkv_sets,
-            graph=False),
-        library_ms=None,
+        f"B{B} S{S} H{Hr} hd{hdr} f32",
+        bound(4 * (5 * elems + Hr * hdr + B * Hr * hdr * hdr),
+              B * Hr * -(-S // C) * (4 * C * C * hdr + 4 * C * hdr * hdr),
+              "float32")),
         library="none (no single PyTorch call computes WKV6)",
-        dtype="float32", tolerance={"float32": RWKV_TOL},
-        shape=f"B{B} S{S} H{Hr} hd{hdr} f32",
-        # r, k, v, w read, y written, u read, the final state written;
-        # per chunk: scores and y's intra-chunk term (2 x 2C^2 hd), the
-        # inter-chunk term and the state update (2 x 2C hd^2)
-        bound=bound(4 * (5 * elems + Hr * hdr + B * Hr * hdr * hdr),
-                    B * Hr * -(-S // C) * (4 * C * C * hdr
-                                           + 4 * C * hdr * hdr),
-                    "float32"))
-    # the SSD prefill at the hymba-1.5b serve shape: B 8, S 128 (the prompt
-    # width), 50 heads of 64, state 16, f32, strided as the model hands
-    # them over; 32 layers' inputs (0.42 GB) cycled. The plain version is
-    # the sequential recurrence; the plain scan is the chunked torch scan
-    # kernel_backend="ref" serves.
-    B, S, C = 8, 128, 64
-    ssd_sets = [ssd_inputs(B, S)
-                for _ in range(ARCHS["hymba-1.5b"].num_layers)]
-    elems, nch, tri = B * Hs * S * Ps, -(-S // C), C * (C + 1) // 2
+        dtype="float32", tolerance={"float32": RWKV_TOL})
+    del wkv_sets
+
+    def ssd_bound(B, S):
+        """x, dt, B, C, a read, y and the final state written; per (row,
+        chunk of n rows) C B^T over the causal triangle (2 tri N), and per
+        (row, head, chunk) y's intra-chunk term over the triangle (2 tri
+        P), the inter-chunk term and the state update (2 x 2 n N P)."""
+        flops = 0
+        for t0 in range(0, S, 64):
+            n = min(64, S - t0)
+            tri = n * (n + 1) // 2
+            flops += B * 2 * tri * Ns + B * Hs * (2 * tri * Ps + 4 * n * Ns * Ps)
+        return bound(4 * (2 * B * Hs * S * Ps + B * Hs * S + 2 * B * S * Ns
+                          + Hs + B * Hs * Ns * Ps), flops, "float32")
+
+    # the SSD prefill at the hymba-1.5b serve shape (B 8, S 128: the prompt
+    # width; 32 layers' inputs, 0.42 GB, cycled) and at its generate shape
+    # (B 4, S 1100: 17 chunks and a tail of 12; 3 layers' inputs, 0.17 GB):
+    # 50 heads of 64, state 16, f32, strided as the model hands them over.
+    # The plain version is the sequential recurrence; the plain scan is the
+    # chunked torch scan kernel_backend="ref" serves.
+    ssd_times = {}
+    for what, (B, S, layers) in {
+            "hymba serve [8,50,128,64]": (8, 128,
+                                          ARCHS["hymba-1.5b"].num_layers),
+            "hymba generate [4,50,1100,64]": (4, 1100, 3)}.items():
+        ssd_sets = [ssd_inputs(B, S) for _ in range(layers)]
+        ssd_times[what] = scan_times(
+            ssd_chunked, kref.ssd_ref,
+            lambda x, dt, Bm, Cm, a: ssm.ssd_chunked_scan(
+                x.transpose(1, 2), dt.transpose(1, 2), Bm, Cm, a), ssd_sets,
+            f"B{B} S{S} H{Hs} P{Ps} N{Ns} f32",
+            ssd_bound(B, S))
+        del ssd_sets
     timing["ssd_chunked"] = dict(
-        ms=time_ms(ssd_chunked, ssd_sets),
-        eager_ms=time_ms(ssd_chunked, ssd_sets, graph=False),
-        plain_ms=time_ms(kref.ssd_ref, ssd_sets, graph=False),
-        plain_scan_ms=time_ms(lambda x, dt, Bm, Cm, a: ssm.ssd_chunked_scan(
-            x.transpose(1, 2), dt.transpose(1, 2), Bm, Cm, a), ssd_sets,
-            graph=False),
-        library_ms=None,
+        ssd_times["hymba serve [8,50,128,64]"],
         library="none (no single PyTorch call computes SSD)",
-        dtype="float32", tolerance={"float32": SSD_TOL},
-        shape=f"B{B} S{S} H{Hs} P{Ps} N{Ns} f32",
-        # x, dt, B, C, a read, y and the final state written; C B^T once
-        # per (row, chunk) over the causal triangle (2 tri N), and per
-        # (row, head, chunk) y's intra-chunk term over the triangle
-        # (2 tri P), the inter-chunk term and the state update (2 x 2CNP)
-        bound=bound(4 * (2 * elems + B * Hs * S + 2 * B * S * Ns + Hs
-                         + B * Hs * Ns * Ps),
-                    B * nch * 2 * tri * Ns
-                    + B * Hs * nch * (2 * tri * Ps + 4 * C * Ns * Ps),
-                    "float32"))
+        dtype="float32", tolerance={"float32": SSD_TOL}, by_shape=ssd_times)
     # the grouped matmul at granite-moe-1b-a400m's four expert GEMM shapes;
     # 24 layers' inputs cycled (1.5 GB of bf16 w_in alone): each route (the
     # tensor-core bf16 one, the SIMT bf16 and f32 ones) beside torch.bmm in
@@ -885,18 +962,15 @@ def main() -> int:
                 f"{t['library_eager_ms']:.4f}); bound {t['bound'][0]:.4f} ms "
                 f"({t['bound'][1]}), in f32 {t['bound_f32'][0]:.4f} ms "
                 f"({t['bound_f32'][1]})")
-    for name, t in timing.items():
-        if "by_shape" in t:
-            continue
-        lib = "none" if t["library_ms"] is None else \
-            f"{t['library_ms']:.4f} ms (eager {t['library_eager_ms']:.4f})"
-        scan = "" if "plain_scan_ms" not in t else \
-            f", plain chunked scan {t['plain_scan_ms']:.4f} ms"
-        log("timing", f"{name} [{t['shape']}]: kernel {t['ms']:.4f} ms "
-            f"(device time, CUDA graph; eager {t['eager_ms']:.4f}), plain "
-            f"{t['plain_ms']:.4f} ms{scan}, library {t['library']} {lib}, "
-            f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
-    del wkv_sets, ssd_sets
+    for name, by in (("rwkv6_chunked", {"rwkv6-3b serve [8,40,128,64]":
+                                         timing["rwkv6_chunked"]}),
+                     ("ssd_chunked", ssd_times)):
+        for what, t in by.items():
+            log("timing", f"{name} {what} [{t['shape']}]: routes (in turns) "
+                + ", ".join(f"{r} {ms:.4f} ms" for r, ms in t["routes"].items())
+                + f" (device time, CUDA graph); eager {t['eager_ms']:.4f} ms; plain {t['plain_ms']:.4f} "
+                f"ms, plain chunked scan {t['plain_scan_ms']:.4f} ms; library "
+                f"none; bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
 
     def check_launches(tag, launches, rep, need):
         """`need` maps each kernel of the path to ("prefill" | "decode" |
@@ -913,15 +987,19 @@ def main() -> int:
                                  f"{rep.decode_steps} decode steps; needed "
                                  f"exactly {need}")
 
+    def fast(route):
+        """A kernel's fast route: tensor-core tiles (attention, decode, the
+        grouped matmul in bf16) or register tiles (WKV6, SSD)."""
+        return route.startswith("tc") or route == "tile"
+
     def check_routes(tag, launches):
-        """Every launch of a kernel with routes (the bf16 serve and generate
-        paths') took its tensor-core route."""
+        """Every launch of every kernel on the path took its fast route."""
         for name, routes in launches["routes"].items():
-            tc = sum(n for r, n in routes.items() if r.startswith("tc"))
-            if tc != launches[name]:
+            n_fast = sum(n for r, n in routes.items() if fast(r))
+            if n_fast != launches[name]:
                 raise AssertionError(
-                    f"{tag}: {name} launched {launches[name]} times, {tc} of "
-                    f"them on its tensor-core route: {routes}")
+                    f"{tag}: {name} launched {launches[name]} times, {n_fast} "
+                    f"of them on its fast route: {routes}")
 
     def measured_launches():
         """LAUNCHES, with ROUTES beside them under "routes"."""
@@ -968,8 +1046,8 @@ def main() -> int:
             f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
             f"warm-up {warm_s:.1f} s")
         log("serve", f"{tag} launches {launches} (needed per prefill group "
-            f"/ decode step, exactly: {need}; every launch of a kernel with "
-            f"routes on its tensor-core route)")
+            f"/ decode step, exactly: {need}; every launch on its kernel's "
+            f"fast route: tc* or tile)")
         if routing is not None:
             routing(records, rep)
         del records
@@ -1119,10 +1197,12 @@ def main() -> int:
         return sum(int((moe.topk_margin(r["logits"], r["idx"].shape[1])
                         < ROUTE_TOL).sum()) for r in recs)
 
-    def f32_streams(tag, plan32, params32, reqs, moe_layers=0):
+    def f32_streams(tag, plan32, params32, reqs, moe_layers=0, tile=()):
         """`reqs` in f32 through the kernels and through the plain path: the
         first prefill's logits agree within LOGIT_TOL and the greedy streams
-        match except at a step whose plain top-2 margin is under it. With
+        match except at a step whose plain top-2 margin is under it; every
+        launch of the kernels named in `tile` (launched at least once) on
+        their tile route. With
         `moe_layers`, the routing of both sides is recorded: the first
         prefill's logits may differ only if an expert choice flipped there,
         and a stream may also diverge after a flipped choice that reached it
@@ -1154,8 +1234,16 @@ def main() -> int:
                 (d_logits <= LOGIT_TOL or flips0)):
             raise AssertionError(f"{tag}: f32 first-prefill logits differ by "
                                  f"{d_logits:.3e} > {LOGIT_TOL}")
+        reset_launches()
         with moe.record_routing() as recs_k:
             out_k = Scheduler(e_k).run(reqs)
+        torch.cuda.synchronize()
+        for name in tile:
+            if not ROUTES[name]["tile"] == LAUNCHES[name] > 0:
+                raise AssertionError(f"{tag} f32: {name} launched "
+                                     f"{LAUNCHES[name]} times, routes "
+                                     f"{ROUTES[name]}: not all on tile")
+        tiled = {name: LAUNCHES[name] for name in tile}
         with moe.record_routing() as recs_r:
             ref_sched = MarginScheduler(e_r, recs_r, max(moe_layers, 1))
             out_r = ref_sched.run(reqs)
@@ -1203,7 +1291,9 @@ def main() -> int:
             f"{d_logits:.3e} (tolerance {LOGIT_TOL}); streams identical for "
             f"{len(reqs) - diverged}/{len(reqs)} requests, {ties} "
             f"divergence(s) at a top-2 margin under {LOGIT_TOL}; "
-            f"min margin {min(ref_sched.margins.values()):.3e}" + route)
+            f"min margin {min(ref_sched.margins.values()):.3e}" + route +
+            "".join(f"; {n}: {c} launches, all on tile"
+                    for n, c in tiled.items()))
 
     f32_streams("qwen3-0.6b", plan.replace(run__compute_dtype="float32"),
                 params32, reqs)
@@ -1251,7 +1341,7 @@ def main() -> int:
 
     # ---- 7. rwkv6-3b kernel path against the plain path, f32 ------------
     f32_streams("rwkv6-3b", rplan.replace(run__compute_dtype="float32"),
-                rparams32, rreqs)
+                rparams32, rreqs, tile=("rwkv6_chunked",))
     del rparams32
 
     # ---- 8. rwkv6-3b Engine.generate, contiguous cache -------------------
@@ -1320,7 +1410,7 @@ def main() -> int:
 
     # ---- 10. hymba-1.5b kernel path against the plain path, f32 ---------
     f32_streams("hymba-1.5b", hplan.replace(run__compute_dtype="float32"),
-                hparams32, hreqs)
+                hparams32, hreqs, tile=("ssd_chunked",))
     del hparams32
 
     # ---- 11. hymba-1.5b Engine.generate past the window -----------------
@@ -1470,9 +1560,11 @@ def main() -> int:
             "max_abs_err_by_route": {k: v for k, v in errs.items()
                                      if " " in k} or None,
             "ms": t["ms"], "kernel_ms": t["ms"], "eager_ms": t["eager_ms"],
-            "timing": "ms: device time, CUDA graph over 24-150 layers' "
+            "timing": "ms: device time, CUDA graph over 3-150 layers' "
                       "inputs; eager_ms: host-dispatched calls",
             "routes": t.get("routes"),
+            "sass": {k: v for k, v in scan_sass.items()
+                     if SASS_TAG.get(name, "-") in k} or None,
             "routes_by_path": {p: n["routes"][name] for p, n in paths.items()
                                if n[name]} if name in ROUTES else None,
             "plain_ms": t["plain_ms"],

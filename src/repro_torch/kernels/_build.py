@@ -14,11 +14,12 @@ plain version: without nvcc or a CUDA device, loading raises.
 
 `LAUNCHES[name]` counts the launches each wrapper makes (only where it
 launches its kernel), so a run can show that its path went through the
-kernels. The kernels with more than one route (grouped_matmul,
+kernels. Every kernel has more than one route (grouped_matmul,
 flash_attention_fwd, flash_decode, flash_decode_paged: bf16 tensor-core
-tiles beside f32-FMA ones) count each launch once more in
-`ROUTES[name][route]`; a route is picked before the launch by the wrapper's
-`_route`, never switched after an error.
+tiles beside f32-FMA ones; rwkv6_chunked, ssd_chunked: f32 register tiles
+fed by cp.async beside the first f32-FMA design) and counts each launch once
+more in `ROUTES[name][route]`; a route is picked before the launch by the
+wrapper's `_route`, never switched after an error.
 """
 from __future__ import annotations
 
@@ -45,7 +46,9 @@ ROUTES: dict[str, dict[str, int]] = {
     "flash_decode": {"tc": 0, "simt_bf16": 0, "simt_f32": 0},
     "flash_decode_paged": {"tc": 0, "simt_bf16": 0, "simt_f32": 0},
     "grouped_matmul": {"tc_decode": 0, "tc_prefill": 0, "simt_bf16": 0,
-                       "simt_f32": 0}}
+                       "simt_f32": 0},
+    "rwkv6_chunked": {"tile": 0, "simt": 0},
+    "ssd_chunked": {"tile": 0, "simt": 0}}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -37,6 +37,16 @@ __device__ __forceinline__ void load_f32(const T* __restrict__ p, float (&out)[N
   }
 }
 
+// 4 consecutive floats at p (16-byte aligned) as one vector access, shared
+// or global (LDS.128, STS.128, LDG.128, STG.128)
+__device__ __forceinline__ void ldv(const float* p, float (&o)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+__device__ __forceinline__ void stv(float* p, const float (&o)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+}
+
 // Sum over the 32 lanes of a warp; every lane gets the total.
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -14,18 +14,42 @@
 // Every exponent is <= 0, so nothing overflows.
 //
 // The TPU grid runs (b, h, chunk) in order and carries h in VMEM across the
-// chunk axis. A CUDA block cannot hand anything to another block, so here one
-// block owns one (b, h) and walks every chunk itself, with the 16 x 64 f32
-// state in shared memory: 400 blocks at the serve shape (B 8 x 50 heads) on
-// 132 SMs. The chunk's x tile, B, C, the score matrix and cs sit in shared
-// memory too (45 KB). Everything is f32 FMA (no wgmma, no TMA yet).
+// chunk axis. A CUDA block cannot hand anything to another block, so a block
+// walks every chunk of its (b, h) itself. Two routes:
+//
+//   tile  (ssd_tile_kernel, every aligned call: the model's views are)
+//         Column p of the [N, P] state depends only on x[:, p], so a block
+//         owns one (b, a group of HG heads, a slice of PW state columns):
+//         PW 32, HG 2 gives 400 blocks at the serve shape and 200 at
+//         hymba's generate shape [4, 50, 1100, 64] (slices of 16 and one
+//         head a block measured no faster, PERF.md); for an odd H the last
+//         group's second head is zeros and writes nothing. 256 threads. Each
+//         chunk's x slices, B, C and dt land by cp.async (16 bytes; dt, a
+//         strided view, 4 bytes) in a 2-stage ring, one chunk ahead of the
+//         one that computes. Per chunk: C B^T (64 x 64, K = N) once on 4 x 4
+//         register tiles, the 16-column bands above the diagonal skipped,
+//         kept in registers for the block's HG heads; per head one of the
+//         two warps left without a C B^T band gives cs by an f64 shuffle
+//         scan meanwhile, then each lane turns its C B^T tile into M = C B^T
+//         * exp(cs_t - cs_s) dt_s (s <= t) in shared memory beside C' =
+//         exp(cs_t) C; y = [M | C'] [x ; h] on 4 x TP register tiles read
+//         as LDS.128 from padded rows (8 FMA a vector load), K split across
+//         the warp pairs of each 16-row band and the causal triangle
+//         skipped band by band; the state update h <- exp(cs_last) h +
+//         B^T (w * x) on two warps' register tiles, the slice's state kept
+//         in one warp's registers.
+//   simt  (ssd_kernel, the first design, for unaligned rows) one block per
+//         (b, h), the 16 x 64 state and the chunk in shared memory, both
+//         operands of most FMAs read from shared memory and C B^T computed
+//         again in every head.
 //
 // The chunk is fixed at 64 (Pallas shrinks it to the largest divisor of S up
 // to 64: 1 for a prime S, 55 for S 1100). Rows of the tail chunk at or past S
 // load dt = 0, x = 0, B = C = 0: they leave the state as it is (decay
-// exp(0) = 1, no injection) and write no y. cs is summed in f64, so
-// exp(cs_t - cs_s) stays accurate when cs is large and the difference small.
-// Sums run in another order than the sequential plain version
+// exp(0) = 1, no injection) and write no y. cs is summed in f64 and every
+// decay is taken in the difference form exp(cs_t - cs_s) <= 1, so it stays
+// accurate when cs is large and the difference small, and nothing
+// overflows. Sums run in another order than the sequential plain version
 // (kernels/ref.py:ssd_ref): results agree to f32 rounding, not bit for bit.
 //
 // What bounds it on the H100: bytes, with operations close behind. At the
@@ -34,18 +58,23 @@
 // chunked form does C (C + 1) P flops for the causal intra-chunk product
 // and 4 C N P for the inter-chunk term and the state per (b, h, chunk)
 // (0.42 GFLOP, 6.3 us at the 67 TFLOP/s f32 peak outside the tensor
-// cores). This first kernel is far from either (PERF.md has its time): its
-// products are f32 FMAs with operands from shared memory, not wgmma, and
-// it recomputes C B^T for every head.
+// cores). The tile route runs at 5.3x the bytes bound. Its FMAs run at
+// 5.5 per shared load (SASS), so shared loads do not bound them. Taking
+// parts out (kernels/scan_ablation.py; PERF.md has the times): the
+// products cost 44% of the time (y a quarter, the state update a tenth,
+// C B^T a twelfth), M's exponentials (an f64 difference, a conversion and
+// an expf for each live entry) a sixth, the exposed loads a twelfth, the
+// cs scans a twentieth; the rest is six barriers (two heads) and the y
+// partial sums. At the serve shape 400 blocks meet 264 slots (1.5 waves);
+// a third ring stage leaves 1 block a SM and runs 40% slower.
 //
 // Inputs are taken through their strides as the model hands them over: x is
 // a [B, H, S, P] view of [B, S, d_inner + 2N] conv output (P contiguous,
 // row stride d_inner + 2N), dt a [B, H, S] view of [B, S, H] memory, B and C
 // column slices of the same conv output (N contiguous). y is written through
 // its strides ([B, S, H, P] memory), so the model's transpose back is free.
-// B and C rows are padded to N + 1 floats in shared memory, so a warp reading
-// one column over 32 rows hits 32 banks.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -68,6 +97,9 @@ struct SsdArgs {
   long long yb, yh, ys;
 };
 
+// ---- route simt: one block per (b, h), the state in shared memory ---------
+// B and C rows are padded to N + 1 floats in shared memory, so a warp reading
+// one column over 32 rows hits 32 banks.
 template <int P, int N>
 __global__ void __launch_bounds__(NT) ssd_kernel(SsdArgs g) {
   constexpr int TR = NT / P;      // thread rows sharing one column p
@@ -181,15 +213,304 @@ __global__ void __launch_bounds__(NT) ssd_kernel(SsdArgs g) {
   for (int e = tid; e < N * P; e += NT) st[e] = sh[e / P][e % P];
 }
 
+// ---- route tile: one block per (b, HG heads, slice of PW state columns) ---
+constexpr int PW = 32;          // state columns a block owns
+constexpr int HG = 2;           // heads a block takes, sharing C B^T
+constexpr int SSD_STAGES = 2;   // chunks in the cp.async ring (1 in flight)
+
+struct SsdTile {
+  static constexpr int P = 64, N = 16, NT = 256, TP = PW / 8, STAGES = SSD_STAGES;
+  static constexpr int BP = N + 4;        // B and C rows
+  static constexpr int MP = C + N + 4;    // M, then C' = exp(cs) C
+  static constexpr int HP = PW + 4;       // state and y-partial rows
+  static constexpr int STAGE = HG * C * PW + 2 * C * BP + HG * C;   // x, B, C, dt
+  static constexpr int FLOATS = 2 * HG * C + STAGES * STAGE + C * MP + 4 * 16 * HP +
+                                HG * N * HP + N * HP + 2 * HG * C + 4;
+  static constexpr int BYTES = FLOATS * 4;
+};
+
+__global__ void __launch_bounds__(256, 2) ssd_tile_kernel(SsdArgs g) {
+  using L = SsdTile;
+  constexpr int N = L::N, TP = L::TP, BP = L::BP, MP = L::MP, HP = L::HP;
+  extern __shared__ __align__(16) float smem[];
+  double* const cs = reinterpret_cast<double*>(smem);   // [HG][C], f64
+  float* const stage0 = smem + 2 * HG * C;
+  float* const Msh = stage0 + L::STAGES * L::STAGE;      // [C][MP]
+  float* const Yp = Msh + C * MP;                        // [4][16][HP]
+  float* const Hsh = Yp + 4 * 16 * HP;                   // [HG][N][HP]
+  float* const Hp = Hsh + HG * N * HP;                   // [N][HP]
+  float* const ecs = Hp + N * HP;                        // [HG][C]: exp(cs_t)
+  float* const ws = ecs + HG * C;                        // [HG][C]: injection weights
+  float* const dec = ws + HG * C;                        // [HG]: exp(cs_last)
+
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int p0 = blockIdx.x * PW, h0 = blockIdx.y * HG, b = blockIdx.z;
+  const int nch = (g.S + C - 1) / C;
+
+  // x slices, B, C and dt of chunk c into stage st, one commit group (empty
+  // past the last chunk); rows past S, and heads past H, zero. A thread
+  // copies 16 bytes of x rows xr, xr + XR, .. (column 4 xq) for each head,
+  // of B and C row tid / 4 (column 4 (tid % 4)) and, for tid < HG C, dt, at
+  // addresses set up once.
+  constexpr int XQ = PW / 4, XR = L::NT / XQ;   // x: 16-byte pieces a row, rows a pass
+  const int xr = tid / XQ, xq = tid % XQ, br = tid >> 2, bq = tid & 3;
+  const long long xo = b * g.xb + h0 * g.xh + static_cast<long long>(xr) * g.xs + p0 + 4 * xq;
+  const long long bo = b * g.bb + static_cast<long long>(br) * g.bs + 4 * bq;
+  const long long co = b * g.cb + static_cast<long long>(br) * g.cs + 4 * bq;
+  const int dhd = tid / C, dr = tid % C;   // dt: head, row
+  const long long dto = b * g.db + (h0 + dhd) * g.dh + static_cast<long long>(dr) * g.ds;
+  auto load = [&](int c, int st) {
+    if (c < nch) {
+      float* X = stage0 + st * L::STAGE;
+      float* Bs = X + HG * C * PW;
+      float* Cs = Bs + C * BP;
+      float* Dt = Cs + C * BP;
+      const int t0 = c * C;
+#pragma unroll
+      for (int hh = 0; hh < HG; ++hh)
+#pragma unroll
+        for (int h2 = 0; h2 < C / XR; ++h2) {
+          const int row = xr + XR * h2;
+          const bool in = t0 + row < g.S && h0 + hh < g.H;
+          repro::cp_async16(X + (hh * C + row) * PW + 4 * xq,
+                            in ? g.x + xo + hh * g.xh + (t0 + XR * h2) * g.xs : g.x, in);
+        }
+      const bool in = t0 + br < g.S;
+      repro::cp_async16(Bs + br * BP + 4 * bq, in ? g.bm + bo + t0 * g.bs : g.bm, in);
+      repro::cp_async16(Cs + br * BP + 4 * bq, in ? g.cm + co + t0 * g.cs : g.cm, in);
+      if (tid < HG * C) {
+        const bool din = t0 + dr < g.S && h0 + dhd < g.H;
+        repro::cp_async4(Dt + dhd * C + dr, din ? g.dt + dto + t0 * g.ds : g.dt, din);
+      }
+    }
+    repro::cp_async_commit();
+  };
+
+  for (int e = tid; e < HG * N * HP; e += L::NT) Hsh[e] = 0.f;
+  // lane roles: band tw = w & 3 (rows 16 tw ..), K half kh = w >> 2;
+  // lane tile rows tb + 4 r, columns TP pb ..
+  const int tw = w & 3, kh = w >> 2, tb = lane & 3, pb = lane >> 2;
+  float Hreg[HG][4][TP] = {};        // warp 4: rows 4 tb .., columns TP pb ..
+#pragma unroll
+  for (int c = 0; c < L::STAGES - 1; ++c) load(c, c);
+
+  for (int c = 0; c < nch; ++c) {
+    const int t0 = c * C;
+    float* const X = stage0 + c % L::STAGES * L::STAGE;
+    float* const Bs = X + HG * C * PW;
+    float* const Cs = Bs + C * BP;
+    float* const Dt = Cs + C * BP;
+    repro::cp_async_wait<L::STAGES - 2>();
+    __syncthreads();            // chunk c landed; chunk c - 1 is done with its stage
+    load(c + L::STAGES - 1, (c + L::STAGES - 1) % L::STAGES);
+
+    // 1. warps 1 and 3 (no C B^T tile of theirs lies below the diagonal,
+    //    so they are free): cs of head w >> 1 (f64 shuffle scan, two rows a
+    //    lane), exp(cs_t), the injection weights exp(cs_last - cs_s) dt_s,
+    //    exp(cs_last); a head past H has dt = 0 and a = 0
+    if ((w == 1 || w == 3) && (w >> 1) < HG) {
+      const int sh = w >> 1;
+      const float av = h0 + sh < g.H ? g.a[h0 + sh] : 0.f;
+      const float d0 = Dt[sh * C + 2 * lane], d1 = Dt[sh * C + 2 * lane + 1];
+      const double l0 = static_cast<double>(d0) * av, l1 = static_cast<double>(d1) * av;
+      double incl = l0 + l1;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const double v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      double excl = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) excl = 0.0;
+      const double c0 = excl + l0;
+      const double last = __shfl_sync(0xffffffffu, incl, 31);
+      cs[sh * C + 2 * lane] = c0;
+      cs[sh * C + 2 * lane + 1] = incl;
+      ecs[sh * C + 2 * lane] = expf(static_cast<float>(c0));
+      ecs[sh * C + 2 * lane + 1] = expf(static_cast<float>(incl));
+      ws[sh * C + 2 * lane] = expf(static_cast<float>(last - c0)) * d0;
+      ws[sh * C + 2 * lane + 1] = expf(static_cast<float>(last - incl)) * d1;
+      if (lane == 0) dec[sh] = expf(static_cast<float>(last));
+    }
+    //    every warp: C B^T on a 4 x 4 tile, rows 16 (w >> 1) + tb + 4 r,
+    //    columns 32 (w & 1) + pb + 8 c2, kept for the block's heads; the
+    //    column pair c2 = 2 cp, 2 cp + 1 lies in the 16-column band
+    //    2 (w & 1) + cp, skipped (warp-uniformly) above the row band
+    const int ct = 16 * (w >> 1) + tb, cs0 = 32 * (w & 1) + pb;
+    float cb[4][4] = {};
+#pragma unroll
+    for (int cp = 0; cp < 2; ++cp) {
+      if (2 * (w & 1) + cp > (w >> 1)) continue;
+#pragma unroll
+      for (int n = 0; n < N; n += 4) {
+        float av[4][4], bv[2][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) repro::ldv(Cs + (ct + 4 * r) * BP + n, av[r]);
+#pragma unroll
+        for (int c2 = 0; c2 < 2; ++c2) repro::ldv(Bs + (cs0 + 8 * (2 * cp + c2)) * BP + n, bv[c2]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c2 = 0; c2 < 2; ++c2)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              cb[r][2 * cp + c2] = fmaf(av[r][q], bv[c2][q], cb[r][2 * cp + c2]);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int gh = 0; gh < HG; ++gh) {
+      const double* csh = cs + gh * C;
+      const float* Xh = X + gh * C * PW;
+      // 2. M = C B^T * exp(cs_t - cs_s) dt_s below and on the diagonal;
+      //    C' = exp(cs_t) C beside it. A column band above the row band is
+      //    zeros (warp-uniform); inside a band no branch, so the 8
+      //    exponentials interleave (above the diagonal the exponent is
+      //    clamped to 0 and the value dropped)
+#pragma unroll
+      for (int cp = 0; cp < 2; ++cp) {
+        if (2 * (w & 1) + cp > (w >> 1)) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c2 = 0; c2 < 2; ++c2) Msh[(ct + 4 * r) * MP + cs0 + 8 * (2 * cp + c2)] = 0.f;
+          continue;
+        }
+        double css[2];
+        float dts[2];
+#pragma unroll
+        for (int c2 = 0; c2 < 2; ++c2) {
+          css[c2] = csh[cs0 + 8 * (2 * cp + c2)];
+          dts[c2] = Dt[gh * C + cs0 + 8 * (2 * cp + c2)];
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int t = ct + 4 * r;
+          const double cst = csh[t];
+#pragma unroll
+          for (int c2 = 0; c2 < 2; ++c2) {
+            const int s = cs0 + 8 * (2 * cp + c2);
+            const float e = expf(fminf(static_cast<float>(cst - css[c2]), 0.f));
+            Msh[t * MP + s] = s <= t ? cb[r][2 * cp + c2] * (e * dts[c2]) : 0.f;
+          }
+        }
+      }
+      {
+        const int t = tid >> 2, nq = tid & 3;
+        float v[4];
+        repro::ldv(Cs + t * BP + 4 * nq, v);
+        const float e = ecs[gh * C + t];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] *= e;
+        repro::stv(Msh + t * MP + C + 4 * nq, v);
+      }
+      __syncthreads();
+      // 3. y partials over [M | C'] [x ; h]: band tw, K half kh (kh 0: s <
+      //    32; kh 1: s >= 32 and the C' h term), rows past the band's last
+      //    one skipped; warps 4 and 5 also sum the state injection over s <
+      //    32 and s >= 32
+      float acc[4][TP] = {};
+      auto step = [&](const float* A, const float* Bm, int ldb) {
+        float av[4][4], bv[4][TP];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) repro::ldv(A + (16 * tw + tb + 4 * r) * MP, av[r]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) repro::ldv(Bm + q * ldb + TP * pb, bv[q]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int c2 = 0; c2 < TP; ++c2) acc[r][c2] = fmaf(av[r][q], bv[q][c2], acc[r][c2]);
+      };
+      const int s_hi = kh ? 16 * tw + 16 : min(32, 16 * tw + 16);
+      for (int s = kh ? 32 : 0; s < s_hi; s += 4) step(Msh + s, Xh + s * PW, PW);
+      float hacc[4][TP] = {};
+      if (kh) {
+#pragma unroll
+        for (int n = 0; n < N; n += 4) step(Msh + C + n, Hsh + (gh * N + n) * HP, HP);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          repro::stv(Yp + (tw * 16 + tb + 4 * r) * HP + TP * pb, acc[r]);
+        if (tw < 2) {
+#pragma unroll 4
+          for (int s = 32 * tw; s < 32 * tw + 32; ++s) {
+            float bq[4], xq[TP];
+            repro::ldv(Bs + s * BP + 4 * tb, bq);
+            repro::ldv(Xh + s * PW + TP * pb, xq);
+            const float wsv = ws[gh * C + s];
+#pragma unroll
+            for (int c2 = 0; c2 < TP; ++c2) xq[c2] *= wsv;
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+#pragma unroll
+              for (int c2 = 0; c2 < TP; ++c2) hacc[q][c2] = fmaf(bq[q], xq[c2], hacc[q][c2]);
+          }
+          if (tw == 1) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) repro::stv(Hp + (4 * tb + q) * HP + TP * pb, hacc[q]);
+          }
+        }
+      }
+      __syncthreads();
+      // 4. y = the band's two K halves, written through its strides; warp 4:
+      //    h <- exp(cs_last) h + both injection halves, into shared memory
+      //    for the next chunk's C' h
+      if (!kh) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int t = 16 * tw + tb + 4 * r;
+          float v[TP];
+          repro::ldv(Yp + (tw * 16 + tb + 4 * r) * HP + TP * pb, v);
+#pragma unroll
+          for (int c2 = 0; c2 < TP; ++c2) v[c2] += acc[r][c2];
+          if (t0 + t < g.S && h0 + gh < g.H)
+            repro::stv(g.y + b * g.yb + (h0 + gh) * g.yh + (t0 + t) * g.ys + p0 + TP * pb, v);
+        }
+      } else if (tw == 0) {
+        const float d = dec[gh];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float v[TP];
+          repro::ldv(Hp + (4 * tb + q) * HP + TP * pb, v);
+#pragma unroll
+          for (int c2 = 0; c2 < TP; ++c2)
+            Hreg[gh][q][c2] = fmaf(d, Hreg[gh][q][c2], hacc[q][c2] + v[c2]);
+          repro::stv(Hsh + (gh * N + 4 * tb + q) * HP + TP * pb, Hreg[gh][q]);
+        }
+      }
+    }
+  }
+  if (w == 4) {
+#pragma unroll
+    for (int gh = 0; gh < HG && h0 + gh < g.H; ++gh) {
+      float* st = g.state + (static_cast<long long>(b) * g.H + h0 + gh) * N * L::P;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) repro::stv(st + (4 * tb + q) * L::P + p0 + TP * pb, Hreg[gh][q]);
+    }
+  }
+}
+
+int launch_tile(const SsdArgs& g, int B, cudaStream_t st) {
+  constexpr int bytes = SsdTile::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(ssd_tile_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(SsdTile::P / PW, (g.H + HG - 1) / HG, B);
+  ssd_tile_kernel<<<grid, SsdTile::NT, bytes, st>>>(g);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// route 1: tile; 0: simt
 extern "C" int ssd_chunked_launch(const void* x, const void* dt, const void* bm,
                                   const void* cm, const void* a, void* y, void* state,
                                   int B, int H, int S, int P, int N, long long xb,
                                   long long xh, long long xs, long long db, long long dh,
                                   long long ds, long long bb, long long bs, long long cb,
                                   long long cs, long long yb, long long yh, long long ys,
-                                  void* stream) {
+                                  int route, void* stream) {
   SsdArgs g{};
   g.x = static_cast<const float*>(x);
   g.dt = static_cast<const float*>(dt);
@@ -204,9 +525,13 @@ extern "C" int ssd_chunked_launch(const void* x, const void* dt, const void* bm,
   g.bb = bb; g.bs = bs;
   g.cb = cb; g.cs = cs;
   g.yb = yb; g.yh = yh; g.ys = ys;
-  const dim3 grid(H, B), block(NT);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (P != 64 || N != 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 1) return launch_tile(g, B, st);
+  const dim3 grid(H, B), block(NT);
   ssd_kernel<64, 16><<<grid, block, 0, st>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
+
+// the tile route's dynamic shared memory a block
+extern "C" int ssd_tile_smem_bytes() { return SsdTile::BYTES; }

@@ -1,7 +1,8 @@
 // Tensor-core building blocks of the bf16 routes (moe_gmm.cu,
-// flash_attention.cu, flash_decode.cu): 16-byte cp.async copies global ->
-// shared with zero-fill, ldmatrix fragment loads from shared memory, the
-// movmatrix register transpose, the
+// flash_attention.cu, flash_decode.cu), whose cp.async copies the f32 tile
+// routes of rwkv6_scan.cu and mamba_ssd.cu use too: 16- and 4-byte cp.async
+// copies global -> shared with zero-fill, ldmatrix fragment loads from
+// shared memory, the movmatrix register transpose, the
 // mma.sync.m16n8k16 bf16 x bf16 -> f32 product, Hopper's warpgroup
 // wgmma.m64n160k16 with its shared-memory descriptors, mbarriers and TMA.
 //
@@ -30,6 +31,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
                "l"(gmem), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronous (through L1); a zero when !in
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(in ? 4 : 0)
                : "memory");
 }
 

@@ -10,8 +10,18 @@ uncopied. The CUDA y is laid out [B, S, H, P] in memory (a transposed
 view), so the model's transpose back is free.
 
 On a CPU tensor this runs the plain version (kernels/ref.py:ssd_ref, the
-sequential recurrence); on a CUDA tensor it launches the kernel or raises.
-The kernel takes float32 only, as the model hands it over.
+sequential recurrence); on a CUDA tensor it launches the kernel of one
+route or raises. `_route` picks the route from strides and alignment:
+
+  tile  x, B_ and C_ rows copyable in 16-byte vectors (as the model's
+        views always are): a block per (row, pair of heads, slice of 32
+        state columns), C B^T once per chunk for the pair, register
+        tiles, cp.async double buffering
+  simt  any other strides with the last dims contiguous: a block per
+        (row, head)
+
+`_build.ROUTES["ssd_chunked"]` counts the launches of each. The kernel
+takes float32 only, as the model hands it over.
 """
 from __future__ import annotations
 
@@ -21,11 +31,22 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
 
 SHAPES = ((64, 16),)      # (P, N) built: hymba-1.5b, 50 heads of 64, state 16
+_ARGS = [_build.PTR] * 7 + [_build.INT] * 5 + [_build.I64] * 13 + \
+    [_build.INT, _build.PTR]
 
 
-def ssd_chunked(x, dt, B_, C_, a):
+def _route(x, B_, C_) -> str:
+    """The route a CUDA launch over x, B_, C_ takes: a pure function of
+    strides and alignment (the CPU tests call it on CPU tensors; dt is read
+    4 bytes at a time, any strides)."""
+    return "tile" if all(_build.vec16_ok(t) for t in (x, B_, C_)) \
+        else "simt"
+
+
+def ssd_chunked(x, dt, B_, C_, a, *, route=None):
     """x [B,H,S,P]; dt [B,H,S]; B_/C_ [B,S,N]; a [H] < 0. Returns (y,
-    final_state)."""
+    final_state). `route` (for measurement) forces the simt route instead
+    of `_route`'s pick."""
     B, H, S, P = x.shape
     N = B_.shape[-1]
     if tuple(dt.shape) != (B, H, S) or tuple(B_.shape) != (B, S, N) or \
@@ -49,20 +70,23 @@ def ssd_chunked(x, dt, B_, C_, a):
         raise ValueError(f"ssd_chunked: x, B_ and C_ need their last dim "
                          f"contiguous, got strides {x.stride()} "
                          f"{B_.stride()} {C_.stride()}")
+    picked = _route(x, B_, C_)
+    if route not in (None, picked, "simt"):
+        raise ValueError(f"ssd_chunked: route {route!r} cannot take these "
+                         f"operands (their route is {picked!r})")
+    route = route or picked
     a = a.contiguous()
     y = torch.empty((B, S, H, P), dtype=torch.float32,
                     device=x.device).transpose(1, 2)
     state = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
     if state.numel() == 0:
         return y, state
-    fn = _build.entry("mamba_ssd", "ssd_chunked_launch",
-                      [_build.PTR] * 7 + [_build.INT] * 5 + [_build.I64] * 13
-                      + [_build.PTR])
+    fn = _build.entry("mamba_ssd", "ssd_chunked_launch", _ARGS)
     err = fn(x.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(),
              a.data_ptr(), y.data_ptr(), state.data_ptr(), B, H, S, P, N,
              *x.stride()[:3], *dt.stride(), *B_.stride()[:2],
-             *C_.stride()[:2], *y.stride()[:3],
+             *C_.stride()[:2], *y.stride()[:3], int(route == "tile"),
              torch.cuda.current_stream().cuda_stream)
     _build.check(_build.load("mamba_ssd"), err, "ssd_chunked")
-    _build.count("ssd_chunked")
+    _build.count("ssd_chunked", route)
     return y, state

@@ -9,7 +9,7 @@ Elsewhere they skip. Each kernel is held against its plain PyTorch version
 on the same CUDA inputs (2e-5 in f32: the sums run in another order; 5e-2
 in bf16: one rounding of the output; 5e-4 for the chunked WKV6 and 1e-4
 for the chunked SSD against their sequential recurrences, the tolerances
-of tests/test_kernels.py; for the grouped matmul 2e-5 relative to the
+of tests/test_kernels.py, on each route; for the grouped matmul 2e-5 relative to the
 output's scale in f32, its sums over d running in another order), and the
 serve_kernels preset on the card streams the same greedy tokens as its
 plain path on the CPU.
@@ -23,7 +23,7 @@ from repro_torch.api.serving import Request, Scheduler
 from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
-from repro_torch.kernels import moe_gmm
+from repro_torch.kernels import mamba_ssd, moe_gmm, rwkv6_scan
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
@@ -205,6 +205,7 @@ def test_rwkv6_chunked_matches_plain_version(card, B, H, S, hd):
     y, st = rwkv6_chunked(r, k, v, w, u)
     torch.cuda.synchronize()
     assert LAUNCHES["rwkv6_chunked"] == 1
+    assert _ran("rwkv6_chunked") == "tile"
     y_ref, st_ref = tref.rwkv6_ref(r, k, v, w, u)
     torch.testing.assert_close(y, y_ref, atol=5e-4, rtol=5e-4)
     torch.testing.assert_close(st, st_ref, atol=5e-4, rtol=5e-4)
@@ -237,6 +238,7 @@ def test_ssd_chunked_matches_plain_version(card, B, H, S):
     y, st = ssd_chunked(x, dt, Bm, Cm, a)
     torch.cuda.synchronize()
     assert LAUNCHES["ssd_chunked"] == 1
+    assert _ran("ssd_chunked") == "tile"
     y_ref, st_ref = tref.ssd_ref(x, dt, Bm, Cm, a)
     torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(st, st_ref, atol=1e-4, rtol=1e-4)
@@ -244,6 +246,129 @@ def test_ssd_chunked_matches_plain_version(card, B, H, S):
         ssd_chunked(x.to(torch.bfloat16), dt, Bm, Cm, a)
     with pytest.raises(ValueError, match="not in"):
         ssd_chunked(x[..., :32], dt, Bm, Cm, a)
+
+
+def _row_lens(S, B, device):
+    """Each row's length: the first full, the rest cut (their tails are
+    lens padding)."""
+    return torch.tensor([S] + [max(1, S // (2 + i)) for i in range(B - 1)],
+                        device=device)
+
+
+def _check_routes(name, fn, want, tol, short_state, shorts):
+    """fn(route) for the wrapper's pick ("tile") and the forced "simt"
+    route against `want` (y, state) within atol = rtol = tol, each
+    launched once on the route expected, and each padded row's state equal
+    to the state of its unpadded prefix (`shorts`: row -> that prefix's
+    inputs, run by short_state(inputs, route))."""
+    for route in (None, "simt"):
+        reset_launches()
+        y, st = fn(route)
+        torch.cuda.synchronize()
+        assert _ran(name) == (route or "tile")
+        assert LAUNCHES[name] == 1 and sum(ROUTES[name].values()) == 1
+        torch.testing.assert_close(y, want[0], atol=tol, rtol=tol)
+        torch.testing.assert_close(st, want[1], atol=tol, rtol=tol)
+        for row, st_short in shorts.items():
+            torch.testing.assert_close(st[row], short_state(st_short, route),
+                                       atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("S", [1, 17, 100, 128])
+def test_rwkv6_routes_at_model_shapes(card, S):
+    """rwkv6_chunked at rwkv6-3b's heads (40 of 64), r/k/v/w laid out
+    [B, S, H, hd] and handed over as [B, H, S, hd] views (the tile route and
+    the forced simt route) against the
+    sequential recurrence within 5e-4: a masked tail chunk at S 1 / 17 /
+    100, rows whose tail is lens padding (k = w = 0) ending at the state of
+    their unpadded prefix; the same inputs at an odd element offset take
+    the simt route, and forcing "tile" on them raises."""
+    B, H, hd = 3, 40, 64
+    g = torch.Generator(device=card).manual_seed(S)
+
+    def rnd(scale=0.5):
+        return scale * torch.randn((B, S, H, hd), generator=g, device=card)
+    r, k, v = rnd(), rnd(), rnd()
+    w = -4.0 * torch.rand((B, S, H, hd), generator=g, device=card)
+    u = 0.3 + 0.1 * torch.randn((H, hd), generator=g, device=card)
+    lens = _row_lens(S, B, card)
+    live = (torch.arange(S, device=card)[None, :] < lens[:, None])[..., None,
+                                                                     None]
+    k, w = torch.where(live, k, 0.0), torch.where(live, w, 0.0)
+    views = [t.transpose(1, 2) for t in (r, k, v, w)]
+    want = tref.rwkv6_ref(*views, u)
+    assert rwkv6_scan._route(*views) == "tile"
+
+    shorts = {b: [t[b:b + 1, :int(lens[b])].transpose(1, 2)
+                  for t in (r, k, v, w)] for b in range(1, B)}
+    _check_routes("rwkv6_chunked",
+                  lambda route: rwkv6_chunked(*views, u, route=route), want,
+                  5e-4,
+                  lambda sh, route: rwkv6_chunked(*sh, u, route=route)[1][0],
+                  shorts)
+    buf = torch.empty(4, 1 + B * S * H * hd, device=card)
+    odd = []
+    for i, t in enumerate((r, k, v, w)):
+        o = buf[i, 1:].view(B, S, H, hd)
+        o.copy_(t)
+        odd.append(o.transpose(1, 2))
+    assert rwkv6_scan._route(*odd) == "simt"
+    reset_launches()
+    y, st = rwkv6_chunked(*odd, u)
+    torch.cuda.synchronize()
+    assert _ran("rwkv6_chunked") == "simt"
+    torch.testing.assert_close(y, want[0], atol=5e-4, rtol=5e-4)
+    torch.testing.assert_close(st, want[1], atol=5e-4, rtol=5e-4)
+    with pytest.raises(ValueError, match="route"):
+        rwkv6_chunked(*odd, u, route="tile")
+
+
+@pytest.mark.parametrize("S", [1, 17, 100, 128, 1100])
+def test_ssd_routes_at_model_shapes(card, S):
+    """ssd_chunked at hymba's heads (50 of P 64, state 16), x and B/C column
+    slices of one [B, S, 50 * 64 + 32] conv output and dt a transposed
+    [B, S, H] view, as the model hands them over (the tile route and the
+    forced simt route) against the sequential recurrence within 1e-4:
+    per-step decays spread over (0, 1), a masked tail chunk at S 1 / 17 /
+    100 / 1100 (hymba's generate prompt: 17 chunks and a tail of 12), rows
+    whose tail is lens padding (dt = 0) ending at the state of their
+    unpadded prefix; x at an odd element offset takes the simt route, and
+    forcing "tile" on it raises."""
+    B, H, P, N = 2 if S > 200 else 3, 50, 64, 16
+    g = torch.Generator(device=card).manual_seed(S)
+    conv = 0.5 * torch.randn((B, S, H * P + 2 * N), generator=g, device=card)
+    x = conv[..., :H * P].reshape(B, S, H, P).transpose(1, 2)
+    Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    a = -torch.linspace(1.0, 16.0, H, device=card)
+    dt = torch.empty((B, S, H), device=card).uniform_(-7.0, -1.2,
+                                                      generator=g).exp_()
+    lens = _row_lens(S, B, card)
+    dt = torch.where(torch.arange(S, device=card)[None, :, None] <
+                     lens[:, None, None], dt, 0.0).transpose(1, 2)
+    want = tref.ssd_ref(x, dt, Bm, Cm, a)
+    assert mamba_ssd._route(x, Bm, Cm) == "tile"
+
+    shorts = {b: (x[b:b + 1, :, :int(lens[b])], dt[b:b + 1, :, :int(lens[b])],
+                  Bm[b:b + 1, :int(lens[b])], Cm[b:b + 1, :int(lens[b])])
+              for b in range(1, B)}
+    _check_routes("ssd_chunked",
+                  lambda route: ssd_chunked(x, dt, Bm, Cm, a, route=route),
+                  want, 1e-4,
+                  lambda sh, route: ssd_chunked(*sh, a, route=route)[1][0],
+                  shorts)
+    buf = torch.empty(1 + x.numel(), device=card)
+    x_odd = buf[1:].view(B, S, H, P)
+    x_odd.copy_(x.transpose(1, 2))
+    x_odd = x_odd.transpose(1, 2)
+    assert mamba_ssd._route(x_odd, Bm, Cm) == "simt"
+    reset_launches()
+    y, st = ssd_chunked(x_odd, dt, Bm, Cm, a)
+    torch.cuda.synchronize()
+    assert _ran("ssd_chunked") == "simt"
+    torch.testing.assert_close(y, want[0], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st, want[1], atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="route"):
+        ssd_chunked(x_odd, dt, Bm, Cm, a, route="tile")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

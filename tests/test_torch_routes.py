@@ -1,15 +1,16 @@
-"""The routes of the kernels that have more than one, on the CPU.
+"""The routes of the kernels, on the CPU.
 
-grouped_matmul, flash_attention_fwd, flash_decode and flash_decode_paged
-pick a route before each CUDA launch (kernels/moe_gmm.py:_route,
-kernels/flash_attention.py:_route, kernels/flash_decode.py:_route): a pure
-function of dtype, shape, strides and alignment, so these tests call it on
-CPU tensors. bf16 operands whose rows are 16-byte aligned take the
+Every kernel picks a route before each CUDA launch (kernels/moe_gmm.py,
+flash_attention.py, flash_decode.py, rwkv6_scan.py, mamba_ssd.py: `_route`):
+a pure function of dtype, shape, strides and alignment, so these tests call
+it on CPU tensors. bf16 operands whose rows are 16-byte aligned take the
 tensor-core routes (the serve path's always are); d or f not a multiple of
 8, an odd element offset, a stride off the 16-byte grid, head dim 256 or
-float32 take the f32-FMA (SIMT) routes. The card tests
-(tests/test_torch_cuda.py) assert the same routes on the launches they make.
-The decode kernels also split each row's positions across blocks by
+float32 take the f32-FMA (SIMT) routes. The chunked WKV6 and SSD kernels
+(float32 only) take their register-tile route ("tile") where the rows are
+16-byte aligned, as the model's views are at every S, else "simt". The card
+tests (tests/test_torch_cuda.py) assert the same routes on the launches they
+make. The decode kernels also split each row's positions across blocks by
 kernels/flash_decode.py:_splits, a pure function of static shapes.
 
 The route sweeps' shapes (C 1..321 across the decode / prefill seam, S 1,
@@ -31,7 +32,7 @@ from repro.kernels.moe_gmm import grouped_matmul as j_gmm
 from repro_torch.kernels import LAUNCHES, ROUTES, _build, reset_launches
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
-from repro_torch.kernels import moe_gmm
+from repro_torch.kernels import mamba_ssd, moe_gmm, rwkv6_scan
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -159,6 +160,81 @@ def test_vec16_ok_reads_base_shape_and_strides():
         (3, 1, 16), (16, 3, 1)))
 
 
+def _wkv6_operands(case):
+    """(r, k, v, w) [B, H, S, hd] f32 for a named rwkv6_chunked case, laid
+    out [B, S, H, hd] as the model hands them over unless noted."""
+    def model(B, S, H=40, hd=64):
+        return tuple(torch.zeros(B, S, H, hd).transpose(1, 2)
+                     for _ in range(4))
+    if case == "rwkv6-3b serve, S 128":
+        return model(8, 128)
+    if case == "S 1":
+        return model(8, 1)
+    if case == "prime S 13":
+        return model(2, 13)
+    if case == "S 1100":
+        return model(1, 1100, 4)
+    if case == "contiguous [B, H, S, hd]":
+        return tuple(torch.zeros(2, 3, 17, 64) for _ in range(4))
+    if case == "odd offset":
+        base = _offset((2, 17, 3, 64), F32).transpose(1, 2)
+        return (base,) + model(2, 17, 3)[1:]
+    if case == "row stride off the grid":
+        rows = torch.zeros(2, 17, 3 * 64 + 2)[..., :3 * 64]
+        return tuple(rows.reshape(2, 17, 3, 64).transpose(1, 2)
+                     for _ in range(4))
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("rwkv6-3b serve, S 128", "tile"), ("S 1", "tile"),
+    ("prime S 13", "tile"), ("S 1100", "tile"),
+    ("contiguous [B, H, S, hd]", "tile"), ("odd offset", "simt"),
+    ("row stride off the grid", "simt"),
+])
+def test_rwkv6_route(case, want):
+    assert rwkv6_scan._route(*_wkv6_operands(case)) == want
+    assert want in ROUTES["rwkv6_chunked"]
+
+
+def _ssd_operands(case):
+    """(x, B_, C_) for a named ssd_chunked case: x [B, H, S, P] and B_, C_
+    [B, S, N] column slices of one [B, S, H P + 2 N] conv output, as the
+    model hands them over, unless noted."""
+    def model(B, S, H=50, P=64, N=16, extra=0):
+        conv = torch.zeros(B, S, H * P + 2 * N + extra)[..., :H * P + 2 * N]
+        x = conv[..., :H * P].reshape(B, S, H, P).transpose(1, 2)
+        return x, conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    if case == "hymba serve, S 128":
+        return model(8, 128)
+    if case == "hymba generate, S 1100":
+        return model(4, 1100)
+    if case == "S 1":
+        return model(8, 1)
+    if case == "prime S 13":
+        return model(2, 13, 4)
+    if case == "bf16 path: x copied, B_ / C_ copied":
+        return (torch.zeros(8, 128, 50, 64).transpose(1, 2),
+                torch.zeros(8, 128, 16), torch.zeros(8, 128, 16))
+    if case == "odd offset of x":
+        x, Bm, Cm = model(2, 13, 4)
+        return _offset((2, 13, 4, 64), F32).transpose(1, 2), Bm, Cm
+    if case == "row stride off the grid":
+        return model(2, 13, 4, extra=1)
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("hymba serve, S 128", "tile"), ("hymba generate, S 1100", "tile"),
+    ("S 1", "tile"), ("prime S 13", "tile"),
+    ("bf16 path: x copied, B_ / C_ copied", "tile"),
+    ("odd offset of x", "simt"), ("row stride off the grid", "simt"),
+])
+def test_ssd_route(case, want):
+    assert mamba_ssd._route(*_ssd_operands(case)) == want
+    assert want in ROUTES["ssd_chunked"]
+
+
 def test_cpu_wrappers_launch_nothing_and_count_no_route():
     """On CPU tensors the wrappers run their plain versions whatever the
     route would be; launches and routes stay at 0, and reset_launches zeroes
@@ -176,19 +252,28 @@ def test_cpu_wrappers_launch_nothing_and_count_no_route():
     tab = torch.tensor([[0, 1], [2, -1]], dtype=torch.int32)
     fd.flash_decode_paged(q1, pool, pool, tab, torch.tensor(
         [7, 3], dtype=torch.int32))
+    wkv = _wkv6_operands("prime S 13")
+    rwkv6_scan.rwkv6_chunked(*wkv, torch.zeros(40, 64))
+    x, Bm, Cm = _ssd_operands("prime S 13")
+    mamba_ssd.ssd_chunked(x, torch.zeros(2, 4, 13), Bm, Cm,
+                          -torch.ones(4))
     assert all(n == 0 for n in LAUNCHES.values())
     assert all(n == 0 for r in ROUTES.values() for n in r.values())
     _build.count("grouped_matmul", "tc_prefill")
     _build.count("flash_attention_fwd", "tc")
     _build.count("flash_decode", "simt_f32")
     _build.count("flash_decode_paged", "tc")
+    _build.count("rwkv6_chunked", "tile")
+    _build.count("ssd_chunked", "simt")
     assert LAUNCHES["grouped_matmul"] == ROUTES["grouped_matmul"][
         "tc_prefill"] == 1
+    assert LAUNCHES["rwkv6_chunked"] == ROUTES["rwkv6_chunked"]["tile"] == 1
+    assert LAUNCHES["ssd_chunked"] == ROUTES["ssd_chunked"]["simt"] == 1
     assert LAUNCHES["flash_decode_paged"] == ROUTES["flash_decode_paged"][
         "tc"] == 1
     reset_launches()
     assert all(n == 0 for r in ROUTES.values() for n in r.values())
-    assert LAUNCHES["flash_attention_fwd"] == LAUNCHES["flash_decode"] == 0
+    assert all(n == 0 for n in LAUNCHES.values())
 
 
 @pytest.mark.parametrize("C", [1, 8, 16, 17, 100, 321])
