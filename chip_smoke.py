@@ -90,7 +90,24 @@ Phases (each prints a line; any failure exits nonzero):
      moves the capacity drops of its whole group);
  14. granite-moe-1b-a400m through Engine.generate (batch 8 x prompt 128 +
      32, flash_decode and grouped_matmul), then a profiled short run;
- 15. one JSON line of per-kernel numbers.
+ 15. train-step: qwen3-0.6b at full width and depth (f32 params, adamw
+     lr 1e-3) through Engine.step() for 6 waves of batch 16 x seq 512 (Nm
+     16: 1-row microbatches) on the default device, the parameter server
+     on the host: wave ms, tokens/s, peak device memory, the per-wave push
+     (D2H + PS apply) and pull (PS snapshot + H2D) ms and the loss
+     sequence; every loss finite, the last below the first, every tensor
+     of the worker on the card, no kernel launched (training runs the
+     plain path, as the JAX package's); then a profiled wave;
+ 16. train-parity: one wave of reduced qwen3-0.6b on the card against the
+     same wave on the CPU in this process: loss, grads and adamw deltas;
+ 17. fleet: Engine.fit() at full width — single_node (2 VWs, WSP D 1) and
+     bsp_baseline (2 VWs), 4 waves each of batch 16 x seq 256 in 4-row
+     microbatches (Nm 4), and
+     paper_hetero (4 VWs, D 2, async push, pull_every 2) at qwen3's widths
+     on 4 layers: per-VW wave ms, gate waits, overlap seconds, peak
+     memory; the staleness audit (max distance <= D) holds and every loss
+     is finite;
+ 18. one JSON line of per-kernel numbers.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script fails before printing any
 result. It imports neither jax nor the JAX package.
@@ -186,16 +203,18 @@ def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def profile_run(label, run):
-    """Profile one short run (`run()` returns its ServeReport): wall time,
+def profile_run(label, run, cpu=True):
+    """Profile one short run (`run()` returns its ServeReport, or anything
+    else for a training wave; cpu=False records the device's activity
+    only, for runs of many thousands of ops): wall time,
     device busy time (the sum of CUDA kernel and copy durations), the
     device's idle share and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu +
+                 [ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         rep = run()
         torch.cuda.synchronize()
@@ -219,8 +238,9 @@ def profile_run(label, run):
             "attn_kernel", "gmm_kernel", "gmm_tc_decode", "gmm_tc_prefill",
             "wkv6_kernel", "wkv6_tile_kernel", "ssd_kernel",
             "ssd_tile_kernel"))}
-    log("profile", f"{label} ({rep.decode_steps} decode steps, "
-        f"{rep.prefill_calls} prefills) "
+    detail = (f" ({rep.decode_steps} decode steps, {rep.prefill_calls} "
+              f"prefills)" if hasattr(rep, "decode_steps") else "")
+    log("profile", f"{label}{detail} "
         f"under torch.profiler: wall {wall * 1e3:.1f} ms, device busy "
         f"{busy * 1e3:.1f} ms, idle share {1 - busy / wall:.3f}, "
         f"{sum(n for _, n in by_name.values())} device kernels/copies; "
@@ -292,6 +312,217 @@ def bf16_copy(params):
     return {k: ({n: t.to(torch.bfloat16) for n, t in v.items()}
                 if k == "blocks" else v.to(torch.bfloat16))
             for k, v in params.items()}
+
+
+def _on_device(tree, dev) -> bool:
+    """Every tensor leaf of a tree lives on `dev`'s device type."""
+    import torch
+    from repro_torch.core import tree as tree_lib
+    return all(t.device.type == dev.type for t in tree_lib.leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def train_phases(dev):
+    """Phases 15-17: training at full width (see the module docstring)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (ClusterSpec, Engine, PartitionSpec, Plan,
+                                 RunSpec, WSP, get_preset)
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.core.wave import build_local_wave_step, wave_grads
+    from repro_torch.data.pipeline import MarkovLM, ShardedLoader
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.obs import Tracer
+    from repro_torch.optim import make_optimizer
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    q = ARCHS["qwen3-0.6b"]
+    free()
+
+    # ---- 15. train-step ------------------------------------------------
+    t_phase = time.monotonic()
+    TB, TS, NW = 16, 512, 6
+    eng = Engine(Plan(arch=q, cluster=ClusterSpec(num_vw=1), sync=WSP(D=0),
+                      run=RunSpec(max_waves=NW, batch=TB, seq=TS,
+                                  optimizer="adamw", lr=1e-3)))
+    if eng.device.type != dev.type:
+        raise AssertionError(f"Engine(plan) trains on {eng.device}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, steps = [], []
+    for _ in range(NW):
+        t0 = time.monotonic()
+        losses.append(eng.step())
+        torch.cuda.synchronize()
+        steps.append(dict(eng.step_times, total_s=time.monotonic() - t0))
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    ctx = eng._step_ctx
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train-step: losses {losses}")
+    if not (_on_device(ctx["params"], dev) and
+            _on_device(ctx["opt_state"], dev) and
+            _on_device(eng._params, dev)):
+        raise AssertionError("train-step: a worker tensor left the card")
+    if launched:
+        raise AssertionError(f"train-step: kernels launched {launched}; "
+                             f"training runs the plain path")
+    wave = [1e3 * s["wave_s"] for s in steps]
+    med = float(np.median(wave[1:]))
+    ms = lambda k: float(np.median([1e3 * s[k] for s in steps[1:]]))
+    log("train", f"qwen3-0.6b full width ({q.num_layers} layers, "
+        f"{sum(t.numel() for t in tree_lib.leaves(eng._params)):,} params, "
+        f"f32, adamw 1e-3), Engine.step() x {NW} at batch {TB} x seq {TS}, "
+        f"Nm {q.num_microbatches}: wave ms first {wave[0]:.1f}, median of "
+        f"the rest {med:.1f} ({', '.join(f'{w:.1f}' for w in wave)}); "
+        f"{TB * TS / (med / 1e3):.1f} tokens/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB; per wave (median of waves 2-{NW}): push "
+        f"{ms('push_s'):.1f} ms (D2H {ms('d2h_s'):.1f} of it, "
+        f"{ctx['staging'].nbytes / 2**20:.0f} MiB), pull {ms('pull_s'):.1f} "
+        f"ms (H2D {ms('h2d_s'):.1f} of it), step total "
+        f"{ms('total_s'):.1f} ms; losses "
+        f"{', '.join(f'{l:.4f}' for l in losses)}; kernels launched: none; "
+        f"{time.monotonic() - t_phase:.1f} s")
+    profile_run("train-step: one Engine.step() wave", eng.step, cpu=False)
+    del eng, ctx
+    free()
+    log("train", f"phase 15 took {time.monotonic() - t_phase:.1f} s")
+
+    # ---- 16. train-parity: the card against the CPU ------------------
+    t_phase = time.monotonic()
+    ra = reduced(q)
+    nm = ra.num_microbatches
+    pcpu = lm.init_params(ra, torch.Generator().manual_seed(0))
+    x, y = ShardedLoader(MarkovLM(ra.vocab_size, seed=0), 8, 64, 0, 1,
+                         seed=17).next()
+    out = {}
+    for where in ("cpu", "cuda"):
+        p = tree_lib.tree_map(lambda t: t.to(where), pcpu)
+        opt = make_optimizer("adamw", 1e-3)
+        d, _, loss = build_local_wave_step(ra, nm, opt)(p, opt.init(p), x, y)
+        _, g = wave_grads(ra, nm, p, torch.as_tensor(x, device=where),
+                          torch.as_tensor(y, device=where))
+        out[where] = (float(loss), tree_lib.flatten_with_path(g),
+                      tree_lib.flatten_with_path(d))
+    # grads: the head product's operand grads are rounded to bf16 on both
+    # devices (trap T4), so where the two f32 sums differ in their last
+    # bits an element lands on the neighbouring bf16 value: one bf16 step
+    # of the element (2^-8 |g|, the tied embedding's head part) plus 5e-4
+    # of the leaf's largest |g| (what such a step does downstream) + 1e-8.
+    # adamw's first delta is about -lr sign(g): compared within 1e-7 where
+    # |g| > 10 x (5e-4 max|g| + 1e-8) and > 1e-5, bounded by lr (1 + wd
+    # |p|) elsewhere.
+    (lc, gc_, dc), (lg, gg, dg) = out["cpu"], out["cuda"]
+    if abs(lc - lg) > 1e-5:
+        raise AssertionError(f"train-parity: loss cpu {lc} cuda {lg}")
+    worst_g = worst_d = 0.0
+    covered = []
+    pc = dict(tree_lib.flatten_with_path(pcpu))
+    for (path, a), (_, b), (_, da), (_, db) in zip(gc_, gg, dc, dg):
+        a, b = a.numpy(), b.cpu().numpy()
+        da, db = da.numpy(), db.cpu().numpy()
+        tol = 5e-4 * float(np.abs(a).max()) + 1e-8
+        over = np.abs(a - b) - 2.0 ** -8 * np.abs(a) - tol
+        if over.max() > 0:
+            raise AssertionError(f"train-parity: grad {path} off by "
+                                 f"{float(np.abs(a - b).max())}")
+        worst_g = max(worst_g, float(np.abs(a - b).max()) /
+                      (float(np.abs(a).max()) + 1e-30))
+        res = (np.abs(a) > 10 * tol) & (np.abs(a) > 1e-5)
+        ed = float(np.abs(da - db)[res].max()) if res.any() else 0.0
+        bound = 1e-3 * (1 + 0.1 * np.abs(pc[path].numpy())) + 1e-9
+        if ed > 1e-7 or np.any(np.abs(db) > bound):
+            raise AssertionError(f"train-parity: delta {path} {ed}")
+        worst_d = max(worst_d, ed)
+        if a.ndim >= 2:
+            covered.append(res.mean())
+    log("train", f"train-parity: reduced qwen3-0.6b ({ra.num_layers} "
+        f"layers, d {ra.d_model}), one adamw wave of 8 x 64 (Nm {nm}) on "
+        f"the card against the CPU: loss {lg:.6f} / {lc:.6f}; grads within "
+        f"{worst_g:.2e} of each leaf's max (tolerance 2^-8 of the element "
+        f"+ 5e-4 of the max); deltas within "
+        f"{worst_d:.2e} where |g| is resolved (tolerance 1e-7; "
+        f"{min(covered):.3f}-{max(covered):.3f} of each matrix); "
+        f"{time.monotonic() - t_phase:.1f} s")
+    free()
+
+    # ---- 17. fleet: fit() at full width --------------------------------
+    # 4-row microbatches (Nm 4): a wave's host dispatch is a quarter of
+    # phase 15's, so the phase stays short
+    run = RunSpec(max_waves=4, batch=16, seq=256, optimizer="adamw",
+                  lr=1e-3)
+    part = PartitionSpec(num_microbatches=4)
+    fleet = [("single_node", get_preset("single_node").replace(
+                 arch=q, run=run, partition=part)),
+             ("bsp_baseline", get_preset("bsp_baseline").replace(
+                 arch=q, run=run, partition=part)),
+             ("paper_hetero", get_preset("paper_hetero").replace(
+                 arch=dataclasses.replace(q, num_layers=4), run=run,
+                 partition=part))]
+    def fleet_run(name, plan):
+        """fit() one fleet Plan, check and print it; everything it builds
+        is freed when it returns."""
+        t_phase = time.monotonic()
+        tracer = Tracer()
+        eng = Engine(plan, tracer=tracer)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rep = eng.fit()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        by_vw = rep.losses_by_worker()
+        if len(by_vw) != plan.cluster.num_vw or not all(
+                np.all(np.isfinite(v)) and len(v) == run.max_waves
+                for v in by_vw.values()):
+            raise AssertionError(f"fleet {name}: losses {by_vw}")
+        audit = "BSP: no staleness"
+        if eng.workers:
+            smax = rep.telemetry.staleness_max()
+            if smax is None or smax > plan.sync.D or \
+                    rep.telemetry.counters.get("wsp/staleness_violations"):
+                raise AssertionError(f"fleet {name}: staleness {smax} > "
+                                     f"D {plan.sync.D}")
+            audit = f"staleness max {smax:.0f} <= D {plan.sync.D}"
+            for w in eng.workers.values():
+                if not (_on_device(w.params, dev) and
+                        _on_device(w.opt_state, dev)):
+                    raise AssertionError(f"fleet {name}: {w.wid} state "
+                                         f"left the card")
+            per = {wid: (f"wave {1e3 * np.median(w.metrics.wave_times):.1f} "
+                         f"ms, push {1e3 * np.median(w.metrics.push_s):.1f} "
+                         f"ms, pull {1e3 * np.median(w.metrics.pull_s):.1f} "
+                         f"ms, overlap {w.metrics.overlap_seconds:.2f} s")
+                   for wid, w in sorted(eng.workers.items())}
+        else:
+            if not _on_device(eng._params, dev):
+                raise AssertionError(f"fleet {name}: weights left the card")
+            per = {}
+        waits = {k: round(v, 3) for k, v in rep.wait_seconds.items()}
+        ends = {k: (round(v[0], 3), round(v[-1], 3))
+                for k, v in sorted(by_vw.items())}
+        log("train", f"fleet {name} ({plan.describe()}, "
+            f"{plan.arch.num_layers} layers, batch 16 x seq 256, Nm 4): "
+            f"{rep.waves} waves in {rep.wall_s:.1f} s; per VW: {per}; gate "
+            f"waits {waits}; overlap {rep.overlap_seconds:.2f} s; pushed "
+            f"{rep.bytes_pushed / 2**30:.2f} GiB (wire "
+            f"{rep.bytes_wire / 2**30:.2f}), modeled network "
+            f"{rep.comm_seconds:.2f} s; losses first/last per VW {ends}; "
+            f"{audit}; peak device memory {peak / 2**30:.2f} GiB (held "
+            f"before the run {held / 2**30:.2f}); "
+            f"{time.monotonic() - t_phase:.1f} s")
+
+    for name, plan in fleet:
+        fleet_run(name, plan)
+        free()
 
 
 def main() -> int:
@@ -1517,7 +1748,10 @@ def main() -> int:
          "flash_decode": ("decode", NG)})
     del gparams_bf16
 
-    # ---- 15. the kernels line ------------------------------------------
+    # ---- 15-17. training ------------------------------------------------
+    train_phases(dev)
+
+    # ---- 18. the kernels line ------------------------------------------
     src = {"flash_attention_fwd": ("src/repro_torch/kernels/csrc/"
                                    "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:94"),

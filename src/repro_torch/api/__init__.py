@@ -1,23 +1,26 @@
-"""repro_torch.api — the declarative serve surface of the port.
+"""repro_torch.api — the declarative experiment surface of the port.
 
     from repro_torch.api import Engine, get_preset
+    report = Engine(get_preset("single_node")).fit()          # WSP training
     from repro_torch.api.serving import Request, Scheduler
     report = Scheduler(Engine(get_preset("serve_kernels"))).run(requests)
 
 Plans are frozen and validated at construction (repro_torch.api.plan); the
-Engine runs serve Plans on the CUDA card (or device="cpu"), and
-repro_torch.api.serving adds the continuous-batching Scheduler.
+Engine runs them on the CUDA card (or device="cpu"): fit()/step() train
+under WSP, ASP or BSP, and repro_torch.api.serving adds the
+continuous-batching Scheduler.
 """
 from repro_torch.api.engine import Engine
 from repro_torch.api.plan import (ClusterSpec, PartitionSpec, Plan, RunSpec,
                                   ServeSpec)
 from repro_torch.api.presets import PRESETS, get_preset, list_presets
-from repro_torch.api.report import RequestStats, ServeReport, Telemetry
+from repro_torch.api.report import (RequestStats, ServeReport, Telemetry,
+                                    TrainReport)
 from repro_torch.api.sync import ASP, BSP, SyncPolicy, UNBOUNDED_D, WSP
 
 __all__ = [
     "ASP", "BSP", "ClusterSpec", "Engine", "PRESETS", "PartitionSpec",
     "Plan", "RequestStats", "RunSpec", "ServeReport", "ServeSpec",
-    "SyncPolicy", "Telemetry", "UNBOUNDED_D", "WSP", "get_preset",
-    "list_presets",
+    "SyncPolicy", "Telemetry", "TrainReport", "UNBOUNDED_D", "WSP",
+    "get_preset", "list_presets",
 ]

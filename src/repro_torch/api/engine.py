@@ -1,6 +1,20 @@
-"""The Engine: one facade executing a serve Plan (repro.api.engine's serve
-half) for the dense GQA, sliding-window, attention-free RWKV6 and SSD
-hybrid families.
+"""The Engine: one facade executing a Plan (the port of repro.api.engine,
+threads backend).
+
+fit() dispatches on the Plan's SyncPolicy:
+
+  WSP / ASP     threaded virtual-worker fleet against the sharded parameter
+                server (true async, D >= 0, stragglers, periodic checkpoint,
+                elastic fail/rejoin)
+  BSP           the synchronous AllReduce loop (ring all-reduce of every
+                wave's deltas, simulated straggler-gated clock)
+
+step() runs one synchronous wave of a one-worker fleet; save()/restore()
+checkpoint atomically and resume exactly. Each worker's params, grads,
+optimizer state and deltas live on the Engine's device; the parameter
+server keeps w_global in host memory, and each wave's deltas and pulls
+cross in one flat copy (runtime.staging). Training runs f32 (the JAX
+threads path never casts, trap T8).
 
 Serve-mode Plans (Plan.serve = ServeSpec) run on the threads backend
 through the non-pipelined `lm.forward_ref` cache path:
@@ -27,21 +41,42 @@ through the non-pipelined `lm.forward_ref` cache path:
 The JAX Engine jit-compiles these steps; here they run eagerly under
 torch.inference_mode(), writing the caches in place. Entry points run on
 the CUDA card unless the caller passes device="cpu" — then the kernels'
-wrappers take their plain PyTorch versions. Training (fit/step), the spmd
-backend, faults and the Router are later ROADMAP items.
+wrappers take their plain PyTorch versions. The spmd backend (ROADMAP
+Queue 1 item 9), fault scenarios and the fleet supervisor (item 7) and
+the Router (item 8) are not ported.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
+import threading
 import time
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.api.plan import Plan
-from repro_torch.api.report import ServeReport, Telemetry
+from repro_torch.api.report import ServeReport, Telemetry, TrainReport
+from repro_torch.api.sync import BSP, WSP
+from repro_torch.core import tree as tree_lib
+from repro_torch.core.param_server import ParameterServer, host_array
+from repro_torch.data.pipeline import MarkovLM, ShardedLoader
+from repro_torch.dist import collectives
+from repro_torch.dist.topology import make_topology
+from repro_torch.dist.transport import SimulatedTransport
 from repro_torch.models import lm
 from repro_torch.obs import NULL_TRACER
+from repro_torch.obs.metrics import SECONDS_BOUNDS
+from repro_torch.runtime.checkpoint import (latest_checkpoint,
+                                            load_checkpoint, save_checkpoint)
+from repro_torch.runtime.staging import HostStaging, add_, device_tree
+from repro_torch.runtime.virtual_worker import VirtualWorker
 from repro_torch.serve import cache as cache_lib
+
+# host seconds a worker waits at the WSP staleness gate before the typed
+# GateTimeout (the JAX package's FaultPolicy.gate_timeout_s default)
+GATE_TIMEOUT_S = 120.0
 
 
 def resolve_device(device=None) -> torch.device:
@@ -67,32 +102,476 @@ def sample_key(*parts) -> int:
 
 
 class Engine:
-    """Executes a serve Plan. Params are drawn from the Plan's ArchConfig
-    (a torch.Generator seeded with run.seed, in run.compute_dtype) unless
-    injected — `lm.params_from_numpy` carries the JAX package's weights."""
+    """Executes a Plan. Model artifacts (params / wave step / optimizer) are
+    built from the Plan's ArchConfig by default (params from a
+    torch.Generator seeded with run.seed); tests and the legacy shims may
+    inject prebuilt ones instead — `lm.params_from_numpy` carries the JAX
+    package's weights."""
 
-    def __init__(self, plan: Plan, *, params=None, tracer=None, device=None):
+    def __init__(self, plan: Plan, *, params=None, wave_step=None,
+                 optimizer=None, tracer=None, device=None):
         if not isinstance(plan, Plan):
             raise TypeError(f"Engine wants a Plan, got {type(plan).__name__}")
-        if plan.arch is None:
-            raise ValueError("Plan.arch is unset: the Engine builds the "
-                             "model from the architecture")
+        if plan.arch is None and (params is None or wave_step is None
+                                  or optimizer is None):
+            raise ValueError("Plan.arch is unset: inject params, wave_step "
+                             "and optimizer, or give the Plan an ArchConfig")
         self.plan = plan
         self.device = resolve_device(device)
+        # the tracer is runtime state, not Plan state: it cascades into the
+        # PS, transport, workers and scheduler this engine builds
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self._params = params
+        self._wave_step = wave_step
+        self._optimizer = optimizer
+        self.ps: Optional[ParameterServer] = None
+        self.topology = None
+        self.workers: dict[str, VirtualWorker] = {}
+        self.stop_event = threading.Event()
+        self.report: Optional[TrainReport] = None
+        self.step_times: dict = {}  # the last step()'s wave / copy / PS secs
+        self._source = None
+        self._step_ctx = None      # lazy state for step()
         self._serve = None         # lazy state for the serve surface
         self._serve_paged = None   # lazy paged (CacheStore) executors
+        self._step_offset = 0      # waves already in a restored checkpoint
+        self._fleet_ran = False    # the threaded fleet is single-shot
+        self._bsp_wave = 0         # waves the BSP loop has run (this engine)
 
     # ------------------------------------------------------------------
-    def fit(self, **_):
-        raise NotImplementedError("training (Engine.fit/step under WSP) is "
-                                  "ROADMAP Queue 1 items 2-3")
+    # materialization
+    # ------------------------------------------------------------------
+    def _ensure_model(self):
+        from repro_torch.core import wave
+        from repro_torch.optim import make_optimizer
+        plan, run, cfg = self.plan, self.plan.run, self.plan.arch
+        if cfg is not None and cfg.frontend != "none":
+            raise NotImplementedError(f"{cfg.name}: stub frontends are "
+                                      f"ROADMAP Queue 1 item 5")
+        if self._optimizer is None:
+            self._optimizer = make_optimizer(run.optimizer, run.lr,
+                                             run.weight_decay)
+        if self._params is None:
+            gen = torch.Generator(device=self.device).manual_seed(run.seed)
+            self._params = lm.init_params(cfg, gen, dtype=torch.float32,
+                                          device=self.device)
+        if self._wave_step is None:
+            self._wave_step = wave.build_local_wave_step(
+                cfg, plan.num_microbatches, self._optimizer)
+        if self._source is None:
+            self._source = MarkovLM(plan.vocab, seed=run.data_seed)
+
+    def _ensure_ps(self, policy: WSP):
+        if self.ps is not None:
+            return
+        plan = self.plan
+        topo = plan.cluster.topology
+        if isinstance(topo, str):
+            topo = make_topology(topo, plan.cluster.num_vw)
+        self.topology = topo
+        transport = (SimulatedTransport(topo,
+                                        time_scale=plan.cluster.time_scale,
+                                        tracer=self.tracer)
+                     if topo is not None else None)
+        self.ps = ParameterServer(
+            self._params, D=policy.D,
+            compression_ratio=plan.run.compression_ratio,
+            codec=plan.run.codec, transport=transport, tracer=self.tracer)
+
+    def _loader(self, i: int, num_vw: int) -> ShardedLoader:
+        run = self.plan.run
+        return ShardedLoader(self._source, run.batch, run.seq, i, num_vw,
+                             seed=17)
+
+    def _tick_plan(self):
+        """(schedule, ticks) of the Plan's modeled intra-VW pipeline, or
+        None untraced or when the Plan carries no arch."""
+        if not self.tracer.enabled or self.plan.arch is None:
+            return None
+        from repro_torch.core import wave
+        return wave.tick_schedule(self.plan.stages,
+                                  self.plan.num_microbatches,
+                                  overlap=self.plan.run.overlap)
 
     def attach_telemetry(self, report):
-        """Attach the metrics snapshot to `report` — no-op untraced."""
-        if self.tracer.enabled:
-            report.telemetry = Telemetry.from_metrics(self.tracer.metrics)
+        """Record end-of-run gauges (staleness bound, per-link traffic) and
+        attach the metrics snapshot to `report` — no-op untraced."""
+        if not self.tracer.enabled:
+            return report
+        m = self.tracer.metrics
+        if isinstance(report, TrainReport):
+            if isinstance(self.plan.sync, WSP):
+                m.gauge_set("wsp/D", self.plan.sync.D)
+            if self.ps is not None:
+                stats = self.ps.transport.stats()
+                for name, b in stats["bytes_by_link"].items():
+                    m.gauge_set(f"link/{name}/bytes", b)
+                for name, sec in stats["seconds_by_link"].items():
+                    m.gauge_set(f"link/{name}/modeled_s", sec)
+        report.telemetry = Telemetry.from_metrics(m)
+        return report
+
+    # ------------------------------------------------------------------
+    # training surface: fit / step / save / restore
+    # ------------------------------------------------------------------
+    def fit(self, *, rejoin_failed_after: Optional[float] = None,
+            callback: Optional[Callable] = None) -> TrainReport:
+        """Run the Plan to completion and return its TrainReport.
+        `callback(wave, loss, seconds)` is invoked per wave by the BSP loop;
+        the threaded fleet reports at the end."""
+        plan = self.plan
+        if plan.serve is not None:
+            raise ValueError("this Plan describes serving (Plan.serve is "
+                             "set); run it through Engine.generate() — "
+                             "fit() trains")
+        if plan.run.resume and plan.run.ckpt_dir:
+            self.restore()
+        with self.tracer.span("engine", "fit", backend=plan.run.backend,
+                              sync=plan.sync.describe()):
+            self.report = plan.sync.execute(
+                self, rejoin_failed_after=rejoin_failed_after,
+                callback=callback)
+        return self.attach_telemetry(self.report)
+
+    def step(self) -> float:
+        """One synchronous wave with single-worker semantics (worker vw0
+        against the parameter server). Returns the wave's loss;
+        `step_times` holds its wave, D2H, push, pull and H2D seconds."""
+        if self.plan.serve is not None:
+            raise ValueError("step() drives a training wave; this Plan "
+                             "serves — use prefill()/decode()/generate()")
+        policy = self.plan.sync
+        if not isinstance(policy, WSP):
+            raise ValueError(
+                f"step() drives the parameter-server runtime and supports "
+                f"WSP/ASP policies; this Plan's {policy.describe()} runs "
+                f"only through fit()")
+        self._ensure_model()
+        self._ensure_ps(policy)
+        if self._step_ctx is None:
+            wid = "vw0"
+            self.ps.register(wid)
+            params = device_tree(self.ps.pull(wid), self.device)
+            self._step_ctx = {
+                "wid": wid,
+                "loader": self._loader(0, 1),
+                "params": params,
+                "opt_state": self._optimizer.init(params),
+                "staging": HostStaging(params, self.device),
+            }
+        ctx = self._step_ctx
+        wid, staging = ctx["wid"], ctx["staging"]
+        # raises the typed GateTimeout if the gate never opens
+        self.ps.gate(wid, timeout=GATE_TIMEOUT_S)
+        times = {}
+        with self.tracer.span("engine", "step"):
+            t0 = time.monotonic()
+            x, y = ctx["loader"].next()
+            deltas, ctx["opt_state"], loss = self._wave_step(
+                ctx["params"], ctx["opt_state"], x, y)
+            loss = float(loss)
+            times["wave_s"] = time.monotonic() - t0
+            t0 = time.monotonic()
+            host = staging.to_host(deltas)
+            times["d2h_s"] = staging.d2h_s
+            wave = self.ps.push_wave(wid, host)
+            times["push_s"] = time.monotonic() - t0
+        # mirror VirtualWorker's weight handling so fit() and step() agree:
+        # local weights see their own wave immediately, w_global is pulled
+        # every pull_every waves
+        if policy.pull_every != 1:
+            add_(ctx["params"], deltas)
+        if policy.pull_every and wave % policy.pull_every == 0:
+            t0 = time.monotonic()
+            staging.to_device(self.ps.pull(wid), ctx["params"])
+            times["pull_s"] = time.monotonic() - t0
+            times["h2d_s"] = staging.h2d_s
+        self.step_times = times
+        return loss
+
+    def save(self, ckpt_dir: Optional[str] = None) -> str:
+        """Checkpoint the training state atomically (PS weights + WSP clocks
+        are snapshotted under the push lock, so an in-flight async push is
+        either entirely in the checkpoint or entirely out)."""
+        ckpt_dir = ckpt_dir or self.plan.run.ckpt_dir
+        if not ckpt_dir:
+            raise ValueError("no checkpoint directory: set run.ckpt_dir or "
+                             "pass one to save()")
+        if self.ps is not None:
+            params, meta = self.ps.checkpoint_state()
+            step = min(meta["clocks"].values()) if meta["clocks"] else \
+                meta["push_count"]
+            return save_checkpoint(ckpt_dir, self._step_offset + step,
+                                   {"params": params}, meta)
+        self._ensure_model()
+        step = self._step_offset + self._bsp_wave
+        return save_checkpoint(ckpt_dir, step, {"params": self._params},
+                               {"wave": step})
+
+    def restore(self, path: Optional[str] = None) -> Optional[dict]:
+        """Load the latest (or given) checkpoint's weights into the engine;
+        returns the checkpoint meta, or None if there is nothing to restore.
+        Worker clocks restart at zero (max_waves counts waves of this run),
+        but new checkpoints continue the restored step numbering so a later
+        latest_checkpoint() never resolves to pre-resume state."""
+        path = path or (latest_checkpoint(self.plan.run.ckpt_dir)
+                        if self.plan.run.ckpt_dir else None)
+        if path is None:
+            return None
+        self._ensure_model()
+        out, meta = load_checkpoint(path, {"params": self._params})
+        self._step_offset = int(meta.get("step", 0))
+        self._params = out["params"]
+        if self.ps is not None:
+            leaves = [host_array(l).astype(np.float32).ravel()
+                      for l in tree_lib.leaves(self._params)]
+            self.ps.load_state_dict({"flat": leaves,
+                                     "clocks": dict(self.ps.clock.state.clocks),
+                                     "push_count": self.ps.push_count})
+        if self._serve is not None:
+            self._serve["params"] = self._params
+        return meta
+
+    # ------------------------------------------------------------------
+    # threads backend: WSP / ASP (policy.execute lands here)
+    # ------------------------------------------------------------------
+    def _make_worker(self, i: int, wid: str, policy: WSP, *,
+                     successor: bool = False) -> VirtualWorker:
+        cl = self.plan.cluster
+        speeds = cl.speeds or (0.0,) * cl.num_vw
+        straggle = cl.straggle_fns or (None,) * cl.num_vw
+        # a rejoined successor does not replay its predecessor's death
+        return VirtualWorker(
+            wid, self.ps, self._wave_step, self._loader(i, cl.num_vw),
+            self._optimizer.init, device=self.device,
+            max_waves=self.plan.run.max_waves,
+            pull_every=policy.pull_every,
+            slowdown=speeds[i], straggle_fn=straggle[i],
+            stop_event=self.stop_event,
+            fail_at_wave=None if successor else cl.fail_map().get(i),
+            async_push=policy.async_push,
+            tracer=self.tracer, D=policy.D, tick_plan=self._tick_plan(),
+            gate_timeout_s=GATE_TIMEOUT_S)
+
+    def _rejoin_poll(self, policy: WSP, failures: dict, rejoins: list,
+                     delay: float) -> bool:
+        """One pass of the elastic-rejoin watch (fit(rejoin_failed_after=)):
+        record each worker that failed and exited (`failures`: wid ->
+        _Failure), and once `delay` host seconds have passed spawn its
+        successor ('vw2' -> 'vw2r'), which registers at the global clock
+        and pulls w_global. Returns True while a recorded failure still
+        owes its successor. (Heartbeat eviction of stalled workers is the
+        fleet supervisor's, ROADMAP Queue 1 item 7.)"""
+        for wid, w in list(self.workers.items()):
+            if w.failed and not w.is_alive() and wid not in failures:
+                failures[wid] = _Failure(self.ps.clock.global_clock())
+                self.tracer.instant("engine", "evict", wid=wid)
+        pending = False
+        for wid, f in failures.items():
+            if f.rejoined:
+                continue
+            if time.monotonic() - f.t < delay:
+                pending = True
+                continue
+            f.rejoined = 1
+            new_wid = wid + "r"
+            while new_wid in self.workers:
+                new_wid += "r"
+            i = int(wid[2:].rstrip("r"))
+            if self.topology is not None and \
+                    f"vw{i}" in self.topology.pod_of:
+                # the successor lives on the failed worker's node as far as
+                # the network model is concerned
+                self.topology.add_alias(new_wid, f"vw{i}")
+            nw = self._make_worker(i, new_wid, policy, successor=True)
+            self.workers[new_wid] = nw
+            nw.start()
+            rejoins.append(new_wid)
+            self.tracer.instant("engine", "rejoin", wid=new_wid,
+                                for_wid=wid)
+        return pending
+
+    def _fit_threaded(self, policy: WSP, *,
+                      rejoin_failed_after: Optional[float] = None,
+                      callback: Optional[Callable] = None) -> TrainReport:
+        del callback       # per-worker losses are reported at the end
+        if self._fleet_ran:
+            # a fresh fleet would find the PS clocks already at max_waves
+            # and exit with an empty report — fail loudly instead
+            raise RuntimeError(
+                "this Engine's worker fleet already ran; build a new Engine "
+                "(with run.resume=True to continue from a checkpoint)")
+        self._fleet_ran = True
+        self._ensure_model()
+        self._ensure_ps(policy)
+        plan, run = self.plan, self.plan.run
+        num_vw = plan.cluster.num_vw
+        t0 = time.monotonic()
+        # register the whole initial fleet before any worker thread runs: a
+        # late-registering worker would otherwise start at the already-
+        # advanced global clock and silently skip its first waves
+        for i in range(num_vw):
+            self.ps.register(f"vw{i}")
+        for i in range(num_vw):
+            wid = f"vw{i}"
+            self.workers[wid] = self._make_worker(i, wid, policy)
+            self.workers[wid].start()
+        ckpt_step = 0
+        failures: dict = {}        # wid -> _Failure (rejoin watch)
+        rejoins: list = []
+        periodic = bool(run.ckpt_dir and run.ckpt_every) or \
+            rejoin_failed_after is not None
+        if not periodic:
+            for w in list(self.workers.values()):
+                w.join()
+        pending = False
+        while periodic and (pending or
+                            any(w.is_alive() for w in self.workers.values())):
+            # wake on wave completion / worker exit rather than busy-polling
+            self.ps.push_event.wait(timeout=0.05)
+            self.ps.push_event.clear()
+            if rejoin_failed_after is not None:
+                pending = self._rejoin_poll(policy, failures, rejoins,
+                                            rejoin_failed_after)
+            # periodic checkpoint (PS + clocks, snapshotted atomically)
+            if run.ckpt_dir and run.ckpt_every:
+                gc = self.ps.clock.global_clock()
+                if gc >= ckpt_step + run.ckpt_every:
+                    ckpt_step = gc
+                    params, meta = self.ps.checkpoint_state()
+                    save_checkpoint(run.ckpt_dir, self._step_offset + gc,
+                                    {"params": params}, meta)
+        if run.ckpt_dir and run.ckpt_every:
+            # final checkpoint: the loop may exit the moment the last worker
+            # dies, before the last periodic write
+            gc = self.ps.clock.global_clock()
+            if gc > ckpt_step:
+                params, meta = self.ps.checkpoint_state()
+                save_checkpoint(run.ckpt_dir, self._step_offset + gc,
+                                {"params": params}, meta)
+        report = TrainReport()
+        for wid, w in self.workers.items():
+            for t, l in zip(w.metrics.wall_clock, w.metrics.losses):
+                report.losses.append((t, wid, l))
+            report.waves += w.metrics.waves
+            report.overlap_seconds += w.metrics.overlap_seconds
+            report.push_wait_seconds += w.metrics.push_wait_seconds
+            report.gate_timeouts += w.metrics.gate_timeouts
+            if w.failed:
+                report.crashes += 1
+        report.waves_requested = run.max_waves * num_vw
+        report.wall_s = time.monotonic() - t0
+        report.wait_seconds = dict(self.ps.clock.wait_seconds)
+        report.bytes_pushed = self.ps.bytes_pushed
+        report.bytes_wire = self.ps.bytes_wire
+        report.comm_seconds = self.ps.comm_seconds
+        report.comm = self.ps.transport.stats()
+        report.late_pushes = self.ps.late_pushes
+        report.evictions = [(wid, f.at_clock, "crashed", f.rejoined)
+                            for wid, f in failures.items()]
+        report.rejoins = rejoins
+        # fail loudly on silent degradation: a run that timed out at the
+        # staleness gate, or lost a worker to a typed fault without a
+        # successor taking over, did NOT do the work the Plan requested
+        degraded = []
+        for wid, w in self.workers.items():
+            if w.metrics.gate_timeouts:
+                degraded.append(f"{wid}: staleness gate timed out")
+            elif w.error is not None and (wid + "r") not in self.workers:
+                degraded.append(f"{wid}: {w.error}")
+        if degraded:
+            from repro_torch.faults.errors import DegradedRunError
+            raise DegradedRunError("run completed degraded: "
+                                   + "; ".join(degraded), report=report)
+        return report
+
+    # ------------------------------------------------------------------
+    # threads backend: BSP (policy.execute lands here)
+    # ------------------------------------------------------------------
+    def _fit_bsp(self, policy: BSP, *,
+                 rejoin_failed_after: Optional[float] = None,
+                 callback: Optional[Callable] = None) -> TrainReport:
+        """Synchronous AllReduce DP: every wave, all VWs' deltas are reduced
+        via an emulated ring all-reduce on the host and applied to one
+        global copy on the device.
+
+        Wall clock is a *simulated* straggler-gated time: the VW steps run
+        sequentially here, so each wave is charged the max over VWs of
+        (measured compute + simulated slowdown) plus the topology-predicted
+        all-reduce time, and all of a wave's losses share that one
+        timestamp."""
+        if rejoin_failed_after is not None:
+            raise ValueError("elastic rejoin is a parameter-server feature; "
+                             "BSP has no PS to rejoin against")
+        self._ensure_model()
+        plan, run = self.plan, self.plan.run
+        num_vw = plan.cluster.num_vw
+        topo = plan.cluster.topology
+        if isinstance(topo, str):
+            topo = make_topology(topo, num_vw)
+        self.topology = topo
+        names = [f"vw{i}" for i in range(num_vw)]
+        loaders = [self._loader(i, num_vw) for i in range(num_vw)]
+        params = device_tree(self._params, self.device)
+        opt_states = [self._optimizer.init(params) for _ in range(num_vw)]
+        staging = HostStaging(params, self.device)
+        mean_dev = tree_lib.tree_map(torch.zeros_like, params)
+        speeds = plan.cluster.speeds or (0.0,) * num_vw
+        report = TrainReport()
+        waits = {f"vw{i}": 0.0 for i in range(num_vw)}
+        tr = self.tracer
+        sim_t = 0.0
+        for wave_i in range(run.max_waves):
+            deltas_all, losses, per_vw_t = [], [], []
+            t_wave = 0.0
+            with tr.span("engine", "bsp_wave", wave=wave_i):
+                for i in range(num_vw):
+                    x, y = loaders[i].next()
+                    tw0 = time.monotonic()
+                    with tr.span(f"vw{i}", "wave", wave=wave_i):
+                        deltas, opt_states[i], loss = self._wave_step(
+                            params, opt_states[i], x, y)
+                        loss = float(loss)
+                    t_i = time.monotonic() - tw0 + speeds[i]
+                    per_vw_t.append(t_i)
+                    t_wave = max(t_wave, t_i)
+                    # the staging buffers are reused: keep a copy per VW
+                    deltas_all.append(tree_lib.tree_map(
+                        np.array, staging.to_host(deltas)))
+                    losses.append(loss)
+                mean_delta, coll_s = collectives.ring_allreduce(
+                    deltas_all, topology=topo, workers=names,
+                    average=policy.average)
+            # the BSP barrier: each VW waits for the wave's slowest
+            for i, t_i in enumerate(per_vw_t):
+                waits[f"vw{i}"] += t_wave - t_i
+                tr.metrics.observe("train/wait_s", t_wave - t_i,
+                                   bounds=SECONDS_BOUNDS)
+            add_(params, staging.to_device(mean_delta, mean_dev))
+            nbytes = sum(np.asarray(l).nbytes
+                         for l in tree_lib.leaves(mean_delta))
+            report.bytes_pushed += nbytes * num_vw
+            # ring wire traffic: each VW moves 2(N-1)/N of the vector per wave
+            report.bytes_wire += int(2 * (num_vw - 1) * nbytes) \
+                if num_vw > 1 else 0
+            report.comm_seconds += coll_s
+            sim_t += t_wave + coll_s
+            for i, l in enumerate(losses):
+                report.losses.append((sim_t, f"vw{i}", l))
+            report.waves += num_vw
+            if callback is not None:
+                callback(wave_i, float(np.mean(losses)), t_wave + coll_s)
+            self._params = params
+            self._bsp_wave += 1
+            if run.ckpt_dir and run.ckpt_every and \
+                    ((wave_i + 1) % run.ckpt_every == 0
+                     or wave_i + 1 == run.max_waves):
+                step = self._step_offset + self._bsp_wave
+                save_checkpoint(run.ckpt_dir, step, {"params": params},
+                                {"wave": step})
+        report.wall_s = sim_t
+        report.wait_seconds = waits
+        self._params = params
         return report
 
     def _sync(self):
@@ -285,6 +764,14 @@ class Engine:
         self.tracer.add_span("engine", "generate", t_tr, self.tracer.now(),
                              gen=sv.gen, batch=sv.max_batch)
         return self.attach_telemetry(report)
+
+
+@dataclasses.dataclass
+class _Failure:
+    """A worker that failed and exited, as the rejoin watch records it."""
+    at_clock: int                  # the global clock when it was noticed
+    t: float = dataclasses.field(default_factory=time.monotonic)
+    rejoined: int = 0
 
 
 # ---------------------------------------------------------------------------

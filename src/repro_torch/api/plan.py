@@ -3,12 +3,14 @@
     Plan = ArchConfig x ClusterSpec x PartitionSpec x SyncPolicy x RunSpec
            [x ServeSpec]
 
-A Plan is frozen and validated at construction, so a malformed scenario
-fails where it is written. This slice of the port executes serve Plans
-(`serve=ServeSpec(...)`) on the threads backend; what is not ported yet
-raises NotImplementedError naming its ROADMAP item: the spmd backend
-(Queue 1 item 9), fault scenarios (item 7) and Router replicas (item 8).
-Training Plans validate, and Engine.fit() raises (items 2-3).
+A Plan is the single description of a training OR serving scenario. It is
+frozen and validated at construction, so a malformed scenario fails where
+it is written, not three layers down inside a worker thread. The port runs
+both on the threads backend: Engine.fit()/step() train, and
+`serve=ServeSpec(...)` turns the Plan into a serving scenario for
+Engine.prefill()/decode()/generate(). What is not ported yet raises
+NotImplementedError naming its ROADMAP item: the spmd backend (Queue 1
+item 9), fault scenarios (item 7) and Router replicas (item 8).
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from typing import Any, Optional
 
 from repro_torch.api.sync import BSP, SyncPolicy, WSP
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.dist.compression import make_codec
+from repro_torch.dist.topology import make_topology
 from repro_torch.kernels.ops import BACKENDS
 
 
@@ -27,7 +31,10 @@ class ClusterSpec:
     what simulated heterogeneity."""
 
     num_vw: int = 1
-    topology: Any = None                    # a topology spec or None
+    # a repro_torch.dist.topology.ClusterTopology, a spec string for
+    # make_topology ('single', '2node:ib', 'hetero', 'paper', ...) or None
+    # for the zero-latency default
+    topology: Any = None
     speeds: Optional[tuple] = None          # per-VW extra seconds/wave
     straggle_fns: Optional[tuple] = None    # per-VW wave -> extra seconds
     fail_at: tuple = ()                     # ((vw_index, wave), ...) failures
@@ -44,6 +51,9 @@ class ClusterSpec:
                                tuple(sorted(self.fail_at.items())))
         else:
             object.__setattr__(self, "fail_at", tuple(self.fail_at))
+
+    def fail_map(self) -> dict:
+        return dict(self.fail_at)
 
 
 @dataclass(frozen=True)
@@ -181,13 +191,23 @@ class Plan:
         bad = [i for i, _ in cl.fail_at if not 0 <= i < cl.num_vw]
         if bad:
             raise ValueError(f"fail_at names worker indices {bad} outside "
-                             f"the fleet (num_vw={cl.num_vw})")
+                             f"the fleet (num_vw={cl.num_vw}); that failure "
+                             f"would silently never be injected")
+        if isinstance(cl.topology, str):
+            make_topology(cl.topology, cl.num_vw)   # parse errors surface now
         if run.max_waves < 0 or run.batch < 1 or run.seq < 1:
             raise ValueError(f"bad run spec: max_waves={run.max_waves} "
                              f"batch={run.batch} seq={run.seq}")
         if run.codec is not None and run.compression_ratio is not None:
             raise ValueError("codec and compression_ratio are two spellings "
                              "of the same knob; set at most one")
+        make_codec(run.codec)                       # parse errors surface now
+        if run.compression_ratio is not None and \
+                not 0.0 < run.compression_ratio <= 1.0:
+            raise ValueError(f"compression_ratio must be in (0, 1], got "
+                             f"{run.compression_ratio}")
+        if run.ckpt_every < 0:
+            raise ValueError(f"ckpt_every must be >= 0, got {run.ckpt_every}")
         if run.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be 'float32' or "
                              f"'bfloat16', got {run.compute_dtype!r}")
@@ -208,12 +228,20 @@ class Plan:
             if nm >= 1 and run.batch % nm:
                 raise ValueError(
                     f"per-VW batch {run.batch} is not divisible by "
-                    f"num_microbatches {nm}")
-        if isinstance(self.sync, BSP) and (
-                run.codec is not None or run.compression_ratio is not None
-                or cl.straggle_fns is not None or cl.fail_at):
-            raise ValueError("the BSP loop all-reduces raw deltas and models "
-                             "heterogeneity through cluster.speeds only")
+                    f"num_microbatches {nm} (the wave packs the batch into "
+                    f"Nm pipeline minibatches)")
+        if isinstance(self.sync, BSP):
+            # reject knobs the BSP loop would otherwise silently drop
+            if run.codec is not None or run.compression_ratio is not None:
+                raise ValueError(
+                    "gradient codecs ride the parameter-server push path; "
+                    "the BSP loop all-reduces raw deltas — drop "
+                    "codec/compression_ratio or use a WSP policy")
+            if cl.straggle_fns is not None or cl.fail_at:
+                raise ValueError(
+                    "straggle_fns/fail_at simulate per-worker behavior in "
+                    "the threaded PS runtime; the BSP loop models "
+                    "heterogeneity through cluster.speeds only")
 
     def _validate_serve(self) -> None:
         """Serve-mode Plans: reject knobs the serve path would silently
@@ -297,13 +325,15 @@ class Plan:
         return dataclasses.replace(self, **top)
 
     def describe(self) -> str:
-        arch = self.arch.name if self.arch else "<none>"
+        arch = self.arch.name if self.arch else "<injected wave step>"
         if self.serve is not None:
             sv = self.serve
             return (f"Plan({arch}, serve, backend={self.run.backend}, "
                     f"batch={sv.max_batch}, prompt={sv.prompt_len}, "
                     f"gen={sv.gen}, kernels={sv.kernel_backend}, "
                     f"{'greedy' if sv.temperature == 0 else 'sampled'})")
+        topo = self.cluster.topology
+        topo = topo if isinstance(topo, (str, type(None))) else "custom"
         return (f"Plan({arch}, backend={self.run.backend}, "
-                f"vw={self.cluster.num_vw}, {self.sync.describe()}, "
-                f"waves={self.run.max_waves})")
+                f"vw={self.cluster.num_vw}, topology={topo}, "
+                f"{self.sync.describe()}, waves={self.run.max_waves})")

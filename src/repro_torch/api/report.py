@@ -1,7 +1,10 @@
-"""Reports returned by the Engine and the Scheduler (repro.api.report's
-serve half). ServeReport is assembled by Engine.generate() and the
-continuous-batching Scheduler; Telemetry is the metrics snapshot attached
-when the run is traced."""
+"""Reports returned by the Engine and the Scheduler (the port of
+repro.api.report without the Router's merge).
+
+TrainReport: one report type for the threaded WSP fleet, Engine.step()'s
+fleet of one and the BSP all-reduce loop. ServeReport: its serving sibling,
+assembled by Engine.generate() and the continuous-batching Scheduler;
+Telemetry is the metrics snapshot attached when the run is traced."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -31,6 +34,53 @@ class Telemetry:
     def hist_quantile(self, name: str, q: float) -> Optional[float]:
         from repro_torch.obs.metrics import quantile_from_snapshot
         return quantile_from_snapshot(self.histograms.get(name), q)
+
+    def staleness_max(self) -> Optional[float]:
+        h = self.histograms.get("wsp/staleness")
+        return h["max"] if h and h["count"] else None
+
+
+@dataclass
+class TrainReport:
+    losses: list = field(default_factory=list)      # (wall_s, wid, loss)
+    waves: int = 0
+    wall_s: float = 0.0
+    # wid -> seconds that worker spent blocked at its sync gate: WSP clock
+    # waits (threads), or the per-wave straggler wait (bsp: the slowest
+    # VW's wave time minus its own)
+    wait_seconds: dict = field(default_factory=dict)
+    telemetry: Optional[Telemetry] = None           # when tracing is enabled
+    bytes_pushed: int = 0
+    bytes_wire: int = 0
+    comm_seconds: float = 0.0                       # modeled network time
+    overlap_seconds: float = 0.0                    # comm hidden under compute
+    push_wait_seconds: float = 0.0                  # comm NOT hidden (blocked)
+    comm: dict = field(default_factory=dict)        # transport link stats
+    # failure accounting (zeros on failure-free runs)
+    waves_requested: int = 0    # max_waves * initial fleet size
+    gate_timeouts: int = 0      # staleness gates that timed out (fit()
+                                # raises DegradedRunError)
+    crashes: int = 0            # workers that died (fail_at)
+    late_pushes: int = 0        # pushes applied after the pusher left the
+                                # clock (delta kept, clock untouched)
+    evictions: list = field(default_factory=list)   # (wid, at_clock,
+                                                    #  reason, rejoined)
+    rejoins: list = field(default_factory=list)     # successor wids
+
+    def loss_curve(self):
+        """(wall_s, loss) arrays in wall-clock order. Sorts by the timestamp
+        only (stable for ties), never by worker id."""
+        pts = sorted(self.losses, key=lambda p: p[0])
+        return (np.array([p[0] for p in pts]),
+                np.array([p[2] for p in pts]))
+
+    def losses_by_worker(self) -> dict:
+        """wid -> loss sequence in push order (deterministic per worker even
+        when wall-clock interleaving across workers is not)."""
+        out: dict = {}
+        for _, wid, loss in self.losses:
+            out.setdefault(wid, []).append(loss)
+        return out
 
 
 @dataclass

@@ -1,13 +1,18 @@
-"""Synchronization policies — the Plan's training axis (repro.api.sync).
+"""Synchronization policies — the strategy hierarchy behind Engine.fit()
+(the port of repro.api.sync).
 
-  WSP(D, pull_every, async_push)  wave synchronous parallel with the global
-                                  staleness bound D (paper Sections 4-5)
-  BSP()                           the AllReduce baseline
-  ASP(...)                        WSP with an unbounded clock distance
+  WSP(D, pull_every, async_push)  wave synchronous parallel: threaded VWs
+                                  against the sharded parameter server with
+                                  the global staleness bound D (paper
+                                  Sections 4-5)
+  BSP()                           the AllReduce baseline: every wave all
+                                  deltas are ring-all-reduced and applied to
+                                  one global copy
+  ASP(...)                        asynchronous parallel = WSP with an
+                                  unbounded clock distance
 
-The port carries them as declarative configuration: a serve Plan names
-the default WSP(D=0), and Plan validation reads them. Running them is the
-training half (ROADMAP Queue 1 item 3), not yet ported.
+A policy is declarative configuration plus a single `execute(engine)`
+dispatch; the execution loops live in `repro_torch.api.engine`.
 """
 from __future__ import annotations
 
@@ -28,6 +33,9 @@ class SyncPolicy:
     def validate(self) -> None:
         pass
 
+    def execute(self, engine, **kw):
+        raise NotImplementedError
+
     def describe(self) -> str:
         return self.kind
 
@@ -45,6 +53,9 @@ class WSP(SyncPolicy):
         if self.pull_every < 1:
             raise ValueError(f"pull_every must be >= 1, got {self.pull_every}")
 
+    def execute(self, engine, **kw):
+        return engine._fit_threaded(self, **kw)
+
     def describe(self) -> str:
         d = "inf" if self.D >= UNBOUNDED_D else self.D
         return (f"WSP(D={d}, pull_every={self.pull_every}, "
@@ -59,5 +70,10 @@ class ASP(WSP):
 
 @dataclass(frozen=True)
 class BSP(SyncPolicy):
-    """Synchronous AllReduce data parallelism (the paper's baseline)."""
+    """Synchronous AllReduce data parallelism (the paper's baseline). Wall
+    clock is simulated straggler-gated time: each wave costs the max over
+    VWs of (compute + slowdown) plus the modeled all-reduce."""
     average: bool = True        # mean the deltas (each VW sees 1/N of batch)
+
+    def execute(self, engine, **kw):
+        return engine._fit_bsp(self, **kw)

@@ -1,0 +1,136 @@
+"""The training CLI — a thin layer over repro_torch.api (the port of
+repro.launch.train, --mode wsp).
+
+  --mode wsp     threaded multi-VW WSP runtime with the parameter server
+                 (true async D>=0, stragglers, checkpoint/restart); each
+                 worker trains on --device, the PS keeps w_global on the host
+  --mode spmd    the pipelined multi-device backend: ROADMAP Queue 1 item 9
+
+Examples:
+  python -m repro_torch.launch.train --mode wsp --device cpu --reduced \\
+      --waves 6 --num-vw 2                              # reduced, on the CPU
+  python -m repro_torch.launch.train --mode wsp --waves 6 --num-vw 2 \\
+      --optimizer adamw --lr 1e-3 --batch 16 --seq 512  # full width, card
+
+As in the JAX CLI, --reduced is a store_true flag: without it the arch
+trains at its real widths.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--mode", choices=("spmd", "wsp"), default="wsp")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where each virtual worker trains")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--d-model", type=int, default=128)
+    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--waves", type=int, default=50)
+    ap.add_argument("--num-vw", type=int, default=4)
+    ap.add_argument("--D", type=int, default=0)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=0.3)
+    ap.add_argument("--optimizer", default="sgd")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--compression", type=float, default=None)
+    ap.add_argument("--codec", default=None,
+                    help="gradient codec: topk:<ratio> | int8 | none")
+    ap.add_argument("--topology", default=None,
+                    help="network model spec, or 'list' to print every "
+                         "accepted spec and exit (default: zero-latency)")
+    ap.add_argument("--time-scale", type=float, default=1.0,
+                    help="scale modeled network delays before sleeping")
+    ap.add_argument("--overlap", action="store_true",
+                    help="push wave deltas asynchronously (the next wave's "
+                         "forward starts while the push is in flight)")
+    ap.add_argument("--pull-every", type=int, default=1,
+                    help="pull w_global every k waves (local delta updates "
+                         "in between; k>1 lets async pushes overlap)")
+    ap.add_argument("--speeds", default=None,
+                    help="comma-separated per-VW slowdowns (s/wave)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome-trace-event JSON (Perfetto-"
+                         "loadable) of the run, with the metrics snapshot "
+                         "embedded")
+    return ap
+
+
+def main(argv=None):
+    a = build_parser().parse_args(argv)
+
+    if a.topology == "list":
+        from repro_torch.dist.topology import topology_help
+        print("accepted --topology specs:")
+        print(topology_help())
+        return
+    if a.mode == "spmd":
+        raise SystemExit("--mode spmd (the pipelined multi-device backend) "
+                         "is ROADMAP Queue 1 item 9; use --mode wsp")
+
+    import numpy as np
+
+    from repro_torch.api import ClusterSpec, Engine, Plan, RunSpec, WSP
+    from repro_torch.configs import ARCHS, reduced as make_reduced
+    from repro_torch.obs import NULL_TRACER, Tracer
+
+    tracer = Tracer() if a.trace else NULL_TRACER
+    cfg = ARCHS[a.arch]
+    if a.reduced:
+        dm = a.d_model
+        heads = max(1, min(cfg.num_heads, 4)) if cfg.num_heads else 0
+        cfg = make_reduced(cfg, d_model=dm, d_ff=2 * dm, num_layers=a.layers,
+                           vocab_size=256, stages=2, tp=1, num_heads=heads,
+                           num_kv_heads=max(1, heads // 2) if heads else 0,
+                           head_dim=dm // heads if heads else 0)
+    print(f"arch={cfg.name} params={cfg.param_count():,} (analytic) "
+          f"device={a.device}")
+    if a.overlap and a.pull_every == 1:
+        print("note: --overlap with --pull-every 1 serializes every push "
+              "behind the following pull; use --pull-every > 1 to actually "
+              "hide push latency", file=sys.stderr)
+    speeds = [float(s) for s in a.speeds.split(",")] if a.speeds else None
+    plan = Plan(
+        arch=cfg,
+        cluster=ClusterSpec(num_vw=a.num_vw, topology=a.topology,
+                            speeds=speeds, time_scale=a.time_scale),
+        sync=WSP(D=a.D, pull_every=a.pull_every, async_push=a.overlap),
+        run=RunSpec(max_waves=a.waves, batch=a.batch, seq=a.seq,
+                    optimizer=a.optimizer, lr=a.lr,
+                    compression_ratio=a.compression, codec=a.codec,
+                    ckpt_dir=a.ckpt_dir, ckpt_every=a.ckpt_every,
+                    resume=a.resume))
+    eng = Engine(plan, tracer=tracer, device=a.device)
+    rep = eng.fit()
+    if a.trace:
+        print(f"trace: {tracer.export(a.trace)}")
+    xs, ys = rep.loss_curve()
+    print(f"waves={rep.waves} wall={rep.wall_s:.1f}s "
+          f"first_loss={ys[0]:.4f} last_loss={np.mean(ys[-5:]):.4f}")
+    if a.overlap:
+        print(f"overlap: hidden={rep.overlap_seconds:.2f}s "
+              f"blocked={rep.push_wait_seconds:.2f}s")
+    waits = {k: round(v, 2) for k, v in rep.wait_seconds.items()}
+    print(f"pushed={rep.bytes_pushed / 1e6:.1f}MB "
+          f"wire={rep.bytes_wire / 1e6:.1f}MB waits={waits}")
+    for wid, w in sorted(eng.workers.items()):
+        m = w.metrics
+        print(f"{wid}: wave_ms={1e3 * np.median(m.wave_times):.1f} "
+              f"push_ms={1e3 * np.median(m.push_s):.1f} "
+              f"pull_ms={1e3 * np.median(m.pull_s):.1f}")
+    if eng.topology is not None:
+        by_link = {k: f"{v / 1e6:.1f}MB"
+                   for k, v in rep.comm.get("bytes_by_link", {}).items()}
+        print(f"network: modeled={rep.comm_seconds:.2f}s "
+              f"bytes_by_link={by_link}")
+
+
+if __name__ == "__main__":
+    main()

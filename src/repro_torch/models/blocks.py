@@ -51,6 +51,8 @@ class LayerCtx:
                                     # prefills and the MoE expert GEMMs
                                     # through the repro_torch kernels
                                     # (windowed layers run none)
+    aux: Optional[list] = None      # training: each MoE layer appends its
+                                    # load-balancing loss here (None: drop)
 
 
 def _norm(cfg: ArchConfig, p, key, x):
@@ -68,14 +70,16 @@ def _mlp_dense(cfg: ArchConfig, p, x):
 
 def _mlp_moe(cfg: ArchConfig, p, x, ctx: LayerCtx):
     """router [d, E], moe_w_in [E, d, G, ffl], moe_w_out [E, ffl, d]; the
-    expert GEMMs run ctx.kernel_backend's path. The aux loss is dropped:
-    serving has no use for it."""
+    expert GEMMs run ctx.kernel_backend's path. The aux loss goes to
+    ctx.aux when the caller collects it (training), else it is dropped."""
     moe_p = {"router": p["router"], "w_in": p["moe_w_in"],
              "w_out": p["moe_w_out"]}
-    out, _ = moe_lib.moe_mlp(
+    out, aux = moe_lib.moe_mlp(
         moe_p, x, num_experts=cfg.num_experts, top_k=cfg.top_k,
         mlp_type=cfg.mlp_type, capacity_factor=cfg.capacity_factor,
         backend=ctx.kernel_backend)
+    if ctx.aux is not None:
+        ctx.aux.append(aux)
     return out
 
 

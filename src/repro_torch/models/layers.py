@@ -1,9 +1,10 @@
-"""Primitive layers: norms, rope, the MLP activation. Functions over
-tensors."""
+"""Primitive layers: norms, rope, the MLP activation, the chunked loss.
+Functions over tensors."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 
 def rms_norm(x, scale, eps=1e-6):
@@ -67,3 +68,45 @@ def gated_act(h, mlp_type: str):
         return F.gelu(h[..., 0, :], approximate="tanh")
     r = F.relu(h[..., 0, :])      # relu2
     return r * r
+
+
+# ----------------------------------------------------------------------------
+# Loss: seq-chunked cross entropy against the vocab head
+# ----------------------------------------------------------------------------
+def chunked_cross_entropy(hidden, head, labels, *, chunk: int = 512,
+                          logits_scale: float = 1.0,
+                          valid_vocab: int | None = None):
+    """Mean CE over tokens; logits never materialized beyond [B, chunk, V].
+
+    hidden [B, S, d] - head [d, V] - labels [B, S]. Backward recomputes each
+    chunk's logits (torch.utils.checkpoint), keeping the dominant temp at
+    chunk granularity. The head product takes bf16-rounded operands and
+    sums in f32, as the JAX package's bf16 dot with an f32 result does: the
+    products of two bf16 values are exact in f32, so an f32 GEMM of the
+    rounded operands is that function (a bf16 GEMM would round the logits;
+    TF32 would round the operands further). Columns at or past valid_vocab
+    (the padded vocab) are masked out.
+    """
+    B, S, d = hidden.shape
+    n_chunks = S // chunk if S % chunk == 0 else -1
+    if n_chunks == -1:  # fall back to single chunk
+        n_chunks, chunk = 1, S
+
+    def one(h, l):
+        # the casts sit inside the chunk, as in the JAX package, so each
+        # chunk's head gradient is rounded to bf16 before the chunks sum
+        logits = (h.bfloat16().float() @ head.bfloat16().float()) \
+            * logits_scale
+        if valid_vocab is not None and valid_vocab < head.shape[-1]:
+            col = torch.arange(logits.shape[-1], device=logits.device)
+            logits = torch.where(col < valid_vocab, logits, -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, l[..., None].long())[..., 0]
+        return (lse - gold).sum()
+
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + torch.utils.checkpoint.checkpoint(
+            one, hidden[:, sl], labels[:, sl], use_reentrant=False)
+    return total / (B * S)

@@ -1,5 +1,5 @@
 """Model assembly: parameter init, per-layer metadata, the weight carrier
-from the JAX package, and the plain (non-pipelined) forward.
+from the JAX package, the loss, and the plain (non-pipelined) forward.
 
 Parameter layout (the JAX package's): block leaves are stacked over all
 layers on dim 0 with `padded_layers = stages * layer_slots` slots; the
@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.blocks import LayerCtx, apply_layer
-from repro_torch.models.layers import layer_norm, rms_norm
+from repro_torch.models.layers import (chunked_cross_entropy, layer_norm,
+                                       rms_norm)
 
 
 def padded_vocab(cfg: ArchConfig, mult: int = 16) -> int:
@@ -221,20 +222,26 @@ def head_matrix(cfg: ArchConfig, params):
     return params["head"]
 
 
+def lm_loss(cfg: ArchConfig, params, hidden, labels, *, chunk=512):
+    h = final_hidden_norm(cfg, params, hidden)
+    return chunked_cross_entropy(h, head_matrix(cfg, params), labels,
+                                 chunk=min(chunk, h.shape[1]),
+                                 valid_vocab=cfg.vocab_size)
+
+
 # ----------------------------------------------------------------------------
 # Reference (non-pipelined, single-device) forward
 # ----------------------------------------------------------------------------
 def forward_ref(cfg: ArchConfig, params, tokens_or_embeds, *, mode="train",
                 cache=None, pos=None, labels=None, lens=None,
                 kernel_backend="ref"):
-    """Plain layer loop. Returns (hidden, cache). `pos` (decode) is a
-    scalar or a [B] tensor; `lens` [B] marks per-row prompt lengths for
-    right-padded prefill — cache writes stop at each row's length. The
-    cache is written in place. `kernel_backend` ("ref"/"cuda") picks the
-    plain paths or the kernels."""
-    if labels is not None:
-        raise NotImplementedError("the training loss is ROADMAP Queue 1 "
-                                  "items 2-3")
+    """Plain layer loop. Returns (hidden, cache), or (loss, cache) in
+    train mode with `labels`: the chunked CE plus 0.01 x the layers' MoE
+    load-balancing loss over num_layers, as the JAX package. `pos`
+    (decode) is a scalar or a [B] tensor; `lens` [B] marks per-row prompt
+    lengths for right-padded prefill — cache writes stop at each row's
+    length. The cache is written in place. `kernel_backend`
+    ("ref"/"cuda") picks the plain paths or the kernels."""
     x = embed_tokens(cfg, params, tokens_or_embeds)
     if mode == "decode":
         pos = torch.as_tensor(pos, device=x.device)
@@ -245,6 +252,11 @@ def forward_ref(cfg: ArchConfig, params, tokens_or_embeds, *, mode="train",
     full_i = meta["full_i"].reshape(-1)
     win_i = meta["win_i"].reshape(-1)
     sl = cfg.layer_slots
+    aux = [] if mode == "train" and labels is not None else None
+    # one unbind per stacked leaf: its backward writes the leaf's grad once,
+    # where indexing each layer would materialize a full-size zero grad per
+    # layer and sum them
+    layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
     for l in range(cfg.padded_layers):
         if not valid[l]:
             continue
@@ -253,9 +265,15 @@ def forward_ref(cfg: ArchConfig, params, tokens_or_embeds, *, mode="train",
         ctx = LayerCtx(mode=mode, pos=pos, kind=int(kinds[l]),
                        full_i=int(st_idx * meta["m_full"] + full_i[l]),
                        win_i=int(st_idx * meta["m_win"] + win_i[l]),
-                       ssm_i=l, lens=lens, kernel_backend=kernel_backend)
-        p_l = {k: v[l] for k, v in params["blocks"].items()}
+                       ssm_i=l, lens=lens, kernel_backend=kernel_backend,
+                       aux=aux)
+        p_l = {k: v[l] for k, v in layers.items()}
         x, cache = apply_layer(cfg, p_l, x, ctx, cache)
+    if aux is not None:
+        aux_t = torch.stack(aux).sum() if aux else x.new_zeros(
+            (), dtype=torch.float32)
+        return lm_loss(cfg, params, x, labels) + 0.01 * aux_t / max(
+            cfg.num_layers, 1), cache
     return x, cache
 
 

@@ -269,7 +269,7 @@ def test_plan_validation():
     # the full-width arch serves (its train-only microbatch rule is skipped)
     from repro_torch.configs import ARCHS
     Plan(arch=ARCHS["qwen3-0.6b"], serve=ServeSpec(max_batch=8))
-    with pytest.raises(NotImplementedError, match="items 2-3"):
+    with pytest.raises(ValueError, match="describes serving"):
         Engine(get_preset("serve_tiny"), device="cpu").fit()
 
 
