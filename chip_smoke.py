@@ -39,7 +39,12 @@ Phases (each prints a line; any failure exits nonzero):
      (tc, simt_bf16, simt_f32):
      attention at qwen3's, granite's and hymba's heads and at hymba's S 1100
      prefill, paged decode at the same three head shapes, contiguous decode
-     at qwen3's [8, 160] and hymba's [4, 1132] generate caches;
+     at qwen3's [8, 160] and hymba's [4, 1132] generate caches; and at
+     gemma3-1b's heads (4 / 1 of 256: no tensor-core route at hd 256, every
+     launch asserted on the SIMT route `_route` gives) prefill attention
+     with window 0 and 512 and both decode kernels at its global layers'
+     shapes, held against their plain versions in bf16 and f32 and timed
+     beside their bounds and SDPA;
   3. qwen3-0.6b at full width (28 layers, random weights from a seeded
      generator, bf16) served through the continuous-batching Scheduler over
      a 48-page pool, with the kernel launch counts of that run asserted
@@ -107,7 +112,37 @@ Phases (each prints a line; any failure exits nonzero):
      on 4 layers: per-VW wave ms, gate waits, overlap seconds, peak
      memory; the staleness audit (max distance <= D) holds and every loss
      is finite;
- 18. one JSON line of per-kernel numbers.
+ 18. gemma3-1b at full width (26 layers, 4 of them global, window 512,
+     4/1 heads of 256, vocab 262144, tied; random weights, bf16) served
+     through the Scheduler over a 48-page pool: flash_attention_fwd and
+     flash_decode_paged by every global layer, the counts exact, the route
+     check's one exception (those two kernels at hd 256 on simt_bf16, as
+     `_route` gives) printed; then the same requests in f32, kernel and
+     plain streams identical;
+ 19. minitron-8b at full width (32 layers, d 4096, 32/8 heads of 128,
+     relu^2 d_ff 16384, vocab 256000, untied; ~8.7 B params drawn in bf16,
+     the init's peak memory printed): each layer alone on one input in f32
+     against its plain path, then 8 requests served in bf16;
+ 20. musicgen-medium at full width (48 layers, d 1536, 24 heads of 64,
+     vocab 2048) through Engine.generate and the stub frontend (prompts and
+     each step's input are seeded embeddings); chameleon-34b (34 B params:
+     no room beside its cache on one 80 GB card) is left to the CPU tests;
+ 21. chaos serving: qwen3-0.6b in bf16 through the kernels under two
+     SlotFaults, recovered by requeue and by reprefill: streams equal the
+     fault-free run's (a divergence only at a bf16 near-tie, printed), the
+     fault counters equal the plan's;
+ 22. chaos training: qwen3-0.6b at full width, 2 VWs, WSP D 1, Nm 4, 6 waves
+     of 16 x 256 under a WorkerCrash of vw1 at wave 2, message loss on
+     vw0 -> ps, a PS stall at push 3 and a slowdown of vw0 from wave 1,
+     FaultPolicy(evict_lag=1, rejoin_after_waves=1): the fault digest equals
+     the same plan's on the CPU at reduced width, vw1 is evicted as dead
+     and vw1r finishes waves, losses finite, repro_torch.obs.summary exits
+     0 on the trace (staleness max <= 1); peak device memory before the
+     crash and after the rejoin is printed, and the dead worker's state is
+     released: once the run has ended, the device memory above what was
+     held before it is the Engine's params and the live workers' state,
+     within half of one worker's params;
+ 23. one JSON line of per-kernel numbers.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script fails before printing any
 result. It imports neither jax nor the JAX package.
@@ -197,6 +232,10 @@ ROUTE_TOL = 1e-4                   # router logit K/K+1 margins counted as
 # and each greedy stream repeats its last prompt token, which would leave
 # the stream comparison of phase 4 nothing to compare.
 WEIGHT_SCALE = 10.0
+DENSE_MATS = ("wq", "wk", "wv", "wo", "mlp_wi", "mlp_wo")
+# bf16 greedy picks whose top-2 logit margin is under this (the kernels'
+# bf16 tolerance) count as near-ties in the chaos-serve comparison
+BF16_TIE = 5e-2
 
 
 def log(phase, msg):
@@ -525,6 +564,166 @@ def train_phases(dev):
         free()
 
 
+def chaos_train_phase(dev):
+    """Phase 22: chaos training at full width (see the module docstring)."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (ClusterSpec, Engine, FaultPlan, FaultPolicy,
+                                 LinkFault, PartitionSpec, Plan, PSStall,
+                                 RunSpec, WSP, WorkerCrash, WorkerSlowdown)
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.obs import Tracer
+    from repro_torch.obs.summary import main as summary_main
+
+    t_phase = time.monotonic()
+    faults = FaultPlan(seed=22, events=(
+        WorkerCrash(vw=1, wave=2),
+        LinkFault(src="vw0", dst="ps", start_msg=0, n_msgs=6, kind="loss",
+                  p=0.5),
+        PSStall(at_push=3, seconds=0.5),
+        WorkerSlowdown(vw=0, wave=1, extra_s=0.5)))
+    # a full-width wave takes seconds: the stall grace is far above it, so
+    # only the crashed worker (dead: its thread is gone) is ever evicted
+    policy = FaultPolicy(evict_lag=1, rejoin_after_waves=1,
+                         stall_grace_s=120.0)
+
+    def plan(arch, batch, seq):
+        return Plan(arch=arch, cluster=ClusterSpec(num_vw=2), sync=WSP(D=1),
+                    partition=PartitionSpec(num_microbatches=4),
+                    run=RunSpec(max_waves=6, batch=batch, seq=seq,
+                                optimizer="adamw", lr=1e-3),
+                    faults=faults, fault_policy=policy)
+    # the same plan on the CPU at reduced width: the digest depends on the
+    # plan, not on the model or the device
+    cpu = Engine(plan(reduced(ARCHS["qwen3-0.6b"]), 4, 32),
+                 device="cpu").fit()
+    t_cpu = time.monotonic() - t_phase
+    q = ARCHS["qwen3-0.6b"]
+    tracer = Tracer()
+    eng = Engine(plan(q, 16, 256), tracer=tracer)
+    # device memory sampled while the crashed worker still trains beside
+    # vw0 ("before") and while its successor does ("after")
+    samples = {"before": [], "after": []}
+    stop = threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            ws = dict(eng.workers)
+            v0, v1, v1r = ws.get("vw0"), ws.get("vw1"), ws.get("vw1r")
+            if v1r is not None and v1r.is_alive():
+                samples["after"].append(torch.cuda.memory_allocated(dev))
+            elif v1 is not None and v1.is_alive() and not v1.crashed and \
+                    v0 is not None and v0.params is not None and \
+                    v1.params is not None:
+                samples["before"].append(torch.cuda.memory_allocated(dev))
+            time.sleep(0.02)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    mon = threading.Thread(target=watch, daemon=True)
+    mon.start()
+    try:
+        rep = eng.fit()
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        mon.join()
+    digest = rep.fault_digest()
+    if digest != cpu.fault_digest():
+        raise AssertionError(f"chaos train: the card's digest {digest} != "
+                             f"the CPU's {cpu.fault_digest()}")
+    succ = eng.workers.get("vw1r")
+    if ("vw1", "dead") not in digest["evictions"] or succ is None or \
+            not succ.done or succ.metrics.waves <= 0:
+        raise AssertionError(f"chaos train: evictions {rep.evictions}, "
+                             f"rejoins {rep.rejoins}")
+    losses = [l for _, _, l in rep.losses]
+    if not (losses and np.all(np.isfinite(losses))):
+        raise AssertionError(f"chaos train: losses {losses}")
+    dead = eng.workers["vw1"]
+    if dead.params is not None or dead.opt_state is not None:
+        raise AssertionError("chaos train: the crashed worker still holds "
+                             "its device state")
+    before, after = (max(samples[k]) if samples[k] else None
+                     for k in ("before", "after"))
+    if before is None or after is None:
+        raise AssertionError(f"chaos train: no device memory sampled while "
+                             f"vw1 ({len(samples['before'])} samples) or "
+                             f"vw1r ({len(samples['after'])}) trained")
+    worker_bytes = sum(t.numel() * t.element_size() for t in
+                       tree_lib.leaves(eng.workers["vw0"].params))
+
+    def device_bytes(*trees):
+        """Bytes of the distinct device storages the trees hold."""
+        seen = {}
+        for t in tree_lib.leaves(list(trees)):
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                st = t.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+        return sum(seen.values())
+
+    def state_of(w):
+        return [w.params, w.opt_state,
+                w.staging._dev if w.staging is not None else None]
+    # the two peaks differ by how the two workers' activations happen to
+    # overlap in each window, which is timing, not state. What stays on the
+    # card once the run has ended is exact: every byte above what was held
+    # before the run must belong to the Engine's params or to a live
+    # worker, so a dead worker's tensors cannot hide in it
+    gc.collect()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev) - held
+    live = device_bytes(eng._params, *(state_of(w) for wid, w in
+                                       eng.workers.items() if wid != "vw1"))
+    one_worker = device_bytes(*state_of(succ))
+    stray = resident - live
+    if stray > 0.5 * worker_bytes:
+        raise AssertionError(f"chaos train: {resident} B stay on the card "
+                             f"after the run, {stray} B of them held by no "
+                             f"live worker (one worker's params: "
+                             f"{worker_bytes} B, its whole state: "
+                             f"{one_worker} B)")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(ROOT, "build", "chaos_train_trace.json")
+    tracer.export(path)
+    if summary_main([path]) != 0:
+        raise AssertionError("chaos train: repro_torch.obs.summary failed "
+                             "on the exported trace")
+    smax = rep.telemetry.staleness_max()
+    if smax is None or smax > 1 or \
+            rep.telemetry.counters.get("wsp/staleness_violations"):
+        raise AssertionError(f"chaos train: staleness max {smax} > D 1")
+    per = {wid: (w.metrics.waves, round(float(np.median(w.metrics.wave_times))
+                                        * 1e3, 1) if w.metrics.wave_times
+                 else None) for wid, w in sorted(eng.workers.items())}
+    log("chaos", f"train qwen3-0.6b full width ({q.num_layers} layers, f32, "
+        f"adamw 1e-3), 2 VWs, WSP D 1, Nm 4, batch 16 x seq 256, 6 waves "
+        f"under {faults.describe()} and FaultPolicy(evict_lag=1, "
+        f"rejoin_after_waves=1, stall_grace_s=120): digest {digest} equals "
+        f"the CPU run's at reduced width ({t_cpu:.1f} s); evictions "
+        f"{rep.evictions}, rejoins {rep.rejoins}; per worker (waves, median "
+        f"wave ms) {per}; ps_stalls {rep.ps_stalls}, late pushes "
+        f"{rep.late_pushes}; losses first/last {losses[0]:.4f} / "
+        f"{losses[-1]:.4f}, all finite; staleness max {smax:.0f} <= D 1; "
+        f"peak device memory before the crash {before / 2**30:.2f} GiB, "
+        f"after the rejoin {after / 2**30:.2f} GiB (one worker's params "
+        f"{worker_bytes / 2**30:.2f} GiB, its whole state "
+        f"{one_worker / 2**30:.2f} GiB; held before the run "
+        f"{held / 2**30:.2f} GiB); after the run {resident / 2**30:.2f} GiB "
+        f"stay, {live / 2**30:.2f} of them the Engine's params and the live "
+        f"workers' state, {stray / 2**20:.1f} MiB held by neither: the dead "
+        f"worker's state was released; "
+        f"wall {rep.wall_s:.1f} s; phase {time.monotonic() - t_phase:.1f} s")
+    del eng, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -535,6 +734,7 @@ def main() -> int:
     from repro_torch.kernels import (LAUNCHES, ROUTES, _build, build_all,
                                      reset_launches)
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.flash_attention import _route as fa_route
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels.flash_decode import (flash_decode,
@@ -543,6 +743,7 @@ def main() -> int:
     from repro_torch.kernels.moe_gmm import grouped_matmul
     from repro_torch.kernels.rwkv6_scan import rwkv6_chunked
     from repro_torch.models import blocks, lm, moe, ssm
+    from repro_torch.core.tree import leaves as tree_leaves
     from repro_torch.models.layers import rms_norm
 
     if not torch.cuda.is_available():
@@ -620,6 +821,11 @@ def main() -> int:
                 f"{op} {n}" for op, n in ops.items()))
 
     dev = torch.device("cuda")
+
+    def free_device():
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -748,6 +954,73 @@ def main() -> int:
     attention_parity(16, 8, 64)           # granite-moe-1b-a400m: G 2
     # hymba-1.5b's generate phase (11): batch 4 x prompt 1100 + 32 tokens
     attention_parity_long(25, 5, 64, 4, 1100, 32)
+
+    def gemma3_parity():
+        """gemma3-1b's heads (4 query / 1 kv of 256, G 4): hd 256 has no
+        tensor-core route, so every launch must take the SIMT route of its
+        dtype, the one `_route` gives. Prefill attention with window 0 and
+        512 over rows of 128 (the serve prompts) and 600 (past the window);
+        both decode kernels at the global layers' shapes (B 8, a [8, 160]
+        cache at lengths across the SIMT splits, a pool of 16-position
+        pages). Returns {kernel: route} as launched."""
+        H, KV, hd = 4, 1, 256
+        heads = f"{H}/{KV}x{hd}"
+        seen = {}
+
+        def routed(name, dt, fn):
+            before = dict(ROUTES[name])
+            out = fn()
+            torch.cuda.synchronize()
+            ran = {r for r, n in ROUTES[name].items() if n != before.get(r, 0)}
+            want = "simt_bf16" if dt == torch.bfloat16 else "simt_f32"
+            if ran != {want}:
+                raise AssertionError(f"{name} at hd 256 {dt}: routes {ran}, "
+                                     f"_route gives {want}")
+            seen.setdefault(name, set()).add(want)
+            return out
+        for dt in (torch.bfloat16, torch.float32):
+            for B, S in ((8, 128), (2, 600)):
+                q = randn(B, S, H, hd, dtype=dt).transpose(1, 2)
+                k = randn(B, S, KV, hd, dtype=dt).transpose(1, 2)
+                v = randn(B, S, KV, hd, dtype=dt).transpose(1, 2)
+                if fa_route(q, k, v) != ("simt_bf16" if dt == torch.bfloat16
+                                         else "simt_f32"):
+                    raise AssertionError("hd 256 has a tensor-core route?")
+                for window in (0, 512):
+                    ref = kref.attention_ref(q, k, v, causal=True,
+                                             window=window)
+                    hold("flash_attention_fwd", routed(
+                        "flash_attention_fwd", dt,
+                        lambda: flash_attention_fwd(q, k, v, causal=True,
+                                                    window=window)),
+                         ref, dt, heads)
+            B, S = 8, 160
+            q1 = randn(B, H, hd, dtype=dt)
+            cache = randn(2, B, S, KV, hd, dtype=dt)
+            kv = (cache[0].transpose(1, 2), cache[1].transpose(1, 2))
+            lens = torch.tensor([0, 1, 15, 16, 17, 77, 140, 160],
+                                device=dev, dtype=torch.int32)
+            hold("flash_decode", routed("flash_decode", dt, lambda: flash_decode(
+                q1, *kv, lens)), kref.decode_ref(q1, *kv, lens), dt, heads,
+                 zero_row=0)
+            ps, npg = 16, 10
+            tab = torch.randperm(B * npg, generator=gen, device=dev).to(
+                torch.int32).reshape(B, npg)
+            live_pg = torch.arange(npg, device=dev)[None] * ps < lens[:, None]
+            tab = torch.where(live_pg, tab, -1).to(torch.int32)
+            kp = randn(4, B * npg + 1, ps, KV, hd, dtype=dt)
+            vp = randn(4, B * npg + 1, ps, KV, hd, dtype=dt)
+            hold("flash_decode_paged", routed(
+                "flash_decode_paged", dt, lambda: flash_decode_paged(
+                    q1, kp, vp, tab, lens, layer=3)),
+                 kref.decode_paged_ref(q1, kp, vp, tab, lens, layer=3), dt,
+                 heads, zero_row=0)
+        return {k: sorted(v) for k, v in seen.items()}
+
+    gemma_parity_routes = gemma3_parity()
+    log("parity", f"gemma3-1b 4/1 x 256 (no tensor-core route at hd 256): "
+        f"routes {gemma_parity_routes}; max |kernel - plain| "
+        f"{by_heads['4/1x256']}")
     H, KV, hd = 16, 8, 128
 
     def hold_recurrence(name, tol, S, got, want, route=None):
@@ -1203,6 +1476,132 @@ def main() -> int:
                 f"ms, plain chunked scan {t['plain_scan_ms']:.4f} ms; library "
                 f"none; bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
 
+    # gemma3-1b's hd-256 shapes, on the route _route gives (simt_bf16; the
+    # f32 route beside it): prefill attention at the serve shape (B 8, S
+    # 128, window 0: the global layers' call) over 26 layers' inputs and at
+    # B 2 x S 600 with window 512 (the band inside the rows), beside SDPA
+    # (with the band as a mask); paged decode over the serve pool of phase
+    # 2's decode timing (the same block table and lengths 17..160) and
+    # contiguous decode over a [8, 160] cache at length 140, beside the
+    # gathered / masked SDPA. Bounds as above; flops counted inside the
+    # band.
+    Hg, KVg, hdg = 4, 1, 256
+    gemma_times = {}
+    for what, (B, S, window, layers) in {
+            "gemma3 4/1x256": (8, 128, 0, 26),
+            "gemma3 4/1x256 S600 window 512": (2, 600, 512, 4)}.items():
+        sets = {dt: [tuple(randn(B, S, n, hdg, dtype=dt).transpose(1, 2)
+                           for n in (Hg, KVg, KVg)) for _ in range(layers)]
+                for dt in (bf, f32)}
+        pos_ = torch.arange(S, device=dev)
+        band = pos_[None] <= pos_[:, None]
+        if window:
+            band = band & (pos_[:, None] - pos_[None] < window)
+
+        def attn(q, k, v, window=window):
+            return flash_attention_fwd(q, k, v, causal=True, window=window)
+
+        def attn_plain(q, k, v, window=window):
+            return kref.attention_ref(q, k, v, causal=True, window=window)
+
+        def banded_sdpa(q, k, v, band=band):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                                  enable_gqa=True)
+        keys = sum(min(i + 1, window or S) for i in range(S))
+        nbytes = B * S * (2 * Hg + 2 * KVg) * hdg
+        flops = 4 * B * Hg * hdg * keys
+        t = gemma_times[f"flash_attention_fwd {what}"] = dict(
+            routes={"simt_bf16": time_ms(attn, sets[bf]),
+                    "simt_f32": time_ms(attn, sets[f32])},
+            eager_ms=time_ms(attn, sets[bf], graph=False),
+            plain_ms=time_ms(attn_plain, sets[bf], graph=False),
+            library_ms=time_ms(banded_sdpa, sets[bf]),
+            library_eager_ms=time_ms(banded_sdpa, sets[bf], graph=False),
+            shape=f"B{B} S{S} H{Hg} KV{KVg} hd{hdg} window {window} bf16",
+            bound=bound(2 * nbytes, flops),
+            bound_f32=bound(4 * nbytes, flops, "float32"))
+        t["ms"] = t["routes"]["simt_bf16"]
+        att_times[what] = t
+        del sets
+    B = 8
+    n = n_sets(4, live, KVg, hdg)
+    sets = {}
+    for dt in (bf, f32):
+        kp = randn(n, P1, ps, KVg, hdg, dtype=dt)
+        vp = randn(n, P1, ps, KVg, hdg, dtype=dt)
+        q1 = randn(B, Hg, hdg, dtype=dt)
+        sets[dt] = [(q1, kp, vp, tab, dlens, layer) for layer in range(n)]
+
+    def paged_g(q1, kp, vp, tab, lens, layer):
+        return flash_decode_paged(q1, kp, vp, tab, lens, layer=layer)
+
+    def paged_g_plain(q1, kp, vp, tab, lens, layer):
+        return kref.decode_paged_ref(q1, kp, vp, tab, lens, layer=layer)
+
+    def gathered_g(q1, kp, vp, tab, lens, layer):
+        phys = torch.where(tab >= 0, tab, P1 - 1).long()
+        kk = kp[layer][phys].reshape(B, -1, *kp.shape[-2:]).transpose(1, 2)
+        vv = vp[layer][phys].reshape(B, -1, *vp.shape[-2:]).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q1[:, :, None], kk, vv, attn_mask=pmask, enable_gqa=True)
+    t = gemma_times["flash_decode_paged gemma3 4/1x256"] = dict(
+        routes={"simt_bf16": time_ms(paged_g, sets[bf]),
+                "simt_f32": time_ms(paged_g, sets[f32])},
+        eager_ms=time_ms(paged_g, sets[bf], graph=False),
+        plain_ms=time_ms(paged_g_plain, sets[bf], graph=False),
+        library_ms=time_ms(gathered_g, sets[bf]),
+        library_eager_ms=time_ms(gathered_g, sets[bf], graph=False),
+        shape=f"B{B} pool[{n},{P1},{ps},{KVg},{hdg}] live {live} positions "
+              f"bf16",
+        bound=bound(2 * (2 * B * Hg * hdg + 2 * live * KVg * hdg)
+                    + 4 * (B * npg + B), 4 * Hg * hdg * live),
+        bound_f32=bound(4 * (2 * B * Hg * hdg + 2 * live * KVg * hdg)
+                        + 4 * (B * npg + B), 4 * Hg * hdg * live,
+                        "float32"))
+    t["ms"] = t["routes"]["simt_bf16"]
+    paged_times["gemma3 4/1x256"] = t
+    del sets, kp, vp
+    glens = torch.full((8,), 140, device=dev, dtype=torch.int32)
+    n = n_sets(4, int(glens.sum()), KVg, hdg)
+    sets = {}
+    for dt in (bf, f32):
+        ck = randn(n, 8, 160, KVg, hdg, dtype=dt)
+        cv = randn(n, 8, 160, KVg, hdg, dtype=dt)
+        q1 = randn(8, Hg, hdg, dtype=dt)
+        sets[dt] = [(q1, ck[i].transpose(1, 2), cv[i].transpose(1, 2), glens)
+                    for i in range(n)]
+    gmask = (torch.arange(160, device=dev)[None] < glens[:, None])[
+        :, None, None, :]
+
+    def masked_g(q, k, v, n, gmask=gmask):
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=gmask, enable_gqa=True)
+    live_c = int(glens.sum())
+    t = gemma_times["flash_decode gemma3 4/1x256 [8,160]"] = dict(
+        routes={"simt_bf16": time_ms(flash_decode, sets[bf]),
+                "simt_f32": time_ms(flash_decode, sets[f32])},
+        eager_ms=time_ms(flash_decode, sets[bf], graph=False),
+        plain_ms=time_ms(kref.decode_ref, sets[bf], graph=False),
+        library_ms=time_ms(masked_g, sets[bf]),
+        library_eager_ms=time_ms(masked_g, sets[bf], graph=False),
+        shape=f"B8 cache[{n},8,160,{KVg},{hdg}] strided, length 140 bf16",
+        bound=bound(2 * (2 * 8 * Hg * hdg + 2 * live_c * KVg * hdg) + 4 * 8,
+                    4 * Hg * hdg * live_c),
+        bound_f32=bound(4 * (2 * 8 * Hg * hdg + 2 * live_c * KVg * hdg)
+                        + 4 * 8, 4 * Hg * hdg * live_c, "float32"))
+    t["ms"] = t["routes"]["simt_bf16"]
+    cont_times["gemma3 4/1x256 [8,160]"] = t
+    del sets, ck, cv
+    for what, t in gemma_times.items():
+        log("timing", f"{what} [{t['shape']}]: routes " + ", ".join(
+            f"{r} {ms:.4f} ms" for r, ms in t["routes"].items()) +
+            f" (device time, CUDA graph; hd 256: no tensor-core route); "
+            f"eager {t['eager_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
+            f"library {t['library_ms']:.4f} ms (eager "
+            f"{t['library_eager_ms']:.4f}); bound {t['bound'][0]:.4f} ms "
+            f"({t['bound'][1]}), in f32 {t['bound_f32'][0]:.4f} ms "
+            f"({t['bound_f32'][1]})")
+
     def check_launches(tag, launches, rep, need):
         """`need` maps each kernel of the path to ("prefill" | "decode" |
         "both", its launches per prefill group, decode step or either); the
@@ -1223,27 +1622,37 @@ def main() -> int:
         grouped matmul in bf16) or register tiles (WKV6, SSD)."""
         return route.startswith("tc") or route == "tile"
 
-    def check_routes(tag, launches):
-        """Every launch of every kernel on the path took its fast route."""
+    def check_routes(tag, launches, expect=None):
+        """Every launch of every kernel on the path took its fast route —
+        except a kernel named in `expect`, every launch of which took the
+        route given there (the one its `_route` gives at the model's
+        shapes: gemma3's hd 256 has no tensor-core route)."""
+        expect = expect or {}
         for name, routes in launches["routes"].items():
-            n_fast = sum(n for r, n in routes.items() if fast(r))
-            if n_fast != launches[name]:
+            if name in expect:
+                n_ok = routes.get(expect[name], 0)
+            else:
+                n_ok = sum(n for r, n in routes.items() if fast(r))
+            if n_ok != launches[name]:
                 raise AssertionError(
-                    f"{tag}: {name} launched {launches[name]} times, {n_fast} "
-                    f"of them on its fast route: {routes}")
+                    f"{tag}: {name} launched {launches[name]} times, {n_ok} "
+                    f"of them on its expected route "
+                    f"({expect.get(name, 'tc* or tile')}): {routes}")
 
     def measured_launches():
         """LAUNCHES, with ROUTES beside them under "routes"."""
         return dict(LAUNCHES, routes={n: dict(r) for n, r in ROUTES.items()})
 
-    def serve_phase(tag, eng, reqs, need, pool, routing=None):
+    def serve_phase(tag, eng, reqs, need, pool, routing=None, expect=None):
         """`reqs` through the Scheduler once to warm up (cuBLAS, the
         allocator) and once with the launch counts at 0: every kernel of
         `need` launched, every request's tokens out and in the vocabulary,
         a page pool only if `pool`; then a profiled short run. Returns the
         launch counts of the measured run. With `routing` (a callable of the
         MoE routing records and the report), the measured run records the
-        routing of every MoE layer and hands it over."""
+        routing of every MoE layer and hands it over. `expect` names the
+        kernels whose launches take another route than their fast one
+        (check_routes)."""
         arch, sv = eng.plan.arch, eng.plan.serve
         t0 = time.monotonic()
         Scheduler(eng).run(reqs[:2])
@@ -1256,7 +1665,7 @@ def main() -> int:
             torch.cuda.synchronize()
         launches = measured_launches()
         check_launches(tag, launches, rep, need)
-        check_routes(tag, launches)
+        check_routes(tag, launches, expect)
         toks = [t for r in rep.requests for t in r.tokens]
         if rep.tokens_out != len(reqs) * sv.gen or \
                 bool(rep.pages_total) != pool or \
@@ -1278,7 +1687,8 @@ def main() -> int:
             f"warm-up {warm_s:.1f} s")
         log("serve", f"{tag} launches {launches} (needed per prefill group "
             f"/ decode step, exactly: {need}; every launch on its kernel's "
-            f"fast route: tc* or tile)")
+            f"fast route: tc* or tile" + (f", except {expect}, as _route gives"
+                                          if expect else "") + ")")
         if routing is not None:
             routing(records, rep)
         del records
@@ -1428,7 +1838,8 @@ def main() -> int:
         return sum(int((moe.topk_margin(r["logits"], r["idx"].shape[1])
                         < ROUTE_TOL).sum()) for r in recs)
 
-    def f32_streams(tag, plan32, params32, reqs, moe_layers=0, tile=()):
+    def f32_streams(tag, plan32, params32, reqs, moe_layers=0, tile=(),
+                    exact=False):
         """`reqs` in f32 through the kernels and through the plain path: the
         first prefill's logits agree within LOGIT_TOL and the greedy streams
         match except at a step whose plain top-2 margin is under it; every
@@ -1438,7 +1849,8 @@ def main() -> int:
         prefill's logits may differ only if an expert choice flipped there,
         and a stream may also diverge after a flipped choice that reached it
         (in its prefill group, where capacity couples the rows, or in its
-        own row of a later decode step)."""
+        own row of a later decode step). With `exact`, every stream must
+        equal its plain twin."""
         sv = plan32.serve
         e_k = Engine(plan32, params=params32)
         e_r = Engine(plan32.replace(serve__kernel_backend="ref"),
@@ -1505,6 +1917,9 @@ def main() -> int:
                         + (" and no expert choice flipped before it"
                            if L else ""))
             diverged += a.tokens != b.tokens
+        if exact and diverged:
+            raise AssertionError(f"{tag}: {diverged} f32 kernel stream(s) "
+                                 f"differ from the plain path's")
         route = ""
         if L:
             route = (f"; routing: first prefill {flips0} flipped choice(s), "
@@ -1750,8 +2165,215 @@ def main() -> int:
 
     # ---- 15-17. training ------------------------------------------------
     train_phases(dev)
+    free_device()
 
-    # ---- 18. the kernels line ------------------------------------------
+    def layer_parity(arch, params, prompts):
+        """Every layer of `arch` alone on the same input, in f32 (each
+        layer's weights widened from their bf16 copy): the plain path's
+        hidden state enters both backends (prefill over full rows, no
+        cache), outputs within 1e-5 of their scale. Returns the worst
+        relative difference."""
+        x = lm.embed_tokens(arch, params, prompts).float()
+        worst = 0.0
+        with torch.inference_mode():
+            for layer in range(arch.num_layers):
+                p_l = {k: v[layer].float() for k, v in params["blocks"].items()}
+                out = {be: blocks.apply_layer(arch, p_l, x, blocks.LayerCtx(
+                    mode="prefill", kernel_backend=be))[0]
+                    for be in ("cuda", "ref")}
+                rel = err(out["cuda"], out["ref"]) / float(
+                    out["ref"].abs().max())
+                if not rel <= 1e-5:
+                    raise AssertionError(
+                        f"{arch.name} layer {layer}: on the same input the "
+                        f"kernel path differs by {rel:.3e} of the output's "
+                        f"scale (> 1e-5)")
+                worst = max(worst, rel)
+                x = out["ref"]
+        return worst
+
+    def scaled(arch, seed, dtype, mats=DENSE_MATS):
+        """Seeded random params of `arch` on the card, the block matrices
+        scaled by WEIGHT_SCALE."""
+        p = lm.init_params(arch, torch.Generator(device=dev).manual_seed(seed),
+                           dtype=dtype, device=dev)
+        for name in mats:
+            p["blocks"][name].mul_(WEIGHT_SCALE)
+        return p
+
+    def chaos_serve(cparams):
+        """Phase 21: qwen3-0.6b in bf16 through the kernels under two slot
+        faults, once recovered by requeue and once by reprefill: the
+        streams equal the fault-free run's except at a near-tie (its top-2
+        margin printed), and the report's and the trace's fault counters
+        equal the plan's."""
+        from repro_torch.api import FaultPlan, FaultPolicy, SlotFault
+        from repro_torch.obs import Tracer
+        q = ARCHS["qwen3-0.6b"]
+        crng = np.random.default_rng(21)
+        # prompts of at most 96 tokens: prompt + generated tokens still fit
+        # the prefill width of 128, so a reprefill can rebuild the slot
+        creqs = [Request(rid=i, prompt=crng.integers(
+            0, q.vocab_size, int(crng.integers(16, 97)), dtype=np.int32))
+            for i in range(16)]
+        cplan = Plan(arch=q, run=RunSpec(compute_dtype="bfloat16"),
+                     serve=ServeSpec(prompt_len=128, gen=32, max_batch=8,
+                                     page_size=16, max_pages=64,
+                                     kernel_backend="cuda"))
+        events = (SlotFault(slot=0, step=3), SlotFault(slot=5, step=9))
+        base_s = MarginScheduler(Engine(cplan, params=cparams))
+        base = base_s.run(creqs)
+        want = {r.rid: r.tokens for r in base.requests}
+        for mode, pol, counts in (
+                ("requeue", FaultPolicy(),
+                 dict(requeues=2, quarantined=2, reprefills=0)),
+                ("reprefill", FaultPolicy(slot_recovery="reprefill",
+                                          quarantine_slots=False),
+                 dict(reprefills=2, requeues=0, quarantined=0))):
+            tracer = Tracer()
+            t0 = time.monotonic()
+            rep = Scheduler(Engine(cplan.replace(
+                faults=FaultPlan(events=events), fault_policy=pol),
+                params=cparams, tracer=tracer)).run(creqs)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            got = dict(slot_faults=rep.slot_faults,
+                       **{k: getattr(rep, k) for k in counts})
+            need = dict(slot_faults=len(events), **counts)
+            tel = {k.split("/", 1)[1]: v for k, v in
+                   rep.telemetry.counters.items() if k.startswith("fault/")}
+            if got != need or tel.get("slot_faults") != len(events) or \
+                    tel.get(mode + "s") != 2 or rep.failed_requests or \
+                    rep.shed or rep.tokens_out != 16 * 32:
+                raise AssertionError(f"chaos serve ({mode}): counters {got} "
+                                     f"(the plan's: {need}), fault/* "
+                                     f"telemetry {tel}, {rep.tokens_out} "
+                                     f"tokens")
+            ties, same = [], 0
+            for r in rep.requests:
+                if r.tokens == want[r.rid]:
+                    same += 1
+                    continue
+                k = next(i for i, (a, b) in enumerate(zip(r.tokens,
+                                                          want[r.rid]))
+                         if a != b)
+                m = base_s.margins[(r.rid, k)]
+                if m >= BF16_TIE:
+                    raise AssertionError(
+                        f"chaos serve ({mode}): rid {r.rid} diverges from the "
+                        f"fault-free stream at token {k}, top-2 margin "
+                        f"{m:.3e} >= {BF16_TIE}")
+                ties.append((r.rid, k, round(m, 5)))
+            log("chaos", f"serve qwen3-0.6b bf16 kernels, 16 requests x 32 "
+                f"tokens under {[(e.slot, e.step) for e in events]} (slot, "
+                f"step) faults, {mode}: {same}/16 streams equal the "
+                f"fault-free run's; divergences (rid, token, fault-free "
+                f"top-2 margin) at near-ties under {BF16_TIE}: "
+                f"{ties or 'none'}; counters {got} = the plan's; fault/* "
+                f"telemetry {tel}; {rep.prefill_calls} prefill calls, "
+                f"{rep.decode_steps} decode steps in {wall:.2f} s "
+                f"(fault-free: {base.prefill_calls}, {base.decode_steps})")
+
+    # ---- 18. gemma3-1b at full width: bf16 Scheduler, f32 streams -------
+    ga = ARCHS["gemma3-1b"]
+    kinds = list(ga.layer_kinds()[:ga.num_layers])
+    n_glob = kinds.count(0)
+    g3p32 = scaled(ga, 4, torch.float32)
+    g3bf = bf16_copy(g3p32)
+    g3reqs = [Request(rid=i, prompt=rng.integers(
+        0, ga.vocab_size, int(rng.integers(16, 129)), dtype=np.int32))
+        for i in range(16)]
+    g3plan = Plan(arch=ga, run=RunSpec(compute_dtype="bfloat16"),
+                  serve=ServeSpec(prompt_len=128, gen=32, max_batch=8,
+                                  page_size=16, max_pages=48,
+                                  kernel_backend="cuda"))
+    # the route each kernel takes at gemma3's heads: _route on tensors of
+    # the model's shapes (bf16, rows as the model lays them out)
+    qg = torch.zeros(8, 128, ga.num_heads, ga.head_dim, dtype=torch.bfloat16,
+                     device=dev).transpose(1, 2)
+    kg = torch.zeros(8, 128, ga.num_kv_heads, ga.head_dim,
+                     dtype=torch.bfloat16, device=dev).transpose(1, 2)
+    pg = torch.zeros(2, 49, 16, ga.num_kv_heads, ga.head_dim,
+                     dtype=torch.bfloat16, device=dev)
+    g3_expect = {"flash_attention_fwd": fa_route(qg, kg, kg),
+                 "flash_decode_paged": fd._route(qg[:, :, 0], pg, pg)}
+    del qg, kg, pg
+    log("serve", f"gemma3-1b: {n_glob} global layers of {ga.num_layers} "
+        f"(kinds {kinds}) launch the kernels; the route check's exception: "
+        f"at hd {ga.head_dim} (no tensor-core route) "
+        + ", ".join(f"{k} takes {r}" for k, r in g3_expect.items())
+        + "; every other family's launches stay held to tc* / tile")
+    g3_launches = serve_phase(
+        f"gemma3-1b full width ({ga.num_layers} layers, {n_glob} global, "
+        f"window {ga.window_size}, d {ga.d_model}, {ga.num_heads}/"
+        f"{ga.num_kv_heads} heads of {ga.head_dim}, d_ff {ga.d_ff}, vocab "
+        f"{ga.vocab_size}, tied)", Engine(g3plan, params=g3bf), g3reqs,
+        {"flash_attention_fwd": ("prefill", n_glob),
+         "flash_decode_paged": ("decode", n_glob)}, pool=True,
+        expect=g3_expect)
+    f32_streams("gemma3-1b", g3plan.replace(run__compute_dtype="float32"),
+                g3p32, g3reqs, exact=True)
+    del g3p32, g3bf
+    free_device()
+
+    # ---- 19. minitron-8b at full width, bf16 ----------------------------
+    mt = ARCHS["minitron-8b"]
+    torch.cuda.reset_peak_memory_stats()
+    mtp = scaled(mt, 5, torch.bfloat16)
+    init_peak = torch.cuda.max_memory_allocated()
+    n_mt = sum(t.numel() for t in tree_leaves(mtp))
+    big = max(t.numel() for t in tree_leaves(mtp))
+    log("weights", f"minitron-8b: {n_mt:,} params in bf16 "
+        f"({2 * n_mt / 2**30:.2f} GiB); peak device memory during the init "
+        f"{init_peak / 2**30:.2f} GiB (each leaf is drawn in f32 and cast: "
+        f"the largest transient f32 copy, {4 * big / 2**30:.2f} GiB, is "
+        f"in it)")
+    mt_prompts = torch.as_tensor(np.random.default_rng(19).integers(
+        0, mt.vocab_size, (8, 128)), device=dev)
+    mt_rel = layer_parity(mt, mtp, mt_prompts)
+    log("f32", f"minitron-8b layer by layer on the same input (8 x 128 "
+        f"tokens, the plain path's hidden state into both, each layer's "
+        f"weights widened to f32): outputs within {mt_rel:.3e} of their "
+        f"scale (tolerance 1e-5)")
+    mtreqs = [Request(rid=i, prompt=rng.integers(
+        0, mt.vocab_size, int(rng.integers(16, 129)), dtype=np.int32))
+        for i in range(8)]
+    mt_launches = serve_phase(
+        f"minitron-8b full width ({mt.num_layers} layers, d {mt.d_model}, "
+        f"{mt.num_heads}/{mt.num_kv_heads} heads of {mt.head_dim}, relu^2 "
+        f"d_ff {mt.d_ff}, vocab {mt.vocab_size}, untied)",
+        Engine(Plan(arch=mt, run=RunSpec(compute_dtype="bfloat16"),
+                    serve=ServeSpec(prompt_len=128, gen=16, max_batch=8,
+                                    page_size=16, max_pages=48,
+                                    kernel_backend="cuda")), params=mtp),
+        mtreqs, {"flash_attention_fwd": ("prefill", mt.num_layers),
+                 "flash_decode_paged": ("decode", mt.num_layers)}, pool=True)
+    del mtp
+    free_device()
+
+    # ---- 20. musicgen-medium through the stub frontend --------------------
+    mg = ARCHS["musicgen-medium"]
+    mg_launches = generate_phase(
+        f"musicgen-medium full width ({mg.num_layers} layers, d "
+        f"{mg.d_model}, {mg.num_heads} heads of {mg.head_dim}, vocab "
+        f"{mg.vocab_size}; stub frontend: prompts and each step's input are "
+        f"[B, S, d] embeddings)",
+        Plan(arch=mg, run=RunSpec(compute_dtype="bfloat16"),
+             serve=ServeSpec(prompt_len=128, gen=32, max_batch=8,
+                             kernel_backend="cuda")),
+        scaled(mg, 6, torch.bfloat16),
+        {"flash_attention_fwd": ("prefill", mg.num_layers),
+         "flash_decode": ("decode", mg.num_layers)})
+    free_device()
+
+    # ---- 21. chaos serving: slot faults at full width --------------------
+    chaos_serve(scaled(ARCHS["qwen3-0.6b"], 0, torch.bfloat16))
+    free_device()
+
+    # ---- 22. chaos training ------------------------------------------------
+    chaos_train_phase(dev)
+
+    # ---- 23. the kernels line ------------------------------------------
     src = {"flash_attention_fwd": ("src/repro_torch/kernels/csrc/"
                                    "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:94"),
@@ -1775,7 +2397,10 @@ def main() -> int:
              "hymba-1.5b serve": hy_launches,
              "hymba-1.5b generate": hy_gen_launches,
              "granite-moe-1b-a400m serve": gr_launches,
-             "granite-moe-1b-a400m generate": gr_gen_launches}
+             "granite-moe-1b-a400m generate": gr_gen_launches,
+             "gemma3-1b serve": g3_launches,
+             "minitron-8b serve": mt_launches,
+             "musicgen-medium generate": mg_launches}
     power = smi.split(",")[-1].strip()
     kernels = []
     for name in ("flash_decode_paged", "flash_attention_fwd",

@@ -8,7 +8,10 @@
 Plans are frozen and validated at construction (repro_torch.api.plan); the
 Engine runs them on the CUDA card (or device="cpu"): fit()/step() train
 under WSP, ASP or BSP, and repro_torch.api.serving adds the
-continuous-batching Scheduler.
+continuous-batching Scheduler. `Plan(faults=FaultPlan(...),
+fault_policy=FaultPolicy(...))` injects seeded failures into the threaded
+runtime and the Scheduler, with retry/backoff, heartbeat eviction, elastic
+rejoin and serve-side recovery (see repro_torch.faults).
 """
 from repro_torch.api.engine import Engine
 from repro_torch.api.plan import (ClusterSpec, PartitionSpec, Plan, RunSpec,
@@ -17,10 +20,16 @@ from repro_torch.api.presets import PRESETS, get_preset, list_presets
 from repro_torch.api.report import (RequestStats, ServeReport, Telemetry,
                                     TrainReport)
 from repro_torch.api.sync import ASP, BSP, SyncPolicy, UNBOUNDED_D, WSP
+from repro_torch.faults import (DegradedRunError, FaultPlan, FaultPolicy,
+                                GateTimeout, LinkFault, PSStall, PushTimeout,
+                                ReplicaDown, SlotFault, TransportError,
+                                WorkerCrash, WorkerSlowdown)
 
 __all__ = [
-    "ASP", "BSP", "ClusterSpec", "Engine", "PRESETS", "PartitionSpec",
-    "Plan", "RequestStats", "RunSpec", "ServeReport", "ServeSpec",
-    "SyncPolicy", "Telemetry", "TrainReport", "UNBOUNDED_D", "WSP",
-    "get_preset", "list_presets",
+    "ASP", "BSP", "ClusterSpec", "DegradedRunError", "Engine", "FaultPlan",
+    "FaultPolicy", "GateTimeout", "LinkFault", "PSStall", "PartitionSpec",
+    "Plan", "PRESETS", "PushTimeout", "ReplicaDown", "RequestStats",
+    "RunSpec", "ServeReport", "ServeSpec", "SlotFault", "SyncPolicy",
+    "Telemetry", "TrainReport", "TransportError", "UNBOUNDED_D", "WSP",
+    "WorkerCrash", "WorkerSlowdown", "get_preset", "list_presets",
 ]

@@ -5,7 +5,8 @@ fit() dispatches on the Plan's SyncPolicy:
 
   WSP / ASP     threaded virtual-worker fleet against the sharded parameter
                 server (true async, D >= 0, stragglers, periodic checkpoint,
-                elastic fail/rejoin)
+                seeded faults under the FleetSupervisor: heartbeat
+                eviction and elastic rejoin)
   BSP           the synchronous AllReduce loop (ring all-reduce of every
                 wave's deltas, simulated straggler-gated clock)
 
@@ -38,12 +39,18 @@ through the non-pipelined `lm.forward_ref` cache path:
                                       conv tails, prefill through
                                       ssd_chunked)
 
+Stub-frontend archs (chameleon-34b, musicgen-medium) take [B, S, d_model]
+embeddings where the others take token ids (models/frontend.py); generate()
+draws them, and each decode step's, from a seeded torch.Generator.
+
+Plan.faults injects a seeded FaultPlan through one FaultInjector shared by
+the transport, the parameter server, the workers and the Scheduler.
+
 The JAX Engine jit-compiles these steps; here they run eagerly under
 torch.inference_mode(), writing the caches in place. Entry points run on
 the CUDA card unless the caller passes device="cpu" — then the kernels'
 wrappers take their plain PyTorch versions. The spmd backend (ROADMAP
-Queue 1 item 9), fault scenarios and the fleet supervisor (item 7) and
-the Router (item 8) are not ported.
+Queue 1 item 9) and the Router (item 8) are not ported.
 """
 from __future__ import annotations
 
@@ -64,8 +71,8 @@ from repro_torch.core.param_server import ParameterServer, host_array
 from repro_torch.data.pipeline import MarkovLM, ShardedLoader
 from repro_torch.dist import collectives
 from repro_torch.dist.topology import make_topology
-from repro_torch.dist.transport import SimulatedTransport
-from repro_torch.models import lm
+from repro_torch.dist.transport import NullTransport, SimulatedTransport
+from repro_torch.models import frontend, lm
 from repro_torch.obs import NULL_TRACER
 from repro_torch.obs.metrics import SECONDS_BOUNDS
 from repro_torch.runtime.checkpoint import (latest_checkpoint,
@@ -73,10 +80,6 @@ from repro_torch.runtime.checkpoint import (latest_checkpoint,
 from repro_torch.runtime.staging import HostStaging, add_, device_tree
 from repro_torch.runtime.virtual_worker import VirtualWorker
 from repro_torch.serve import cache as cache_lib
-
-# host seconds a worker waits at the WSP staleness gate before the typed
-# GateTimeout (the JAX package's FaultPolicy.gate_timeout_s default)
-GATE_TIMEOUT_S = 120.0
 
 
 def resolve_device(device=None) -> torch.device:
@@ -137,6 +140,8 @@ class Engine:
         self._step_offset = 0      # waves already in a restored checkpoint
         self._fleet_ran = False    # the threaded fleet is single-shot
         self._bsp_wave = 0         # waves the BSP loop has run (this engine)
+        self._injector = None      # the Plan's FaultInjector (lazy)
+        self.supervisor = None     # the fleet's FleetSupervisor, if any
 
     # ------------------------------------------------------------------
     # materialization
@@ -145,9 +150,6 @@ class Engine:
         from repro_torch.core import wave
         from repro_torch.optim import make_optimizer
         plan, run, cfg = self.plan, self.plan.run, self.plan.arch
-        if cfg is not None and cfg.frontend != "none":
-            raise NotImplementedError(f"{cfg.name}: stub frontends are "
-                                      f"ROADMAP Queue 1 item 5")
         if self._optimizer is None:
             self._optimizer = make_optimizer(run.optimizer, run.lr,
                                              run.weight_decay)
@@ -161,6 +163,17 @@ class Engine:
         if self._source is None:
             self._source = MarkovLM(plan.vocab, seed=run.data_seed)
 
+    def fault_injector(self):
+        """The run's FaultInjector, built once from Plan.faults (None when
+        the Plan carries no fault scenario). Shared by every seam — the
+        transport, the PS, the workers and the Scheduler consult the same
+        per-path / per-push / per-step counters."""
+        if self._injector is None and self.plan.faults is not None:
+            from repro_torch.faults import FaultInjector
+            self._injector = FaultInjector(
+                self.plan.faults, time_scale=self.plan.cluster.time_scale)
+        return self._injector
+
     def _ensure_ps(self, policy: WSP):
         if self.ps is not None:
             return
@@ -169,14 +182,21 @@ class Engine:
         if isinstance(topo, str):
             topo = make_topology(topo, plan.cluster.num_vw)
         self.topology = topo
-        transport = (SimulatedTransport(topo,
-                                        time_scale=plan.cluster.time_scale,
-                                        tracer=self.tracer)
-                     if topo is not None else None)
+        injector = self.fault_injector()
+        fpol = plan.fault_policy
+        if topo is not None:
+            transport = SimulatedTransport(
+                topo, time_scale=plan.cluster.time_scale, tracer=self.tracer,
+                injector=injector, policy=fpol)
+        elif injector is not None:
+            transport = NullTransport(injector=injector, policy=fpol)
+        else:
+            transport = None
         self.ps = ParameterServer(
             self._params, D=policy.D,
             compression_ratio=plan.run.compression_ratio,
-            codec=plan.run.codec, transport=transport, tracer=self.tracer)
+            codec=plan.run.codec, transport=transport, tracer=self.tracer,
+            injector=injector)
 
     def _loader(self, i: int, num_vw: int) -> ShardedLoader:
         run = self.plan.run
@@ -262,7 +282,7 @@ class Engine:
         ctx = self._step_ctx
         wid, staging = ctx["wid"], ctx["staging"]
         # raises the typed GateTimeout if the gate never opens
-        self.ps.gate(wid, timeout=GATE_TIMEOUT_S)
+        self.ps.gate(wid, timeout=self.plan.fault_policy.gate_timeout_s)
         times = {}
         with self.tracer.span("engine", "step"):
             t0 = time.monotonic()
@@ -340,7 +360,13 @@ class Engine:
         cl = self.plan.cluster
         speeds = cl.speeds or (0.0,) * cl.num_vw
         straggle = cl.straggle_fns or (None,) * cl.num_vw
-        # a rejoined successor does not replay its predecessor's death
+        injector = self.fault_injector()
+        # a rejoined successor does not replay its predecessor's death: the
+        # crash / fail_at anchors belong to the original incarnation only
+        # (slowdown persists — the *node* is slow, not the process)
+        crash_at = None
+        if injector is not None and not successor:
+            crash_at = injector.crash_wave(i)
         return VirtualWorker(
             wid, self.ps, self._wave_step, self._loader(i, cl.num_vw),
             self._optimizer.init, device=self.device,
@@ -351,45 +377,8 @@ class Engine:
             fail_at_wave=None if successor else cl.fail_map().get(i),
             async_push=policy.async_push,
             tracer=self.tracer, D=policy.D, tick_plan=self._tick_plan(),
-            gate_timeout_s=GATE_TIMEOUT_S)
-
-    def _rejoin_poll(self, policy: WSP, failures: dict, rejoins: list,
-                     delay: float) -> bool:
-        """One pass of the elastic-rejoin watch (fit(rejoin_failed_after=)):
-        record each worker that failed and exited (`failures`: wid ->
-        _Failure), and once `delay` host seconds have passed spawn its
-        successor ('vw2' -> 'vw2r'), which registers at the global clock
-        and pulls w_global. Returns True while a recorded failure still
-        owes its successor. (Heartbeat eviction of stalled workers is the
-        fleet supervisor's, ROADMAP Queue 1 item 7.)"""
-        for wid, w in list(self.workers.items()):
-            if w.failed and not w.is_alive() and wid not in failures:
-                failures[wid] = _Failure(self.ps.clock.global_clock())
-                self.tracer.instant("engine", "evict", wid=wid)
-        pending = False
-        for wid, f in failures.items():
-            if f.rejoined:
-                continue
-            if time.monotonic() - f.t < delay:
-                pending = True
-                continue
-            f.rejoined = 1
-            new_wid = wid + "r"
-            while new_wid in self.workers:
-                new_wid += "r"
-            i = int(wid[2:].rstrip("r"))
-            if self.topology is not None and \
-                    f"vw{i}" in self.topology.pod_of:
-                # the successor lives on the failed worker's node as far as
-                # the network model is concerned
-                self.topology.add_alias(new_wid, f"vw{i}")
-            nw = self._make_worker(i, new_wid, policy, successor=True)
-            self.workers[new_wid] = nw
-            nw.start()
-            rejoins.append(new_wid)
-            self.tracer.instant("engine", "rejoin", wid=new_wid,
-                                for_wid=wid)
-        return pending
+            injector=injector, vw_index=i, crash_at=crash_at,
+            gate_timeout_s=self.plan.fault_policy.gate_timeout_s)
 
     def _fit_threaded(self, policy: WSP, *,
                       rejoin_failed_after: Optional[float] = None,
@@ -417,22 +406,42 @@ class Engine:
             self.workers[wid] = self._make_worker(i, wid, policy)
             self.workers[wid].start()
         ckpt_step = 0
-        failures: dict = {}        # wid -> _Failure (rejoin watch)
-        rejoins: list = []
-        periodic = bool(run.ckpt_dir and run.ckpt_every) or \
-            rejoin_failed_after is not None
+        fpol = plan.fault_policy
+        if rejoin_failed_after is not None:
+            # the legacy knob, promoted onto the FaultPolicy: rejoin each
+            # failed worker once, this many seconds after its eviction
+            fpol = dataclasses.replace(
+                fpol, rejoin_delay_s=rejoin_failed_after,
+                rejoin_max=max(1, fpol.rejoin_max))
+        supervise = fpol.evict_lag > 0 or fpol.rejoins \
+            or plan.faults is not None
+        if supervise:
+            from repro_torch.faults import FleetSupervisor
+
+            def spawn(i: int, new_wid: str):
+                nw = self._make_worker(i, new_wid, policy, successor=True)
+                self.workers[new_wid] = nw
+                nw.start()
+                return nw
+
+            self.supervisor = FleetSupervisor(
+                self.ps, self.workers, fpol, spawn=spawn,
+                topology=self.topology, tracer=self.tracer)
+        periodic = bool(run.ckpt_dir and run.ckpt_every) or supervise
         if not periodic:
+            # nothing to supervise: block on the (fixed) worker set directly
             for w in list(self.workers.values()):
                 w.join()
-        pending = False
-        while periodic and (pending or
-                            any(w.is_alive() for w in self.workers.values())):
+        tick = min(0.25, fpol.heartbeat_every_s) if supervise else 0.25
+        while periodic and (
+                any(w.is_alive() for w in list(self.workers.values()))
+                or (self.supervisor is not None
+                    and self.supervisor.pending_rejoin())):
             # wake on wave completion / worker exit rather than busy-polling
-            self.ps.push_event.wait(timeout=0.05)
+            self.ps.push_event.wait(timeout=tick)
             self.ps.push_event.clear()
-            if rejoin_failed_after is not None:
-                pending = self._rejoin_poll(policy, failures, rejoins,
-                                            rejoin_failed_after)
+            if self.supervisor is not None:
+                self.supervisor.poll()
             # periodic checkpoint (PS + clocks, snapshotted atomically)
             if run.ckpt_dir and run.ckpt_every:
                 gc = self.ps.clock.global_clock()
@@ -467,22 +476,30 @@ class Engine:
         report.comm_seconds = self.ps.comm_seconds
         report.comm = self.ps.transport.stats()
         report.late_pushes = self.ps.late_pushes
-        report.evictions = [(wid, f.at_clock, "crashed", f.rejoined)
-                            for wid, f in failures.items()]
-        report.rejoins = rejoins
+        report.ps_stalls = self.ps.ps_stalls
+        report.drops = report.comm.get("drops", 0)
+        report.retries = report.comm.get("retries", 0)
+        if self.supervisor is not None:
+            report.evictions = [(e.wid, e.at_clock, e.reason, e.rejoined)
+                                for e in self.supervisor.evictions]
+            report.rejoins = list(self.supervisor.rejoins)
         # fail loudly on silent degradation: a run that timed out at the
         # staleness gate, or lost a worker to a typed fault without a
-        # successor taking over, did NOT do the work the Plan requested
-        degraded = []
-        for wid, w in self.workers.items():
-            if w.metrics.gate_timeouts:
-                degraded.append(f"{wid}: staleness gate timed out")
-            elif w.error is not None and (wid + "r") not in self.workers:
-                degraded.append(f"{wid}: {w.error}")
-        if degraded:
-            from repro_torch.faults.errors import DegradedRunError
-            raise DegradedRunError("run completed degraded: "
-                                   + "; ".join(degraded), report=report)
+        # successor taking over, did NOT do the work the Plan requested.
+        # FaultPolicy(allow_degraded=True) opts into getting the (counter-
+        # annotated) report back instead.
+        if not fpol.allow_degraded:
+            degraded = []
+            for wid, w in self.workers.items():
+                if w.metrics.gate_timeouts:
+                    degraded.append(f"{wid}: staleness gate timed out")
+                elif w.error is not None and (wid + "r") not in self.workers:
+                    degraded.append(f"{wid}: {w.error}")
+            if degraded:
+                from repro_torch.faults.errors import DegradedRunError
+                raise DegradedRunError(
+                    "run completed degraded (set FaultPolicy.allow_degraded "
+                    "to accept): " + "; ".join(degraded), report=report)
         return report
 
     # ------------------------------------------------------------------
@@ -591,9 +608,6 @@ class Engine:
             return
         plan, run, sv = self.plan, self.plan.run, self.plan.serve
         cfg = plan.arch
-        if cfg.frontend != "none":
-            raise NotImplementedError(f"{cfg.name}: stub frontends are "
-                                      f"ROADMAP Queue 1 item 5")
         cdt, cache_dt = cache_lib.serve_dtypes(run.compute_dtype,
                                                sv.cache_dtype)
         if self._params is None:
@@ -603,7 +617,7 @@ class Engine:
         pre_fn, dec_fn = _ref_serve_steps(cfg, sv.kernel_backend)
         self._serve = {"cfg": cfg, "params": self._params,
                        "prefill": pre_fn, "decode": dec_fn,
-                       "cache_dt": cache_dt}
+                       "cache_dt": cache_dt, "dtype": cdt}
 
     def _ensure_serve_store(self):
         if self._serve_paged is not None:
@@ -639,7 +653,11 @@ class Engine:
                                     device=self.device)
 
     def _tokens(self, x, what: str):
+        """Token ids, or [B, S, d_model] embeddings (stub-frontend archs,
+        cast to the serve compute dtype), on this Engine's device."""
         x = torch.as_tensor(x, device=self.device)
+        if self.plan.arch.frontend != "none":
+            x = x.to(self._serve["dtype"])
         sv = self.plan.serve
         if what and tuple(x.shape[:2]) != (sv.max_batch, sv.prompt_len):
             raise ValueError(
@@ -651,8 +669,9 @@ class Engine:
     def prefill(self, prompts):
         """Prefill a full batch of prompts into a fresh contiguous cache.
 
-        prompts [max_batch, prompt_len] token ids. Returns (last_logits
-        [B, vocab] f32, cache)."""
+        prompts [max_batch, prompt_len] token ids (or [.., .., d_model]
+        embeddings for stub-frontend archs). Returns (last_logits [B, vocab]
+        f32, cache)."""
         self._require_serve("prefill")
         self._ensure_serve()
         st, sv = self._serve, self.plan.serve
@@ -696,11 +715,13 @@ class Engine:
     def decode(self, tokens, cache, pos):
         """One decode position for the whole batch.
 
-        tokens [B, 1] ids; pos a scalar or [B] vector (each row at its own
-        depth); cache the contiguous tree from prefill() — updated in place
-        — or a CacheStore, which routes through the paged decode. Returns
-        (logits [B, vocab] f32, cache)."""
+        tokens [B, 1] ids (or [B, 1, d_model] embeddings for stub-frontend
+        archs); pos a scalar or [B] vector (each row at its own depth);
+        cache the contiguous tree from prefill() — updated in place — or a
+        CacheStore, which routes through the paged decode. Returns (logits
+        [B, vocab] f32, cache)."""
         self._require_serve("decode")
+        self._ensure_serve()
         sv = self.plan.serve
         tokens = self._tokens(tokens, "")
         pos = torch.as_tensor(pos, dtype=torch.int64, device=self.device)
@@ -721,20 +742,39 @@ class Engine:
             return logits[:, -1], cache
         return logits[:, -1], out
 
+    def _serve_prompts(self):
+        """Deterministic synthetic prompts when the caller brings none:
+        token ids from a torch.Generator seeded with sample_seed, or stub
+        embeddings for frontend archs (not the JAX package's draws)."""
+        sv, cfg = self.plan.serve, self.plan.arch
+        if cfg.frontend != "none":
+            return self._stub_inputs(-1, sv.prompt_len)
+        g = torch.Generator().manual_seed(sv.sample_seed)
+        return torch.randint(0, cfg.vocab_size, (sv.max_batch, sv.prompt_len),
+                             generator=g, dtype=torch.int32)
+
+    def _stub_inputs(self, step: int, seq_len: int):
+        """A stub frontend's [max_batch, seq_len, d_model] embeddings for
+        decode step `step` (-1: the prompts), drawn on this Engine's device
+        from a generator keyed by (sample_seed, step)."""
+        sv = self.plan.serve
+        g = torch.Generator(device=self.device).manual_seed(
+            sample_key(sv.sample_seed, 1, step))
+        return frontend.stub_embeddings(self.plan.arch, g, sv.max_batch,
+                                        seq_len, dtype=self._serve["dtype"])
+
     def generate(self, prompts=None, *, callback=None) -> ServeReport:
         """Run the Plan's serve scenario on one aligned batch: prefill
         max_batch prompts, then gen greedy/sampled decode positions over
         the contiguous cache. Returns a ServeReport with `tokens` [B, gen].
-        Without prompts, ids are drawn from a torch.Generator seeded with
-        sample_seed (not the JAX package's draws)."""
+        Without prompts they are drawn (`_serve_prompts`). Stub-frontend
+        archs feed each decode step a fresh stub embedding, as the JAX
+        package does (its frontend would embed the generated id)."""
         self._require_serve("generate")
         self._ensure_serve()
         plan, sv, cfg = self.plan, self.plan.serve, self.plan.arch
         if prompts is None:
-            g = torch.Generator().manual_seed(sv.sample_seed)
-            prompts = torch.randint(0, cfg.vocab_size,
-                                    (sv.max_batch, sv.prompt_len),
-                                    generator=g, dtype=torch.int32)
+            prompts = self._serve_prompts()
         report = ServeReport(arch=cfg.name, backend=plan.run.backend,
                              max_batch=sv.max_batch)
         t_tr = self.tracer.now()
@@ -749,9 +789,12 @@ class Engine:
         if callback is not None:
             callback(0, tok)
         for t in range(1, sv.gen):
+            if cfg.frontend != "none":
+                x = self._stub_inputs(t, 1)
+            else:
+                x = toks[-1][:, None]
             t0 = time.monotonic()
-            logits, cache = self.decode(toks[-1][:, None], cache,
-                                        sv.prompt_len + t - 1)
+            logits, cache = self.decode(x, cache, sv.prompt_len + t - 1)
             self._sync()
             report.decode_s += time.monotonic() - t0
             report.decode_steps += 1
@@ -764,14 +807,6 @@ class Engine:
         self.tracer.add_span("engine", "generate", t_tr, self.tracer.now(),
                              gen=sv.gen, batch=sv.max_batch)
         return self.attach_telemetry(report)
-
-
-@dataclasses.dataclass
-class _Failure:
-    """A worker that failed and exited, as the rejoin watch records it."""
-    at_clock: int                  # the global clock when it was noticed
-    t: float = dataclasses.field(default_factory=time.monotonic)
-    rejoined: int = 0
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,11 @@ frozen and validated at construction, so a malformed scenario fails where
 it is written, not three layers down inside a worker thread. The port runs
 both on the threads backend: Engine.fit()/step() train, and
 `serve=ServeSpec(...)` turns the Plan into a serving scenario for
-Engine.prefill()/decode()/generate(). What is not ported yet raises
-NotImplementedError naming its ROADMAP item: the spmd backend (Queue 1
-item 9), fault scenarios (item 7) and Router replicas (item 8).
+Engine.prefill()/decode()/generate(). `faults=FaultPlan(...)` and
+`fault_policy=FaultPolicy(...)` attach a seeded fault scenario and its
+recovery posture (repro_torch.faults), validated against the Plan they
+ride. What is not ported yet raises NotImplementedError naming its ROADMAP
+item: the spmd backend (Queue 1 item 9) and Router replicas (item 8).
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ from repro_torch.api.sync import BSP, SyncPolicy, WSP
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.dist.compression import make_codec
 from repro_torch.dist.topology import make_topology
+from repro_torch.faults.plan import (FaultPlan, FaultPolicy, SERVE_EVENTS,
+                                     TRAIN_EVENTS, ReplicaDown, SlotFault,
+                                     WorkerCrash, WorkerSlowdown)
 from repro_torch.kernels.ops import BACKENDS
 
 
@@ -138,7 +143,8 @@ class Plan:
     sync: SyncPolicy = field(default_factory=WSP)
     run: RunSpec = field(default_factory=RunSpec)
     serve: Optional[ServeSpec] = None
-    faults: Any = None              # fault scenarios: not ported yet
+    faults: Optional[FaultPlan] = None
+    fault_policy: FaultPolicy = field(default_factory=FaultPolicy)
 
     def __post_init__(self):
         self.validate()
@@ -174,9 +180,6 @@ class Plan:
         if run.backend != "threads":
             raise ValueError(f"unknown backend {run.backend!r}; expected "
                              f"'threads' or 'spmd'")
-        if self.faults is not None:
-            raise NotImplementedError("fault scenarios are ROADMAP Queue 1 "
-                                      "item 7; drop Plan.faults")
         if cl.num_vw < 1:
             raise ValueError(f"num_vw must be >= 1, got {cl.num_vw}")
         if cl.speeds is not None and len(cl.speeds) != cl.num_vw:
@@ -219,6 +222,7 @@ class Plan:
                 "PartitionSpec.stages/tp/data factor the spmd mesh; the "
                 "threads backend runs each VW's wave step whole (only "
                 "partition.num_microbatches applies)")
+        self._validate_faults()
         if self.serve is not None:
             self._validate_serve()
             return
@@ -242,6 +246,80 @@ class Plan:
                     "straggle_fns/fail_at simulate per-worker behavior in "
                     "the threaded PS runtime; the BSP loop models "
                     "heterogeneity through cluster.speeds only")
+
+    def _validate_faults(self) -> None:
+        """Fault scenarios are validated against the Plan they ride: event
+        indices must land inside the fleet/run/batch, train events need a
+        train Plan (and vice versa), and the threaded PS runtime is the
+        only backend with fault seams."""
+        if not isinstance(self.fault_policy, FaultPolicy):
+            raise TypeError(f"fault_policy must be a FaultPolicy, got "
+                            f"{self.fault_policy!r}")
+        if self.faults is None:
+            return
+        if not isinstance(self.faults, FaultPlan):
+            raise TypeError(f"faults must be a FaultPlan, got "
+                            f"{self.faults!r}")
+        cl, run, pol = self.cluster, self.run, self.fault_policy
+        if self.serve is not None:
+            bad = self.faults.of_type(*TRAIN_EVENTS)
+            if bad:
+                raise ValueError(
+                    f"this Plan serves; training fault events "
+                    f"{sorted({type(e).__name__ for e in bad})} would "
+                    f"silently never fire — use SlotFault (or drop faults)")
+            for ev in self.faults.of_type(SlotFault):
+                if ev.slot >= self.serve.max_batch:
+                    raise ValueError(
+                        f"SlotFault names slot {ev.slot} outside the decode "
+                        f"batch (max_batch={self.serve.max_batch})")
+            if self.faults.of_type(ReplicaDown):
+                # the JAX package refuses it on a one-replica fleet too;
+                # the port serves one replica only
+                raise ValueError(
+                    "ReplicaDown kills one replica of a data-parallel serve "
+                    "fleet; this Plan has a single replica (partition."
+                    "data=1) — the Router would have no survivor to "
+                    "re-dispatch onto (serve replicas behind the Router are "
+                    "ROADMAP Queue 1 item 8)")
+            return
+        bad = self.faults.of_type(*SERVE_EVENTS)
+        if bad:
+            raise ValueError(
+                f"{type(bad[0]).__name__} is a serving fault; this Plan "
+                f"trains — use the training events (LinkFault/WorkerCrash/"
+                f"WorkerSlowdown/PSStall) or set Plan.serve")
+        if isinstance(self.sync, BSP):
+            raise ValueError(
+                "fault injection seams live in the threaded parameter-"
+                "server runtime (transport, PS, worker fleet); the BSP "
+                "backend has none of them — drop Plan.faults or use a WSP "
+                "policy")
+        for ev in self.faults.of_type(WorkerCrash, WorkerSlowdown):
+            if ev.vw >= cl.num_vw:
+                raise ValueError(
+                    f"{type(ev).__name__} names worker {ev.vw} outside the "
+                    f"fleet (num_vw={cl.num_vw}); that fault would silently "
+                    f"never be injected")
+            if ev.wave >= run.max_waves:
+                raise ValueError(
+                    f"{type(ev).__name__}(vw={ev.vw}) anchors at wave "
+                    f"{ev.wave} but the run stops after "
+                    f"{run.max_waves} waves")
+        crashes = self.faults.of_type(WorkerCrash)
+        if crashes and cl.num_vw > 1 and pol.evict_lag <= 0:
+            raise ValueError(
+                "a WorkerCrash dies without deregistering: survivors stall "
+                "at the staleness gate until the crashed worker is evicted. "
+                "Set FaultPolicy.evict_lag (<= D) so the supervisor detects "
+                "and evicts it, or drop the crash event")
+        if crashes and pol.evict_lag > 0 and isinstance(self.sync, WSP) \
+                and pol.evict_lag > max(1, self.sync.D):
+            raise ValueError(
+                f"FaultPolicy.evict_lag={pol.evict_lag} exceeds the "
+                f"staleness bound D={self.sync.D}: survivors deadlock at "
+                f"the gate before the lag detector can fire — set "
+                f"evict_lag <= max(1, D)")
 
     def _validate_serve(self) -> None:
         """Serve-mode Plans: reject knobs the serve path would silently

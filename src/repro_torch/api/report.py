@@ -39,6 +39,20 @@ class Telemetry:
         h = self.histograms.get("wsp/staleness")
         return h["max"] if h and h["count"] else None
 
+    def bubble_fraction(self) -> Optional[float]:
+        b = self.counters.get("pipe/bubble_s", 0.0)
+        c = self.counters.get("pipe/busy_s", 0.0)
+        return b / (b + c) if (b + c) > 0 else None
+
+    def link_utilization(self, wall_s: float) -> dict:
+        """link name -> modeled busy fraction of the run's wall clock."""
+        out = {}
+        for k, v in self.gauges.items():
+            if k.startswith("link/") and k.endswith("/modeled_s"):
+                name = k.split("/", 2)[1]
+                out[name] = min(1.0, v / wall_s) if wall_s > 0 else 0.0
+        return out
+
 
 @dataclass
 class TrainReport:
@@ -56,16 +70,42 @@ class TrainReport:
     overlap_seconds: float = 0.0                    # comm hidden under compute
     push_wait_seconds: float = 0.0                  # comm NOT hidden (blocked)
     comm: dict = field(default_factory=dict)        # transport link stats
-    # failure accounting (zeros on failure-free runs)
+    # fault / recovery accounting (repro_torch.faults; zeros on fault-free
+    # runs)
     waves_requested: int = 0    # max_waves * initial fleet size
-    gate_timeouts: int = 0      # staleness gates that timed out (fit()
-                                # raises DegradedRunError)
-    crashes: int = 0            # workers that died (fail_at)
+    gate_timeouts: int = 0      # staleness gates that timed out (loud, not
+                                # silent: fit() raises DegradedRunError
+                                # unless FaultPolicy.allow_degraded)
+    crashes: int = 0            # workers that died (injected or fail_at)
     late_pushes: int = 0        # pushes applied after the pusher left the
                                 # clock (delta kept, clock untouched)
+    ps_stalls: int = 0          # injected parameter-server apply stalls
+    drops: int = 0              # transport attempts dropped
+    retries: int = 0            # transport retries issued
     evictions: list = field(default_factory=list)   # (wid, at_clock,
                                                     #  reason, rejoined)
     rejoins: list = field(default_factory=list)     # successor wids
+
+    def fault_digest(self) -> dict:
+        """The run's canonical fault/recovery record, restricted to fields
+        that are a deterministic function of the Plan: every entry is
+        anchored to logical indices (wave numbers, per-path attempt
+        counters), never to host timing. Two runs of the same seeded
+        scenario must produce equal digests — on the CPU and on the card,
+        and in the JAX package. Timing-sensitive observations (total waves
+        including a rejoiner's, late_pushes, eviction clocks) stay on the
+        report but out of the digest."""
+        return {
+            "waves_requested": self.waves_requested,
+            "gate_timeouts": self.gate_timeouts,
+            "crashes": self.crashes,
+            "drops": self.drops,
+            "retries": self.retries,
+            "drops_by_link": dict(self.comm.get("drops_by_link", {})),
+            "retries_by_link": dict(self.comm.get("retries_by_link", {})),
+            "evictions": sorted((w, r) for w, _, r, _ in self.evictions),
+            "rejoins": sorted(self.rejoins),
+        }
 
     def loss_curve(self):
         """(wall_s, loss) arrays in wall-clock order. Sorts by the timestamp
@@ -101,6 +141,10 @@ class RequestStats:
     ttft_s: float = 0.0         # arrival -> first token (end of this
                                 # request's prefill group), wall clock
     latency_s: float = 0.0      # admission -> last token (wall clock)
+    retries: int = 0            # slot-fault recoveries this request took
+    shed: bool = False          # refused admission under fault pressure
+    failed: bool = False        # retired without completing (retry budget
+                                # exhausted)
 
     @property
     def new_tokens(self) -> int:
@@ -137,6 +181,17 @@ class ServeReport:
     readmit_recomputes: int = 0  # admissions that re-prefilled an evicted
     #                              prefix
     preemptions: int = 0        # in-flight requests preempted + replayed
+    # fault / recovery accounting (repro_torch.faults; zeros on fault-free
+    # runs)
+    slot_faults: int = 0        # injected slot faults taken
+    requeues: int = 0           # requests re-admitted after a slot fault
+    reprefills: int = 0         # slots rebuilt in place from their pages
+    quarantined: int = 0        # slots removed from the free pool
+    shed: int = 0               # requests refused under fault pressure
+    failed_requests: int = 0    # retired incomplete (retry budget spent)
+    aborted_step: int = -1      # serving stopped early at this decode step
+    #                             (a callback raised StopServing); -1 = ran
+    #                             to completion
     telemetry: Optional[Telemetry] = None  # when tracing is enabled
 
     @property

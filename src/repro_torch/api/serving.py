@@ -57,6 +57,14 @@ class Request:
     deadline: int = 0
 
 
+class StopServing(Exception):
+    """Raised by a run() callback to abort serving mid-run. The Scheduler
+    stops immediately and returns a report covering only the requests
+    already retired (aborted_step marks where); in-flight and queued
+    requests are absent, so the caller can re-dispatch them (replay from
+    the prompt is exact: token picks are keyed by (sample_seed, rid, k))."""
+
+
 class _Slot:
     """An in-flight request occupying one decode-batch row."""
 
@@ -78,9 +86,11 @@ class Scheduler:
             raise ValueError("the Scheduler drives serve Plans; Plan.serve "
                              "is unset — give the Plan a ServeSpec")
         if plan.arch.frontend != "none":
-            raise ValueError(f"{plan.arch.name} is a stub-frontend "
-                             f"architecture (inputs are embeddings, not "
-                             f"token ids); the scheduler feeds ids back")
+            raise ValueError(
+                f"{plan.arch.name} is a stub-frontend architecture (inputs "
+                f"are precomputed embeddings, not token ids); the request "
+                f"scheduler feeds generated ids back — serve it through "
+                f"Engine.generate() instead")
         if policy not in POLICIES:
             raise ValueError(f"unknown admission policy {policy!r}; "
                              f"expected one of {POLICIES}")
@@ -117,7 +127,11 @@ class Scheduler:
 
     def run(self, requests, *, callback=None) -> ServeReport:
         """Serve `requests` to completion; `callback(step, active_slots)`
-        fires after every batched decode step."""
+        fires after every batched decode step (raise StopServing from it
+        to abort). Under the Plan's FaultPlan, SlotFaults fire at their
+        decode step: the slot is quarantined and its request requeued
+        (replayed from the prompt) or reprefilled (rebuilt from prompt +
+        generated tokens) within FaultPolicy.slot_retry_budget."""
         eng, sv = self.engine, self.sv
         B, P = sv.max_batch, sv.prompt_len
         plan = eng.plan
@@ -149,11 +163,16 @@ class Scheduler:
                            evict=sv.evict, preempt=sv.preempt,
                            policy=self.policy, metrics=tr.metrics)
         preempted_rids: set[int] = set()
+        injector = eng.fault_injector()
+        fpol = plan.fault_policy
+        quarantined: set[int] = set()
+        retries_by_rid: dict[int, int] = {}
 
         def release(s: int):
             mm.went_cold(store.free(s), step)
-            free.append(s)
-            free.sort()
+            if s not in quarantined:
+                free.append(s)
+                free.sort()
 
         def retire(s: int, slot: _Slot):
             slot.stats.finished_step = step
@@ -162,6 +181,30 @@ class Scheduler:
             release(s)
             tr.instant("sched", "retire", rid=slot.req.rid, slot=s,
                        step=step, tokens=len(slot.stats.tokens))
+
+        def shed_queue(reason: str):
+            for prompt, r in queue:
+                stats = RequestStats(rid=r.rid, prompt_len=prompt.shape[0],
+                                     shed=True)
+                report.requests.append(stats)
+                report.shed += 1
+                tr.instant("sched", "shed", rid=r.rid, step=step,
+                           reason=reason)
+                tr.metrics.counter_inc("fault/shed")
+            queue.clear()
+
+        def requeue(s: int, slot: _Slot):
+            """Recover by replay: the request goes back to the *front* of
+            the queue and re-prefills from its prompt. Token picks are
+            keyed by (rid, k), so the replayed stream equals the one a
+            fault-free scheduler would have produced."""
+            del active[s]
+            release(s)
+            queue.insert(0, (slot.prompt, slot.req))
+            report.requeues += 1
+            tr.instant("sched", "requeue", rid=slot.req.rid, slot=s,
+                       step=step, retries=slot.stats.retries)
+            tr.metrics.counter_inc("fault/requeues")
 
         def preempt_slot(s: int):
             """Release an in-flight request's pages and replay it from the
@@ -176,7 +219,99 @@ class Scheduler:
             tr.metrics.counter_inc("serve/preemptions")
             return (slot.prompt, slot.req)
 
+        def fail_request(s: int, slot: _Slot):
+            slot.stats.failed = True
+            report.failed_requests += 1
+            tr.instant("sched", "request_failed", rid=slot.req.rid, slot=s,
+                       step=step, retries=slot.stats.retries)
+            del active[s]
+            retire(s, slot)
+
+        def try_reprefill(s: int, slot: _Slot) -> bool:
+            """Recover in place: rebuild the slot's cache by prefilling
+            prompt + already-generated tokens (the request keeps its
+            tokens; only the transient per-slot state is rebuilt). Only
+            possible while that sequence still fits the prefill width —
+            False falls back to requeue."""
+            seq = np.concatenate([
+                np.asarray(slot.prompt, np.int32),
+                np.asarray(slot.stats.tokens[:-1], np.int32)])
+            if seq.shape[0] > P:
+                return False
+            del active[s]
+            mm.went_cold(store.free(s), step)
+            if s in quarantined:
+                if not free:
+                    return False        # no healthy slot left to rebuild on
+                s2 = free.pop(0)
+            else:
+                s2 = s
+            need = slot.stats.prompt_len + slot.limit
+            if not mm.make_room(store.layout.pages_for(need)
+                                if store._has_pool else 0):
+                # the slot's own prompt pages went cold under an index
+                # hold and eviction can't reclaim enough — replay instead
+                if s2 != s or s not in quarantined:
+                    free.append(s2)
+                    free.sort()
+                return False
+            store.alloc(s2, need)
+            prompts = np.zeros((B, P), np.int32)
+            prompts[0, :seq.shape[0]] = seq
+            lens = np.ones(B, np.int32)
+            lens[0] = seq.shape[0]
+            t0 = time.monotonic()
+            with tr.span("sched", "reprefill", rid=slot.req.rid, slot=s2,
+                         depth=int(seq.shape[0])):
+                eng.prefill_into(store, prompts, lens, [s2])
+            report.prefill_s += time.monotonic() - t0
+            report.prefill_calls += 1
+            report.reprefills += 1
+            slot.stats.slot = s2
+            active[s2] = slot
+            tr.metrics.counter_inc("fault/reprefills")
+            return True
+
+        def inject_slot_faults():
+            """Fire this decode step's injected slot faults: quarantine the
+            slot and recover its request under the retry budget."""
+            for s in injector.slot_faults(step):
+                report.slot_faults += 1
+                tr.instant("sched", "slot_fault", slot=s, step=step)
+                tr.metrics.counter_inc("fault/slot_faults")
+                if fpol.quarantine_slots and s not in quarantined:
+                    quarantined.add(s)
+                    report.quarantined += 1
+                    if s in free:
+                        free.remove(s)
+                slot = active.get(s)
+                if slot is None:
+                    continue            # the faulted slot was empty
+                slot.stats.retries += 1
+                retries_by_rid[slot.req.rid] = slot.stats.retries
+                if slot.stats.retries > fpol.slot_retry_budget:
+                    fail_request(s, slot)
+                elif fpol.slot_recovery == "reprefill" \
+                        and try_reprefill(s, slot):
+                    pass
+                else:
+                    if s in active:     # a failed reprefill freed the slot
+                        requeue(s, slot)
+                    else:
+                        queue.insert(0, (slot.prompt, slot.req))
+                        report.requeues += 1
+                        tr.metrics.counter_inc("fault/requeues")
+
+        faulted_steps: set[int] = set()
         while queue or active:
+            # ---- graceful degradation under sustained fault pressure ----
+            if queue and fpol.shed_after_faults \
+                    and report.slot_faults >= fpol.shed_after_faults:
+                shed_queue("fault_pressure")
+            if queue and not active and not free:
+                # every slot is quarantined: nothing can ever be admitted
+                # again — shed the remainder instead of spinning forever
+                shed_queue("no_healthy_slots")
             # ---- admit: policy order into the lowest slots, page-gated --
             if free and queue:
                 admits, taken, requeued = [], [], []
@@ -243,7 +378,9 @@ class Scheduler:
                                              tokens=[tok],
                                              admitted_step=step, slot=s,
                                              group=group, prefill_s=dt,
-                                             ttft_s=ttft)
+                                             ttft_s=ttft,
+                                             retries=retries_by_rid.get(
+                                                 r.rid, 0))
                         tr.metrics.observe("serve/ttft_s", ttft)
                         slot = _Slot(r, stats, self._limit(r),
                                      next_pos=prompt.shape[0], last_tok=tok,
@@ -252,6 +389,12 @@ class Scheduler:
                             retire(s, slot)
                         else:
                             active[s] = slot
+            # ---- injected slot faults fire at their decode step ---------
+            if injector is not None and step not in faulted_steps:
+                # consulted once per step value: a recovery that empties
+                # the batch loops back here without re-firing the fault
+                faulted_steps.add(step)
+                inject_slot_faults()
             if not active:
                 continue
             # ---- one batched decode step over every active slot ---------
@@ -284,7 +427,15 @@ class Scheduler:
                     del active[s]
                     retire(s, slot)
             if callback is not None:
-                callback(step, len(active))
+                try:
+                    callback(step, len(active))
+                except StopServing:
+                    # abort: report only what retired; the caller can
+                    # replay the rest (picks are keyed by (rid, k))
+                    report.aborted_step = step
+                    tr.instant("sched", "aborted", step=step,
+                               in_flight=len(active), queued=len(queue))
+                    break
         report.wall_s = time.monotonic() - t_start
         report.peak_pages = store.peak_pages
         report.prefix_hit_tokens = mm.prefix_hit_tokens

@@ -58,7 +58,7 @@ class PendingPush:
 class ParameterServer:
     def __init__(self, params_tree, *, D: int = 0, num_shards: int = 4,
                  compression_ratio: Optional[float] = None,
-                 codec=None, transport=None, tracer=None):
+                 codec=None, transport=None, tracer=None, injector=None):
         if tracer is None:
             from repro_torch.obs import NULL_TRACER
             tracer = NULL_TRACER
@@ -87,6 +87,8 @@ class ParameterServer:
         self.pull_count = 0
         self.pull_cache_hits = 0          # leaf snapshots served from cache
         self.late_pushes = 0              # applied after the pusher left
+        self.injector = injector          # repro_torch.faults.FaultInjector
+        self.ps_stalls = 0                # injected apply stalls taken
         self._stats_lock = threading.Lock()   # accounting fields above
         # a wave-completion signal for the trainer's supervision loop
         self.push_event = threading.Event()
@@ -134,16 +136,37 @@ class ParameterServer:
         """Wait for the wire, apply the update (one lock acquisition per
         touched shard), advance the worker's WSP clock.
 
-        A push from a worker that was deregistered while its transfer was
-        in flight still applies — the delta is a stale-but-sound gradient —
-        but never advances the departed worker's clock (`late_pushes`)."""
+        Fault semantics: a transport whose retry budget is exhausted
+        surfaces here as the typed PushTimeout (the wave's delta never
+        reached the PS — nothing is applied, the clock does not move). A
+        push from a worker that was evicted while its transfer was in
+        flight still applies — the delta is a stale-but-sound gradient —
+        but never advances the departed worker's clock (`late_pushes`),
+        so eviction cannot move the global minimum past what survivors
+        gated against."""
         assert not pending.applied, "finish_push called twice"
-        pending.send.wait()
+        try:
+            pending.send.wait()
+        except Exception as e:
+            from repro_torch.faults.errors import FaultError, PushTimeout
+            if isinstance(e, FaultError):
+                raise PushTimeout(pending.wid, e) from e
+            raise
         by_shard: dict[int, list] = {}
         for upd in pending.updates:
             by_shard.setdefault(self.shard_of_leaf[upd[0]], []).append(upd)
         with self.tracer.span("ps", "push_apply", wid=pending.wid,
                               shards=len(by_shard)), self._snapshot_lock:
+            if self.injector is not None:
+                # push_count is stable under the snapshot lock, so which
+                # push a PSStall lands on is deterministic
+                stall = self.injector.ps_stall_sleep(self.push_count)
+                if stall > 0:
+                    self.ps_stalls += 1
+                    self.tracer.instant("ps", "stall", wid=pending.wid,
+                                        push=self.push_count, seconds=stall)
+                    self.tracer.metrics.counter_inc("fault/ps_stalls")
+                    time.sleep(stall)
             for sid, ups in by_shard.items():
                 with self._locks[sid]:
                     for i, idx, vals in ups:
@@ -160,6 +183,7 @@ class ParameterServer:
             if clock is None:
                 self.late_pushes += 1
                 self.tracer.instant("ps", "late_push", wid=pending.wid)
+                self.tracer.metrics.counter_inc("fault/late_pushes")
                 clock = -1
         self.push_event.set()
         return clock

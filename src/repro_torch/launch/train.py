@@ -11,6 +11,9 @@ Examples:
       --waves 6 --num-vw 2                              # reduced, on the CPU
   python -m repro_torch.launch.train --mode wsp --waves 6 --num-vw 2 \\
       --optimizer adamw --lr 1e-3 --batch 16 --seq 512  # full width, card
+  python -m repro_torch.launch.train --mode wsp --device cpu --reduced \\
+      --waves 6 --num-vw 3 --D 1 --chaos 5 --trace t.json  # a chaos fleet
+  python -m repro_torch.obs.summary t.json   # its trace, audited against D
 
 As in the JAX CLI, --reduced is a store_true flag: without it the arch
 trains at its real widths.
@@ -59,7 +62,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome-trace-event JSON (Perfetto-"
                          "loadable) of the run, with the metrics snapshot "
-                         "embedded")
+                         "embedded; inspect with python -m "
+                         "repro_torch.obs.summary")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="inject the seeded random fault scenario "
+                         "FaultPlan.sample_train(SEED) — a worker crash, a "
+                         "link outage on a push path, a slowdown onset and a "
+                         "PS stall — with eviction + rejoin recovery "
+                         "enabled; prints the run's fault digest")
     return ap
 
 
@@ -77,7 +87,8 @@ def main(argv=None):
 
     import numpy as np
 
-    from repro_torch.api import ClusterSpec, Engine, Plan, RunSpec, WSP
+    from repro_torch.api import (ClusterSpec, Engine, FaultPlan, FaultPolicy,
+                                 Plan, RunSpec, WSP)
     from repro_torch.configs import ARCHS, reduced as make_reduced
     from repro_torch.obs import NULL_TRACER, Tracer
 
@@ -97,6 +108,13 @@ def main(argv=None):
               "behind the following pull; use --pull-every > 1 to actually "
               "hide push latency", file=sys.stderr)
     speeds = [float(s) for s in a.speeds.split(",")] if a.speeds else None
+    fault_kwargs = {}
+    if a.chaos is not None:
+        faults = FaultPlan.sample_train(a.chaos, num_vw=a.num_vw,
+                                        max_waves=a.waves)
+        fault_kwargs = dict(faults=faults, fault_policy=FaultPolicy(
+            evict_lag=1, rejoin_after_waves=1, allow_degraded=True))
+        print(f"chaos: {faults.describe()}")
     plan = Plan(
         arch=cfg,
         cluster=ClusterSpec(num_vw=a.num_vw, topology=a.topology,
@@ -106,9 +124,12 @@ def main(argv=None):
                     optimizer=a.optimizer, lr=a.lr,
                     compression_ratio=a.compression, codec=a.codec,
                     ckpt_dir=a.ckpt_dir, ckpt_every=a.ckpt_every,
-                    resume=a.resume))
+                    resume=a.resume),
+        **fault_kwargs)
     eng = Engine(plan, tracer=tracer, device=a.device)
     rep = eng.fit()
+    if a.chaos is not None:
+        print(f"faults: {rep.fault_digest()}")
     if a.trace:
         print(f"trace: {tracer.export(a.trace)}")
     xs, ys = rep.loss_curve()
@@ -122,6 +143,9 @@ def main(argv=None):
           f"wire={rep.bytes_wire / 1e6:.1f}MB waits={waits}")
     for wid, w in sorted(eng.workers.items()):
         m = w.metrics
+        if not m.wave_times:
+            print(f"{wid}: no wave finished")
+            continue
         print(f"{wid}: wave_ms={1e3 * np.median(m.wave_times):.1f} "
               f"push_ms={1e3 * np.median(m.push_s):.1f} "
               f"pull_ms={1e3 * np.median(m.pull_s):.1f}")

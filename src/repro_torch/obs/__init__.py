@@ -9,6 +9,12 @@ nothing on the hot path.
     tr = Tracer()
     report = Scheduler(Engine(plan, tracer=tr)).run(requests)
     tr.export("trace.json")            # Chrome trace JSON; open in Perfetto
+
+The training fleet records wave / push / pull spans, gate waits and the
+per-wave staleness audited against the Plan's D; fault injection and
+recovery add instants and the `fault/*` counters. `python -m
+repro_torch.obs.summary trace.json` prints busy time per track, the
+staleness histogram (exit 1 when it exceeds D), links, faults and TTFT.
 """
 from repro_torch.obs.metrics import Histogram, MetricsRegistry
 from repro_torch.obs.trace import (NULL_SPAN, NULL_TRACER, Tracer,

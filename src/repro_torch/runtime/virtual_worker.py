@@ -105,6 +105,8 @@ class VirtualWorker(threading.Thread):
                  fail_at_wave: Optional[int] = None,
                  async_push: bool = False,
                  tracer=None, D: Optional[int] = None, tick_plan=None,
+                 injector=None, vw_index: Optional[int] = None,
+                 crash_at: Optional[int] = None,
                  gate_timeout_s: float = 120.0):
         """opt_init(params) builds the optimizer state from the worker's
         device params once they are pulled."""
@@ -116,8 +118,14 @@ class VirtualWorker(threading.Thread):
         self.max_waves, self.pull_every = max_waves, pull_every
         self.slowdown, self.straggle_fn = slowdown, straggle_fn
         self.stop_event = stop_event or threading.Event()
-        # fail_at_wave: a graceful failure that says goodbye (deregisters)
+        # fail_at_wave: a graceful failure that says goodbye (deregisters);
+        # crash_at kills the thread WITHOUT deregistering (an injected
+        # WorkerCrash — the supervisor must notice and evict). injector +
+        # vw_index drive slowdown-onset consults.
         self.fail_at_wave = fail_at_wave
+        self.injector = injector
+        self.vw_index = vw_index
+        self.crash_at = crash_at
         self.async_push = async_push
         self.gate_timeout_s = gate_timeout_s
         # observability: D is the Plan's staleness bound (audited per wave),
@@ -130,10 +138,25 @@ class VirtualWorker(threading.Thread):
         self.failed = False
         self.done = False               # completed its waves normally
         self.error = None               # the FaultError that took us down
+        self.crashed = False            # died without deregistering
+        self.evicted = False            # supervisor pulled us from the clock
         self.params = None
         self.staging: Optional[HostStaging] = None
         self._outbox: Optional[_Outbox] = None
         self._inflight: Optional[_PushHandle] = None
+
+    def evict(self):
+        """Called by the FleetSupervisor (before it deregisters us): the
+        worker exits cleanly at its next gate instead of training on."""
+        self.evicted = True
+
+    def _release(self):
+        """Drop a worker's device state (params, optimizer moments, the
+        staging buffers) when it leaves without finishing — crashed, evicted
+        or failed — so a successor at full width does not sit beside a dead
+        worker's tensors. A worker that finished keeps its state: the
+        Engine's report and its callers read it."""
+        self.params = self.opt_state = self.staging = None
 
     def _await_inflight(self, timeout: float = 120.0, compute_span=None):
         """Block until the in-flight push (if any) has landed. Only the
@@ -193,13 +216,24 @@ class VirtualWorker(threading.Thread):
                     self._await_inflight()
                     self.ps.deregister(self.wid)      # simulated node failure
                     return
+                if self.crash_at is not None and wave == self.crash_at:
+                    # injected WorkerCrash: the node vanishes — no goodbye,
+                    # no deregister, and any in-flight push is left to land
+                    # (or not) on its own. Detection is the supervisor's job.
+                    self.failed = self.crashed = True
+                    tr.instant(self.wid, "crash", wave=wave)
+                    tr.metrics.counter_inc("fault/crashes")
+                    return
                 # gate at the logical clock: `wave` counts enqueued pushes,
                 # so the staleness predicate matches the blocking runtime
                 # even while a push is still in flight
                 tg = tr.now()
                 if not self.ps.gate(self.wid, timeout=self.gate_timeout_s,
                                     at_clock=wave):
-                    return                  # deregistered while waiting
+                    # deregistered while waiting: the supervisor evicted us
+                    self.evicted = True
+                    tr.instant(self.wid, "evicted_exit", wave=wave)
+                    return
                 tg1 = tr.now()
                 if tg1 - tg > 1e-4:     # only waits, not instant passes
                     tr.add_span(self.wid, "gate_wait", tg, tg1, wave=wave)
@@ -226,6 +260,9 @@ class VirtualWorker(threading.Thread):
                     extra = self.slowdown
                     if self.straggle_fn is not None:
                         extra += self.straggle_fn(wave)
+                    if self.injector is not None and self.vw_index is not None:
+                        extra += self.injector.slowdown_extra(
+                            self.vw_index, wave)
                     if extra > 0:
                         time.sleep(extra)
                 if self.tick_plan is not None and tr.enabled:
@@ -274,6 +311,9 @@ class VirtualWorker(threading.Thread):
                     self.metrics.gate_timeouts += 1
                     tr.instant(self.wid, "gate_timeout", wave=e.wave)
                     tr.metrics.counter_inc("fault/gate_timeouts")
+                else:
+                    tr.instant(self.wid, "fault_crash", error=repr(e))
+                    tr.metrics.counter_inc("fault/crashes")
                 self.ps.deregister(self.wid)
                 return
             raise
@@ -281,3 +321,5 @@ class VirtualWorker(threading.Thread):
             if self._outbox is not None:
                 self._outbox.close()
                 self._outbox.join(timeout=10.0)
+            if not self.done:
+                self._release()

@@ -504,3 +504,58 @@ def test_serve_kernels_on_card_match_cpu(card):
     on_cpu = run("cpu")
     assert [r.tokens for r in on_card.requests] == \
         [r.tokens for r in on_cpu.requests]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemma3_hd256_kernels_match_plain_versions(card, dtype):
+    """gemma3-1b's shapes, hd 256 (no tensor-core route there): prefill
+    attention at 4/1 heads of 256 over rows of 128 and 600 with window 0
+    and 512, and both decode kernels at its global layers' shapes (G 4, a
+    [8, 160] cache, a pool of 16-position pages) — each against its plain
+    version on the route `_route` gives (simt_bf16 in bf16, simt_f32)."""
+    g = torch.Generator(device=card).manual_seed(256)
+    want_route = "simt_bf16" if dtype == torch.bfloat16 else "simt_f32"
+
+    def rnd(*s, d=dtype):
+        return torch.randn(s, generator=g, device=card).to(d)
+    for B, S in ((8, 128), (2, 600)):
+        q = rnd(B, S, 4, 256).transpose(1, 2)
+        k = rnd(B, S, 1, 256).transpose(1, 2)
+        v = rnd(B, S, 1, 256).transpose(1, 2)
+        assert fa._route(q, k, v) == want_route
+        for window in (0, 512):
+            reset_launches()
+            out = flash_attention_fwd(q, k, v, window=window)
+            torch.cuda.synchronize()
+            assert _ran("flash_attention_fwd") == want_route
+            torch.testing.assert_close(
+                out.float(), tref.attention_ref(q, k, v,
+                                                window=window).float(),
+                **_tol(dtype))
+    B, S = 8, 160
+    q1 = rnd(B, 4, 256)
+    cache = rnd(2, B, S, 1, 256)
+    kc, vc = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    lens = torch.tensor([0, 1, 16, 17, 77, 140, 159, 160], dtype=torch.int32,
+                        device=card)
+    reset_launches()
+    out = flash_decode(q1, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert _ran("flash_decode") == want_route == fd._route(q1, kc, vc)
+    torch.testing.assert_close(out.float(), tref.decode_ref(
+        q1, kc, vc, lens).float(), **_tol(dtype))
+    assert torch.all(out[0] == 0)
+    ps, npg = 16, 10
+    tab = torch.randperm(B * npg, generator=g, device=card).to(
+        torch.int32).reshape(B, npg)
+    live = torch.arange(npg, device=card)[None] * ps < lens[:, None]
+    tab = torch.where(live, tab, -1).to(torch.int32)
+    kp = rnd(4, B * npg + 1, ps, 1, 256)
+    vp = rnd(4, B * npg + 1, ps, 1, 256)
+    reset_launches()
+    out = flash_decode_paged(q1, kp, vp, tab, lens, layer=3)
+    torch.cuda.synchronize()
+    assert _ran("flash_decode_paged") == want_route == fd._route(q1, kp, vp)
+    torch.testing.assert_close(out.float(), tref.decode_paged_ref(
+        q1, kp, vp, tab, lens, layer=3).float(), **_tol(dtype))
+    assert torch.all(out[0] == 0)

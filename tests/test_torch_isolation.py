@@ -64,3 +64,26 @@ def test_default_device_is_cuda_and_kernels_do_not_fall_back():
     tab = torch.zeros(1, 2, dtype=torch.int32, device="meta")
     with pytest.raises((RuntimeError, NotImplementedError)):
         flash_decode_paged(q1, pool, pool, tab, 1)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.faults.plan", "repro_torch.faults.errors",
+    "repro_torch.faults.injector", "repro_torch.faults.supervisor",
+    "repro_torch.faults", "repro_torch.obs.summary",
+    "repro_torch.models.frontend"])
+def test_copied_modules_stand_alone(module):
+    """The modules copied from pure-Python JAX-package modules import in a
+    fresh interpreter without jax or repro (they keep their own copy of
+    what they need), and have no import line naming either."""
+    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+    path = os.path.join(ROOT, "src", *module.split("."))
+    path = path + ".py" if os.path.exists(path + ".py") else \
+        os.path.join(path, "__init__.py")
+    with open(path) as fh:
+        assert BANNED.search(fh.read()) is None, path

@@ -204,15 +204,24 @@ def test_paged_prefill_decode_match_reference(kernel_backend):
 
 
 def test_unported_families_raise():
-    """The stub-frontend archs (inputs are embeddings, not token ids) are
-    the families still unported: the Engine's serve surface raises naming
-    the ROADMAP item."""
+    """The stub-frontend archs (inputs are embeddings, not token ids) serve
+    through Engine.generate() — the prompts and each decode step's input
+    are stub embeddings drawn on the Engine's device — while the request
+    Scheduler, which feeds generated ids back, refuses them with the JAX
+    package's message."""
     from repro_torch.api import Engine, Plan, ServeSpec
+    from repro_torch.api.serving import Scheduler
     for name in ("chameleon-34b", "musicgen-medium"):
         arch = reduced(ARCHS[name])
         assert arch.frontend != "none"
-        eng = Engine(Plan(arch=arch, serve=ServeSpec(prompt_len=4, gen=2,
+        eng = Engine(Plan(arch=arch, serve=ServeSpec(prompt_len=4, gen=3,
                                                      max_batch=2)),
                      device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.generate()
+        rep = eng.generate()
+        assert rep.tokens.shape == (2, 3) and rep.decode_steps == 2
+        assert ((rep.tokens >= 0) & (rep.tokens < arch.vocab_size)).all()
+        # seeded: a second engine draws the same embeddings and tokens
+        again = Engine(eng.plan, params=eng._params, device="cpu")
+        np.testing.assert_array_equal(again.generate().tokens, rep.tokens)
+        with pytest.raises(ValueError, match="stub-frontend architecture"):
+            Scheduler(eng)

@@ -473,3 +473,80 @@ def test_paged_decode_split_edges_match_pallas(ps):
     np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
                                **_tol("float32"))
     assert np.all(got[0].numpy() == 0.0)
+
+
+# gemma3-1b's attention: 4 query heads over 1 kv head (G 4) of 256, window
+# 512 on the local layers; the global layers decode over the pool
+GEMMA = dict(H=4, KV=1, hd=256, window=512)
+
+
+@pytest.mark.parametrize("dtype,want", [(BF16, "simt_bf16"),
+                                        (F32, "simt_f32")])
+def test_routes_at_gemma3_shapes(dtype, want):
+    """hd 256 has no tensor-core route: every gemma3 launch takes the SIMT
+    route of its dtype — prefill attention (serve shape B 8 x S 128,
+    generate-length rows), the contiguous decode cache and the serve pool."""
+    H, KV, hd = GEMMA["H"], GEMMA["KV"], GEMMA["hd"]
+    for B, S in ((8, 128), (4, 600)):
+        q = torch.zeros(B, S, H, hd, dtype=dtype).transpose(1, 2)
+        k = torch.zeros(B, S, KV, hd, dtype=dtype).transpose(1, 2)
+        assert fa._route(q, k, k) == want
+    q1 = torch.zeros(8, H, hd, dtype=dtype)
+    cache = torch.zeros(2, 8, 160, KV, hd, dtype=dtype)[1].transpose(1, 2)
+    pool = torch.zeros(4, 49, 16, KV, hd, dtype=dtype)
+    assert fd._route(q1, cache, cache) == fd._route(q1, pool, pool) == want
+    assert want in ROUTES["flash_attention_fwd"]
+
+
+@pytest.mark.parametrize("window", [0, GEMMA["window"], 40])
+def test_attention_hd256_matches_pallas(window):
+    """The attention wrapper on the CPU (its plain version) at gemma3's
+    heads, hd 256, against the Pallas flash_attention_fwd in interpret
+    mode, f32: windows 0, gemma3's 512 (wider than the rows: no band) and
+    40 (a band inside the rows)."""
+    H, KV, hd = GEMMA["H"], GEMMA["KV"], GEMMA["hd"]
+    rng = np.random.default_rng(window + 3)
+    jq, tq = _decode_pair((1, H, 96, hd), rng)
+    jk, tk = _decode_pair((1, KV, 96, hd), rng)
+    jv, tv = _decode_pair((1, KV, 96, hd), rng)
+    want = j_attn(jq, jk, jv, causal=True, window=window, block_q=32,
+                  block_k=32, interpret=True)
+    got = fa.flash_attention_fwd(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               **_tol("float32"))
+
+
+def test_decode_hd256_matches_pallas():
+    """Both decode wrappers on the CPU (their plain versions) at gemma3's
+    global-layer heads (G 4, hd 256) against the Pallas flash_decode (window
+    0 and 48) and flash_decode_paged (4-position pages out of order, pages
+    past each length unmapped) in interpret mode, f32; a length-0 row is
+    exact zeros."""
+    H, KV, hd = GEMMA["H"], GEMMA["KV"], GEMMA["hd"]
+    B, S, ps = 4, 72, 4
+    lens = [0, 17, 64, S]
+    rng = np.random.default_rng(11)
+    jq, tq = _decode_pair((B, H, hd), rng)
+    jk, tk = _decode_pair((B, KV, S, hd), rng)
+    jv, tv = _decode_pair((B, KV, S, hd), rng)
+    jl, tl = jnp.asarray(lens, jnp.int32), torch.tensor(lens,
+                                                        dtype=torch.int32)
+    for window in (0, 48):
+        want = j_decode(jq, jk, jv, jl, window=window, block_k=16,
+                        interpret=True)
+        got = fd.flash_decode(tq, tk, tv, tl, window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                                   **_tol("float32"))
+    npg = S // ps
+    perm = rng.permutation(B * npg).reshape(B, npg)
+    tab = np.where(np.arange(npg)[None] * ps < np.asarray(lens)[:, None],
+                   perm, -1).astype(np.int32)
+    jkp, tkp = _decode_pair((2, B * npg + 1, ps, KV, hd), rng)
+    jvp, tvp = _decode_pair((2, B * npg + 1, ps, KV, hd), rng)
+    want = j_paged(jq, jkp, jvp, jnp.asarray(tab), jl, layer=1,
+                   interpret=True)
+    got = fd.flash_decode_paged(tq, tkp, tvp, torch.from_numpy(tab), tl,
+                                layer=1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               **_tol("float32"))
+    assert np.all(got[0].numpy() == 0.0)

@@ -20,7 +20,8 @@ from repro.api import get_preset as j_preset
 from repro.api.serving import Request as JRequest
 from repro.api.serving import Scheduler as JScheduler
 from repro.serve import cache as jcache
-from repro_torch.api import Engine, Plan, ServeSpec, get_preset
+from repro_torch.api import (Engine, FaultPlan, FaultPolicy, Plan,
+                             ReplicaDown, ServeSpec, SlotFault, get_preset)
 from repro_torch.api.serving import Request, Scheduler
 from repro_torch.serve import cache as tcache
 from test_torch_model import carried_params
@@ -256,8 +257,15 @@ def test_plan_validation():
     for bad in ("interpret", "tpu"):
         with pytest.raises(ValueError, match="kernel_backend"):
             Plan(arch=arch, serve=ServeSpec(kernel_backend=bad))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Plan(arch=arch, serve=ServeSpec(), faults=object())
+    # a FaultPlan of slot faults is accepted; ReplicaDown is refused and
+    # names the Router's item
+    plan = Plan(arch=arch, serve=ServeSpec(max_batch=2),
+                faults=FaultPlan(events=(SlotFault(slot=1, step=2),)),
+                fault_policy=FaultPolicy(slot_recovery="reprefill"))
+    assert plan.faults.of_type(SlotFault) == [SlotFault(slot=1, step=2)]
+    with pytest.raises(ValueError, match="item 8"):
+        Plan(arch=arch, serve=ServeSpec(),
+             faults=FaultPlan(events=(ReplicaDown(replica=0, step=1),)))
     with pytest.raises(NotImplementedError, match="item 8"):
         Plan(arch=arch, serve=ServeSpec(replicas=(object(),)))
     with pytest.raises(NotImplementedError, match="item 9"):

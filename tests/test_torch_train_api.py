@@ -15,8 +15,10 @@ from repro.api.presets import _tiny_arch as j_tiny_arch
 from repro.models import lm as jlm
 from repro.optim import make_optimizer as j_make_optimizer
 from repro.runtime import checkpoint as jckpt
-from repro_torch.api import (ASP, BSP, ClusterSpec, Engine, PartitionSpec,
-                             Plan, RunSpec, TrainReport, UNBOUNDED_D, WSP,
+from repro_torch.api import (ASP, BSP, ClusterSpec, Engine, FaultPlan,
+                             FaultPolicy, LinkFault, PartitionSpec, Plan,
+                             PSStall, ReplicaDown, RunSpec, ServeSpec,
+                             TrainReport, UNBOUNDED_D, WSP, WorkerCrash,
                              get_preset)
 from repro_torch.api.presets import _tiny_arch
 from repro_torch.core import tree as tree_lib
@@ -84,8 +86,20 @@ def test_plan_rejects_knobs_the_backend_would_drop():
         Plan(arch=CFG, partition=PartitionSpec(stages=4, data=2))
     with pytest.raises(NotImplementedError, match="item 9"):
         Plan(arch=CFG, run=RunSpec(backend="spmd"))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # a FaultPlan is accepted (validated against the Plan), a stand-in is
+    # refused by type, and the serving-only ReplicaDown names the Router
+    plan = Plan(arch=CFG, cluster=ClusterSpec(num_vw=2),
+                faults=FaultPlan(seed=3, events=(
+                    WorkerCrash(vw=1, wave=1), PSStall(at_push=0),
+                    LinkFault(src="vw0", dst="ps", kind="loss"))),
+                fault_policy=FaultPolicy(evict_lag=1))
+    assert plan.faults.describe() == \
+        "FaultPlan(seed=3, LinkFaultx1, PSStallx1, WorkerCrashx1)"
+    with pytest.raises(TypeError, match="FaultPlan"):
         Plan(arch=CFG, faults=object())
+    with pytest.raises(ValueError, match="item 8"):
+        Plan(arch=CFG, serve=ServeSpec(),
+             faults=FaultPlan(events=(ReplicaDown(replica=1, step=1),)))
 
 
 def test_plan_replace_asp_and_loss_curve():
@@ -206,12 +220,11 @@ def test_preset_override_and_run():
 def test_fit_raises_degraded_on_gate_timeout(monkeypatch):
     """A worker whose gate never opens (its peer stopped without saying
     goodbye) fails the run loudly with DegradedRunError."""
-    from repro_torch.api import engine as engine_mod
     from repro_torch.faults.errors import DegradedRunError
-    monkeypatch.setattr(engine_mod, "GATE_TIMEOUT_S", 0.3)
     plan = Plan(cluster=ClusterSpec(num_vw=2, speeds=(0.0, 2.0)),
                 sync=WSP(D=0), run=RunSpec(max_waves=2, batch=2, seq=8,
-                                           vocab=16))
+                                           vocab=16),
+                fault_policy=FaultPolicy(gate_timeout_s=0.3))
     eng = _engine(plan, params={"w": np.zeros(4, np.float32)},
                   wave_step=_unit_step, optimizer=_UNIT_OPT)
     with pytest.raises(DegradedRunError, match="staleness gate") as ei:
