@@ -142,7 +142,26 @@ Phases (each prints a line; any failure exits nonzero):
      released: once the run has ended, the device memory above what was
      held before it is the Engine's params and the live workers' state,
      within half of one worker's params;
- 23. one JSON line of per-kernel numbers.
+ 23. serve-cluster: qwen3-0.6b at full width (bf16) served by three
+     replicas behind the Router (PartitionSpec(data=3), topology hetero:
+     vw0 and vw1 share a pod, vw2 sits across 10 GbE; ReplicaSpec 8 / 48,
+     4 / 24, 4 / 24 slots / pages; share_prefix and evict on), 24 seeded
+     requests, 8 of them opening with one 64-token system prompt: building
+     the Router takes one weight copy plus three pools of device memory
+     (within 10%); the measured least_loaded run's launches equal 28 x the
+     prefill groups and 28 x the decode steps summed over the replicas'
+     sub-reports, all on tc, from the replica threads on one stream; the
+     system prompt's pages lie on one replica (affinity hits >= 7, prefix
+     hits > 0); per-replica requests, prefill groups, decode steps, decode
+     step ms and peak pages, the merged tok/s, wall_s and
+     modeled_fleet_wall_s, then a profiled short run; the same traffic in
+     f32 through the Router and through a single-replica Scheduler (8
+     slots, 48 pages, the same params): streams equal except after a step
+     whose top-2 margin is under LOGIT_TOL (printed); under
+     ReplicaDown(1, 4) in f32 one replica dies, its requests replay on the
+     survivors in a second round, streams held to the fault-free run's the
+     same way; the deadline policy's dispatch printed;
+ 24. one JSON line of per-kernel numbers.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script fails before printing any
 result. It imports neither jax nor the JAX package.
@@ -722,6 +741,308 @@ def chaos_train_phase(dev):
     del eng, rep
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def cluster_phase(dev, arch=None):
+    """Phase 23: qwen3-0.6b served by three replicas behind the Router (see
+    the module docstring). `arch` (default: qwen3-0.6b at full width) is a
+    seam for rehearsing the phase at a small size. Returns the launch
+    counts of the measured bf16 run, ROUTES under "routes"."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (ClusterSpec, Engine, FaultPlan,
+                                 PartitionSpec, Plan, ReplicaDown,
+                                 ReplicaSpec, RunSpec, ServeSpec)
+    from repro_torch.api.serving import Request, Scheduler
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.obs import Tracer
+    from repro_torch.serve.router import Router
+
+    t_phase = time.monotonic()
+    q = arch or ARCHS["qwen3-0.6b"]
+    L = q.num_layers
+    P, G, PS = 128, 32, 16
+    plan = Plan(arch=q, partition=PartitionSpec(data=3),
+                cluster=ClusterSpec(topology="hetero"),
+                run=RunSpec(compute_dtype="bfloat16"),
+                serve=ServeSpec(prompt_len=P, gen=G, max_batch=8,
+                                page_size=PS, max_pages=48, share_prefix=True,
+                                evict=True, kernel_backend="cuda",
+                                replicas=(ReplicaSpec(8, 48),
+                                          ReplicaSpec(4, 24),
+                                          ReplicaSpec(4, 24))))
+    # evict: the prefix index keeps every retired prompt's pages, and
+    # without eviction they fill a persistent pool until nothing is
+    # admitted again (the reference's Scheduler then spins, trap P8)
+    crng = np.random.default_rng(23)
+    system = crng.integers(0, q.vocab_size, 4 * PS, dtype=np.int32)
+
+    def traffic(deadlines=False):
+        """24 requests: 8 open with one 64-token system prompt (4 pages)
+        and a tail of their own, 16 of 16-128 random tokens; budgets
+        1-32 (with `deadlines`, 8-96 decode steps)."""
+        rng = np.random.default_rng(230)
+        out = []
+        for i in range(24):
+            if i % 3 == 0:
+                tail = rng.integers(0, q.vocab_size, int(rng.integers(1, 65)),
+                                    dtype=np.int32)
+                prompt = np.concatenate([system, tail])
+            else:
+                prompt = rng.integers(0, q.vocab_size,
+                                      int(rng.integers(16, P + 1)),
+                                      dtype=np.int32)
+            out.append(Request(rid=i, prompt=prompt,
+                               max_new_tokens=int(rng.integers(1, G + 1)),
+                               deadline=int(rng.integers(8, 97))
+                               if deadlines else 0))
+        return out
+
+    class Recording(Scheduler):
+        """Records the stream each run launches on (in the replica's
+        thread) and every pick's top-2 logit margin, keyed (rid, k)."""
+
+        def __init__(self, engine, policy, streams, margins):
+            super().__init__(engine, policy=policy)
+            self.streams, self.margins = streams, margins
+
+        def run(self, requests, **kw):
+            self.streams.append((threading.current_thread().name,
+                                 torch.cuda.current_stream(dev).cuda_stream))
+            return super().run(requests, **kw)
+
+        def _pick_one(self, row, rid, k):
+            top = np.partition(row, -2)[-2:]
+            self.margins[(rid, k)] = float(top[1] - top[0])
+            return super()._pick_one(row, rid, k)
+
+    def instrument(router):
+        streams, margins = [], {}
+        for r in router.replicas:
+            r.scheduler = Recording(r.engine, r.scheduler.policy, streams,
+                                    margins)
+        return streams, margins
+
+    def placement(rep):
+        out = {}
+        for sub in rep.replicas:
+            for s in sub.requests:
+                out.setdefault(sub.router["replica"], []).append(s.rid)
+        return {i: sorted(v) for i, v in sorted(out.items())}
+
+    def held_to(tag, got, want, margins):
+        """`got` streams equal `want` except after a step whose top-2
+        margin (in `margins`, keyed (rid, k), of the run whose stream is
+        the same up to that step) is under LOGIT_TOL (trap T3); returns
+        the margins let through."""
+        ties = []
+        for r in got.requests:
+            w = want[r.rid]
+            if r.tokens == w:
+                continue
+            k = next((i for i, (a, b) in enumerate(zip(r.tokens, w))
+                      if a != b), min(len(r.tokens), len(w)))
+            m = margins[(r.rid, k)]
+            if m >= LOGIT_TOL:
+                raise AssertionError(f"{tag}: rid {r.rid} diverges at token "
+                                     f"{k} with a top-2 margin {m:.3e} >= "
+                                     f"{LOGIT_TOL}")
+            ties.append((r.rid, k, float(f"{m:.3e}")))
+        return ties
+
+    # ---- P1: one copy of the weights beside three pools -----------------
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    router = Router(plan, device=dev)
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated(dev) - mem0
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_lib.leaves(router.params))
+    pools = [r.store.stats() for r in router.replicas]
+    want_bytes = weights + sum(s["pool_bytes"] + s["slot_state_bytes"]
+                               for s in pools)
+    if not abs(built - want_bytes) <= 0.1 * want_bytes:
+        raise AssertionError(f"cluster: building the Router took {built} B "
+                             f"of device memory, not one weight copy "
+                             f"({weights} B) plus three pools "
+                             f"({want_bytes - weights} B) within 10%")
+    streams, margins = instrument(router)
+    reqs = traffic()
+    shared_rids = [r.rid for r in reqs if r.rid % 3 == 0]
+    # ---- 1. least_loaded, bf16: warm-up, then the measured run ----------
+    t0 = time.monotonic()
+    Router(plan, params=router.params, device=dev).run(
+        [Request(rid=100 + i, prompt=r.prompt[::-1].copy(),
+                 max_new_tokens=4) for i, r in enumerate(reqs[1:7])])
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    gc.collect()
+    reset_launches()
+    rep = router.run(reqs)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES, routes={n: dict(r) for n, r in ROUTES.items()})
+    subs = rep.replicas
+    need = {"flash_attention_fwd": L * sum(s.prefill_calls for s in subs),
+            "flash_decode_paged": L * sum(s.decode_steps for s in subs)}
+    got = {n: launches[n] for n in need}
+    tc = {n: launches["routes"][n]["tc"] for n in need}
+    if got != need or tc != need or any(
+            v for n, v in LAUNCHES.items() if n not in need):
+        raise AssertionError(f"cluster: launches {launches}, needed exactly "
+                             f"{need} (28 a prefill group / decode step of "
+                             f"every replica), all on tc")
+    toks = [t for r in rep.requests for t in r.tokens]
+    if rep.tokens_out != sum(r.max_new_tokens for r in reqs) or \
+            len(rep.requests) != len(reqs) or rep.failed_requests or \
+            not all(0 <= t < q.vocab_size for t in toks):
+        raise AssertionError(f"cluster: {len(rep.requests)} requests, "
+                             f"{rep.tokens_out} tokens, "
+                             f"{rep.failed_requests} failed")
+    if rep.router["affinity_hits"] < len(shared_rids) - 1 or \
+            rep.prefix_hit_tokens <= 0:
+        raise AssertionError(f"cluster: router {rep.router}, prefix hits "
+                             f"{rep.prefix_hit_tokens}")
+    owners = [r.idx for r in router.replicas
+              if r.mm.index.match(reqs[0].prompt)[0] > 0]
+    by_rep = placement(rep)
+    if len(owners) != 1 or any(rid not in by_rep[owners[0]]
+                               for rid in shared_rids):
+        raise AssertionError(f"cluster: the shared system prompt's pages "
+                             f"lie on replicas {owners}; placement {by_rep}")
+    if len({s for _, s in streams}) != 1 or \
+            len({n for n, _ in streams}) < 2:
+        raise AssertionError(f"cluster: replica threads launched on "
+                             f"streams {streams}: not one stream from "
+                             f"several threads")
+    log("cluster", f"qwen3-0.6b ({L} layers, d {q.d_model}) x 3 replicas "
+        f"(ReplicaSpec 8/48, 4/24, 4/24 slots/pages) behind the Router, "
+        f"topology hetero (vw0, vw1 one pod; vw2 across 10 GbE), bf16: "
+        f"building the Router took {built / 2**20:.1f} MiB of device memory "
+        f"= one weight copy {weights / 2**20:.1f} MiB + pools "
+        + " + ".join(f"{s['pool_bytes'] / 2**20:.1f}" for s in pools)
+        + f" MiB (P1, within 10%); replica threads and their stream: "
+        f"{sorted(set(streams))} (one stream, P3); warm-up {warm_s:.1f} s")
+    for sub in subs:
+        i = sub.router["replica"]
+        log("cluster", f"replica {i} ({router.replicas[i].describe()}): "
+            f"{len(sub.requests)} requests, {sub.prefill_calls} prefill "
+            f"groups, {sub.decode_steps} decode steps, "
+            f"{sub.ms_per_token():.2f} ms a decode step, peak pages "
+            f"{sub.peak_pages}/{sub.pages_total}, prefix hits "
+            f"{sub.prefix_hit_tokens} tokens, wall {sub.wall_s:.3f} s")
+    log("cluster", f"merged least_loaded bf16: {len(reqs)} requests, "
+        f"{rep.tokens_out} tokens in wall_s {rep.wall_s:.3f} s = "
+        f"{rep.tokens_per_s():.1f} tok/s; modeled_fleet_wall_s "
+        f"{rep.router['modeled_fleet_wall_s']:.3f} s (the busiest replica); "
+        f"occupancy {rep.occupancy():.3f}, page utilization "
+        f"{rep.page_utilization():.3f}; router "
+        f"{ {k: v for k, v in rep.router.items() if k != 'modeled_fleet_wall_s'} }; "
+        f"placement {by_rep} (the system-prompt rids {shared_rids} on "
+        f"replica {owners[0]}); prefix hits {rep.prefix_hit_tokens} tokens, "
+        f"pages shared {rep.pages_shared}, CoW {rep.cow_copies}; launches "
+        f"{got} = {L} x (prefill groups, decode steps) summed over the "
+        f"replicas, all on tc")
+    # the same traffic with the replicas run one after the other in this
+    # thread (parallel=False): what the threads cost on one host
+    seq = Router(plan, params=router.params, device=dev,
+                 parallel=False).run(traffic())
+    torch.cuda.synchronize()
+    log("cluster", f"the same traffic, replicas in turn (parallel=False): "
+        f"{seq.tokens_out} tokens in {seq.wall_s:.3f} s = "
+        f"{seq.tokens_per_s():.1f} tok/s (threads: "
+        f"{rep.tokens_per_s():.1f}); ms a decode step by replica "
+        + ", ".join(f"{s.router['replica']}: {s.ms_per_token():.2f}"
+                    for s in seq.replicas)
+        + f"; placement {'equal' if placement(seq) == by_rep else placement(seq)}")
+    short = [Request(rid=200 + i, prompt=r.prompt, max_new_tokens=8)
+             for i, r in enumerate(reqs[:9])]
+    profile_run("serve-cluster Router, 3 replicas, 9 requests x 8 tokens",
+                lambda: router.run(short), cpu=False)
+    params16 = router.params
+    del router, rep, seq
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 2. f32 through the Router and the single-replica oracle -------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p32 = lm.init_params(q, gen, dtype=torch.float32, device=dev)
+    for name in DENSE_MATS:
+        p32["blocks"][name].mul_(WEIGHT_SCALE)
+    plan32 = plan.replace(run__compute_dtype="float32")
+    osched = Recording(Engine(plan32.replace(
+        partition__data=1, cluster__topology=None, serve__replicas=()),
+        params=p32, device=dev), "fifo", [], {})
+    oracle = osched.run(traffic())
+    want = {r.rid: r.tokens for r in oracle.requests}
+    r32 = Router(plan32, params=p32, device=dev)
+    _, m32 = instrument(r32)
+    f32 = r32.run(traffic())
+    torch.cuda.synchronize()
+    ties32 = held_to("cluster f32 vs the single-replica oracle", f32, want,
+                     osched.margins)
+    same32 = sum(r.tokens == want[r.rid] for r in f32.requests)
+    log("cluster", f"f32 Router streams against the single-replica "
+        f"Scheduler (max_batch 8, 48 pages, the same params): {same32}/24 "
+        f"identical; divergences (rid, token, oracle top-2 margin) under "
+        f"{LOGIT_TOL}: {ties32 or 'none'} (P4); min oracle margin "
+        f"{min(osched.margins.values()):.3e}; placement {placement(f32)}")
+    del r32
+    # ---- 3. ReplicaDown(1, 4), f32 -------------------------------------
+    tracer = Tracer()
+    rd = Router(plan32.replace(faults=FaultPlan(events=(ReplicaDown(1, 4),))),
+                params=p32, device=dev, tracer=tracer)
+    instrument(rd)
+    down = rd.run(traffic())
+    torch.cuda.synchronize()
+    tel = tracer.metrics.snapshot()["counters"]
+    if down.router["replica_downs"] != 1 or down.router["rounds"] < 2 or \
+            down.router["rebalances"] <= 0 or down.failed_requests or \
+            len(down.requests) != 24 or \
+            tel.get("fault/replica_downs") != 1:
+        raise AssertionError(f"cluster ReplicaDown: router {down.router}, "
+                             f"{down.failed_requests} failed, "
+                             f"{len(down.requests)} requests, fault "
+                             f"counters {tel}")
+    run2 = {r.rid: r.tokens for r in f32.requests}
+    ties_d = held_to("cluster ReplicaDown vs the fault-free f32 run", down,
+                     run2, m32)
+    same_d = sum(r.tokens == run2[r.rid] for r in down.requests)
+    log("cluster", f"ReplicaDown(replica 1, step 4), f32: router "
+        f"{ {k: v for k, v in down.router.items() if k in ('rounds', 'rebalances', 'replica_downs', 'dispatches')} }, "
+        f"fault/replica_downs {tel.get('fault/replica_downs')}; sub-reports "
+        f"(replica, requests, aborted at) "
+        f"{[(s.router['replica'], len(s.requests), s.aborted_step) for s in down.replicas]}; "
+        f"{same_d}/24 streams equal the fault-free run's, divergences at "
+        f"margins under {LOGIT_TOL}: {ties_d or 'none'}")
+    del rd, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- 4. the deadline policy ----------------------------------------
+    dl = Router(plan, policy="deadline", params=params16, device=dev)
+    dreqs = traffic(deadlines=True)
+    drep = dl.run(dreqs)
+    torch.cuda.synchronize()
+    if drep.tokens_out != sum(r.max_new_tokens for r in dreqs) or \
+            drep.failed_requests:
+        raise AssertionError(f"cluster deadline: {drep.tokens_out} tokens, "
+                             f"{drep.failed_requests} failed")
+    log("cluster", f"deadline policy, bf16: dispatch {placement(drep)} "
+        f"(slack order: deadline - budget), {drep.tokens_out} tokens in "
+        f"{drep.wall_s:.3f} s = {drep.tokens_per_s():.1f} tok/s; router "
+        f"{ {k: v for k, v in drep.router.items() if k in ('dispatches_by_policy', 'affinity_hits')} }")
+    del dl, params16
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("cluster", f"phase {time.monotonic() - t_phase:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -2373,7 +2694,11 @@ def main() -> int:
     # ---- 22. chaos training ------------------------------------------------
     chaos_train_phase(dev)
 
-    # ---- 23. the kernels line ------------------------------------------
+    # ---- 23. serve-cluster: three replicas behind the Router -------------
+    free_device()
+    cl_launches = cluster_phase(dev)
+
+    # ---- 24. the kernels line ------------------------------------------
     src = {"flash_attention_fwd": ("src/repro_torch/kernels/csrc/"
                                    "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:94"),
@@ -2400,7 +2725,8 @@ def main() -> int:
              "granite-moe-1b-a400m generate": gr_gen_launches,
              "gemma3-1b serve": g3_launches,
              "minitron-8b serve": mt_launches,
-             "musicgen-medium generate": mg_launches}
+             "musicgen-medium generate": mg_launches,
+             "qwen3-0.6b serve-cluster (3 replicas)": cl_launches}
     power = smi.split(",")[-1].strip()
     kernels = []
     for name in ("flash_decode_paged", "flash_attention_fwd",

@@ -8,14 +8,16 @@
 Plans are frozen and validated at construction (repro_torch.api.plan); the
 Engine runs them on the CUDA card (or device="cpu"): fit()/step() train
 under WSP, ASP or BSP, and repro_torch.api.serving adds the
-continuous-batching Scheduler. `Plan(faults=FaultPlan(...),
+continuous-batching Scheduler. A serve Plan with partition.data > 1 and
+`ServeSpec.replicas` (ReplicaSpec each) is a replica fleet for
+repro_torch.serve.router's Router. `Plan(faults=FaultPlan(...),
 fault_policy=FaultPolicy(...))` injects seeded failures into the threaded
 runtime and the Scheduler, with retry/backoff, heartbeat eviction, elastic
 rejoin and serve-side recovery (see repro_torch.faults).
 """
 from repro_torch.api.engine import Engine
-from repro_torch.api.plan import (ClusterSpec, PartitionSpec, Plan, RunSpec,
-                                  ServeSpec)
+from repro_torch.api.plan import (ClusterSpec, PartitionSpec, Plan,
+                                  ReplicaSpec, RunSpec, ServeSpec)
 from repro_torch.api.presets import PRESETS, get_preset, list_presets
 from repro_torch.api.report import (RequestStats, ServeReport, Telemetry,
                                     TrainReport)
@@ -28,8 +30,9 @@ from repro_torch.faults import (DegradedRunError, FaultPlan, FaultPolicy,
 __all__ = [
     "ASP", "BSP", "ClusterSpec", "DegradedRunError", "Engine", "FaultPlan",
     "FaultPolicy", "GateTimeout", "LinkFault", "PSStall", "PartitionSpec",
-    "Plan", "PRESETS", "PushTimeout", "ReplicaDown", "RequestStats",
-    "RunSpec", "ServeReport", "ServeSpec", "SlotFault", "SyncPolicy",
-    "Telemetry", "TrainReport", "TransportError", "UNBOUNDED_D", "WSP",
-    "WorkerCrash", "WorkerSlowdown", "get_preset", "list_presets",
+    "Plan", "PRESETS", "PushTimeout", "ReplicaDown", "ReplicaSpec",
+    "RequestStats", "RunSpec", "ServeReport", "ServeSpec", "SlotFault",
+    "SyncPolicy", "Telemetry", "TrainReport", "TransportError",
+    "UNBOUNDED_D", "WSP", "WorkerCrash", "WorkerSlowdown", "get_preset",
+    "list_presets",
 ]

@@ -49,8 +49,9 @@ the transport, the parameter server, the workers and the Scheduler.
 The JAX Engine jit-compiles these steps; here they run eagerly under
 torch.inference_mode(), writing the caches in place. Entry points run on
 the CUDA card unless the caller passes device="cpu" — then the kernels'
-wrappers take their plain PyTorch versions. The spmd backend (ROADMAP
-Queue 1 item 9) and the Router (item 8) are not ported.
+wrappers take their plain PyTorch versions. A fleet of serve replicas is
+repro_torch.serve.router's Router, one Engine a replica over one shared
+params dict. The spmd backend (ROADMAP Queue 1 item 9) is not ported.
 """
 from __future__ import annotations
 

@@ -11,8 +11,11 @@ both on the threads backend: Engine.fit()/step() train, and
 Engine.prefill()/decode()/generate(). `faults=FaultPlan(...)` and
 `fault_policy=FaultPolicy(...)` attach a seeded fault scenario and its
 recovery posture (repro_torch.faults), validated against the Plan they
-ride. What is not ported yet raises NotImplementedError naming its ROADMAP
-item: the spmd backend (Queue 1 item 9) and Router replicas (item 8).
+ride. A serve Plan with `partition.data` > 1 is a fleet of replicas
+(`ServeSpec.replicas` sizes each one) run by repro_torch.serve.router's
+Router, its dispatch priced by `cluster.topology`. The spmd backend is not
+ported and raises NotImplementedError naming its ROADMAP item (Queue 1
+item 9).
 """
 from __future__ import annotations
 
@@ -67,7 +70,7 @@ class PartitionSpec:
 
     stages: int = 0             # 0 -> arch.stages
     tp: int = 0                 # 0 -> arch.tp
-    data: int = 1               # data-parallel width (serve: replicas)
+    data: int = 1               # data-parallel width (serve: Router replicas)
     num_microbatches: int = 0   # 0 -> arch.num_microbatches
     devices: int = 0            # expected device count (0 -> data*stages*tp)
 
@@ -94,6 +97,23 @@ class RunSpec:
     overlap: bool = False
     compute_dtype: str = "float32"
     loss_chunk: int = 512
+
+
+@dataclass(frozen=True)
+class ReplicaSpec:
+    """One replica's sizing in a data-parallel serve fleet
+    (`partition.data` > 1, routed by `repro_torch.serve.router.Router`).
+
+    Zeros defer to the cluster-level ServeSpec, whose `max_batch` /
+    `max_pages` are the per-replica *ceiling*: a whimpy replica shrinks
+    them (fewer decode slots, a smaller KV page pool) and the Router
+    steers short-prompt / short-deadline traffic its way. `host` names
+    the replica's endpoint in `cluster.topology` (default "vw{i}") so
+    dispatch can price the client->replica link."""
+
+    max_batch: int = 0          # decode slots; 0 -> ServeSpec.max_batch
+    max_pages: int = 0          # KV page pool; 0 -> ServeSpec.max_pages
+    host: str = ""              # topology endpoint; "" -> "vw{index}"
 
 
 @dataclass(frozen=True)
@@ -124,7 +144,10 @@ class ServeSpec:
     evict: bool = False             # LRU-evict cold indexed pages
     preempt: bool = False           # preempt + replay instead of refusing
     kernel_backend: str = "ref"     # "ref" plain torch | "cuda" kernels
-    replicas: tuple = ()            # Router replicas: not ported yet
+    replicas: tuple = ()            # per-replica ReplicaSpec overrides for a
+                                    # data-parallel serve fleet; () with
+                                    # partition.data=N -> N homogeneous
+                                    # replicas at the cluster-level sizing
 
     def __post_init__(self):
         object.__setattr__(self, "replicas", tuple(self.replicas))
@@ -221,7 +244,9 @@ class Plan:
             raise ValueError(
                 "PartitionSpec.stages/tp/data factor the spmd mesh; the "
                 "threads backend runs each VW's wave step whole (only "
-                "partition.num_microbatches applies)")
+                "partition.num_microbatches applies; on a serve Plan "
+                "partition.data counts Router replicas) — unset them or "
+                "use backend='spmd'")
         self._validate_faults()
         if self.serve is not None:
             self._validate_serve()
@@ -273,15 +298,19 @@ class Plan:
                     raise ValueError(
                         f"SlotFault names slot {ev.slot} outside the decode "
                         f"batch (max_batch={self.serve.max_batch})")
-            if self.faults.of_type(ReplicaDown):
-                # the JAX package refuses it on a one-replica fleet too;
-                # the port serves one replica only
-                raise ValueError(
-                    "ReplicaDown kills one replica of a data-parallel serve "
-                    "fleet; this Plan has a single replica (partition."
-                    "data=1) — the Router would have no survivor to "
-                    "re-dispatch onto (serve replicas behind the Router are "
-                    "ROADMAP Queue 1 item 8)")
+            replicas = max(1, self.partition.data)
+            for ev in self.faults.of_type(ReplicaDown):
+                if replicas == 1:
+                    raise ValueError(
+                        "ReplicaDown kills one replica of a data-parallel "
+                        "serve fleet; this Plan has a single replica "
+                        "(partition.data=1) — the Router would have no "
+                        "survivor to re-dispatch onto")
+                if ev.replica >= replicas:
+                    raise ValueError(
+                        f"ReplicaDown names replica {ev.replica} outside "
+                        f"the fleet (partition.data={replicas}); that fault "
+                        f"would silently never be injected")
             return
         bad = self.faults.of_type(*SERVE_EVENTS)
         if bad:
@@ -331,11 +360,6 @@ class Plan:
             raise ValueError("serving builds the model from the "
                              "architecture; Plan.arch is required when "
                              "Plan.serve is set")
-        if sv.replicas or self.partition.data != 1:
-            raise NotImplementedError(
-                "data-parallel serve replicas behind the Router are ROADMAP "
-                "Queue 1 item 8; serve one replica (partition.data=1, no "
-                "ServeSpec.replicas)")
         if sv.prompt_len < 1 or sv.gen < 1 or sv.max_batch < 1:
             raise ValueError(f"bad serve spec: prompt_len={sv.prompt_len} "
                              f"gen={sv.gen} max_batch={sv.max_batch} "
@@ -379,11 +403,46 @@ class Plan:
             raise ValueError("gradient codecs ride the training push path; "
                              "use serve.cache_dtype='f8' to shrink the cache")
         if cl.num_vw != 1 or cl.speeds is not None \
-                or cl.straggle_fns is not None or cl.fail_at \
-                or cl.topology is not None:
+                or cl.straggle_fns is not None or cl.fail_at:
             raise ValueError(
-                "ClusterSpec knobs drive the training fleet (and the "
-                "Router's dispatch, not ported); unset them on a serve Plan")
+                "ClusterSpec heterogeneity knobs (num_vw/speeds/"
+                "straggle_fns/fail_at) drive the threaded training fleet; "
+                "the serve path batches requests on replicas sized by "
+                "partition.data + ServeSpec.replicas, and cluster.topology "
+                "alone prices the Router's dispatch — unset the rest")
+        p = self.partition
+        if p.data < 1:
+            raise ValueError(
+                f"partition.data counts the Router's serve replicas and "
+                f"must be >= 1, got {p.data}")
+        if isinstance(cl.topology, str):
+            make_topology(cl.topology, p.data)      # parse errors now
+        if sv.replicas:
+            if len(sv.replicas) != p.data:
+                raise ValueError(
+                    f"ServeSpec.replicas carries {len(sv.replicas)} replica "
+                    f"specs for partition.data={p.data} replicas; give one "
+                    f"spec per replica (or none for a homogeneous fleet)")
+            for i, r in enumerate(sv.replicas):
+                if not isinstance(r, ReplicaSpec):
+                    raise TypeError(f"ServeSpec.replicas[{i}] must be a "
+                                    f"ReplicaSpec, got {r!r}")
+                mb = r.max_batch or sv.max_batch
+                mp = r.max_pages or sv.max_pages
+                if not 1 <= mb <= sv.max_batch:
+                    raise ValueError(
+                        f"replica {i}: max_batch={mb} outside [1, "
+                        f"ServeSpec.max_batch={sv.max_batch}] — the "
+                        f"cluster-level spec is the per-replica ceiling "
+                        f"(whimpy replicas shrink it, never exceed it)")
+                if mp and sv.max_pages and mp > sv.max_pages:
+                    raise ValueError(
+                        f"replica {i}: max_pages={mp} exceeds the cluster-"
+                        f"level ceiling ServeSpec.max_pages={sv.max_pages}")
+                # a replica pool that cannot hold one worst-case request
+                # could never admit anything — surface it here, not mid-run
+                make_layout(mb, sv.max_len, page_size=sv.page_size,
+                            max_pages=mp)
 
     # ---- ergonomics -----------------------------------------------------
     def replace(self, **kw) -> "Plan":
@@ -406,8 +465,10 @@ class Plan:
         arch = self.arch.name if self.arch else "<injected wave step>"
         if self.serve is not None:
             sv = self.serve
+            reps = (f"replicas={self.partition.data}, "
+                    if self.partition.data > 1 else "")
             return (f"Plan({arch}, serve, backend={self.run.backend}, "
-                    f"batch={sv.max_batch}, prompt={sv.prompt_len}, "
+                    f"{reps}batch={sv.max_batch}, prompt={sv.prompt_len}, "
                     f"gen={sv.gen}, kernels={sv.kernel_backend}, "
                     f"{'greedy' if sv.temperature == 0 else 'sampled'})")
         topo = self.cluster.topology

@@ -1,10 +1,12 @@
-"""Reports returned by the Engine and the Scheduler (the port of
-repro.api.report without the Router's merge).
+"""Reports returned by the Engine, the Scheduler and the Router (the port of
+repro.api.report).
 
 TrainReport: one report type for the threaded WSP fleet, Engine.step()'s
 fleet of one and the BSP all-reduce loop. ServeReport: its serving sibling,
-assembled by Engine.generate() and the continuous-batching Scheduler;
-Telemetry is the metrics snapshot attached when the run is traced."""
+assembled by Engine.generate() and the continuous-batching Scheduler, and
+folded across a replica fleet by ServeReport.merge() (the Router's merged
+report); Telemetry is the metrics snapshot attached when the run is
+traced."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -190,9 +192,19 @@ class ServeReport:
     shed: int = 0               # requests refused under fault pressure
     failed_requests: int = 0    # retired incomplete (retry budget spent)
     aborted_step: int = -1      # serving stopped early at this decode step
-    #                             (a callback raised StopServing); -1 = ran
-    #                             to completion
+    #                             (a callback raised StopServing — e.g. a
+    #                             replica died); -1 = ran to completion
     telemetry: Optional[Telemetry] = None  # when tracing is enabled
+    # cluster serving (repro_torch.serve.router): merge() fills these on the
+    # Router's merged report; empty on single-replica runs
+    replicas: list = field(default_factory=list)  # per-replica sub-reports
+    #                             (one per replica *run* — a survivor that
+    #                             absorbed a re-dispatch round contributes
+    #                             one sub-report per round)
+    router: dict = field(default_factory=dict)    # Router counters:
+    #                             dispatches per policy, affinity_hits,
+    #                             rebalances, queue_depth_peak, rounds,
+    #                             replica_downs
 
     @property
     def tokens_out(self) -> int:
@@ -212,7 +224,16 @@ class ServeReport:
 
     def occupancy(self) -> Optional[float]:
         """Mean fraction of decode-batch slots doing useful work (scheduler
-        runs only)."""
+        runs only). On a merged report each replica's slot-steps are
+        weighed against its own capacity (decode_steps_i * max_batch_i):
+        replicas step independently, so the merged max_batch (the fleet's
+        total slots) times the summed decode steps would divide every
+        replica's work by every other replica's steps."""
+        if self.replicas:
+            cap = sum(r.decode_steps * r.max_batch for r in self.replicas)
+            if not cap:
+                return None
+            return sum(r.slot_steps for r in self.replicas) / cap
         if not self.decode_steps or not self.max_batch or not self.requests:
             return None
         return self.slot_steps / (self.decode_steps * self.max_batch)
@@ -225,7 +246,56 @@ class ServeReport:
 
     def page_utilization(self) -> Optional[float]:
         """Peak distinct pages in use as a fraction of the pool (scheduler
-        runs only)."""
+        runs only). On a merged report the fraction is pool-weighted: each
+        pool-bearing replica's peak over the fleet's summed pools (pool-less
+        families count on neither side), which is the plain ratio for a
+        single replica."""
+        if self.replicas:
+            tot = sum(r.pages_total for r in self.replicas
+                      if r.pages_total and r.decode_steps)
+            if not tot:
+                return None
+            return sum(r.peak_pages for r in self.replicas
+                       if r.pages_total and r.decode_steps) / tot
         if not self.decode_steps or not self.pages_total:
             return None
         return self.peak_pages / self.pages_total
+
+    @classmethod
+    def merge(cls, reports, *, router: Optional[dict] = None,
+              wall_s: Optional[float] = None) -> "ServeReport":
+        """Fold per-replica sub-reports into one fleet-level ServeReport.
+
+        Additive counters (tokens, prefill/decode time and calls,
+        slot-steps, page, memory and fault accounting) sum; `max_batch` and
+        `pages_total` sum into the fleet's capacity; `requests` concatenate
+        sorted by rid (the Router never splits or duplicates a request).
+        `wall_s` defaults to the max over sub-reports — replicas run
+        concurrently — and the Router passes its own measured wall instead.
+        decode_s / prefill_s sum: they are compute-seconds across the fleet
+        and may exceed wall_s. `occupancy()` and `page_utilization()` are
+        replica-weighted; both equal the single report's for a one-element
+        merge."""
+        reports = list(reports)
+        if not reports:
+            raise ValueError("merge() needs at least one sub-report")
+        out = cls(arch=reports[0].arch, backend=reports[0].backend,
+                  replicas=reports, router=dict(router or {}))
+        for r in reports:
+            out.requests.extend(r.requests)
+            for name in _MERGED_SUMS:
+                setattr(out, name, getattr(out, name) + getattr(r, name))
+            out.page_size = out.page_size or r.page_size
+        out.wall_s = wall_s if wall_s is not None else \
+            max(r.wall_s for r in reports)
+        out.requests.sort(key=lambda r: r.rid)
+        return out
+
+
+# the ServeReport fields merge() sums over the sub-reports
+_MERGED_SUMS = (
+    "prefill_s", "prefill_calls", "decode_s", "decode_steps", "slot_steps",
+    "max_batch", "pages_total", "peak_pages", "page_steps", "admit_blocked",
+    "prefix_hit_tokens", "pages_shared", "cow_copies", "evictions",
+    "readmit_recomputes", "preemptions", "slot_faults", "requeues",
+    "reprefills", "quarantined", "shed", "failed_requests")

@@ -125,13 +125,18 @@ class Scheduler:
                 else float("inf")
         return sorted(range(len(queue)), key=lambda i: slack(queue[i]))
 
-    def run(self, requests, *, callback=None) -> ServeReport:
+    def run(self, requests, *, callback=None, store=None,
+            mm=None) -> ServeReport:
         """Serve `requests` to completion; `callback(step, active_slots)`
         fires after every batched decode step (raise StopServing from it
-        to abort). Under the Plan's FaultPlan, SlotFaults fire at their
-        decode step: the slot is quarantined and its request requeued
-        (replayed from the prompt) or reprefilled (rebuilt from prompt +
-        generated tokens) within FaultPolicy.slot_retry_budget."""
+        to abort). `store` / `mm` inject a persistent CacheStore +
+        MemoryManager (the Router's replicas keep theirs warm across
+        dispatch rounds, so a re-dispatched shared prefix still hits the
+        index); by default both are made fresh for this run. Under the
+        Plan's FaultPlan, SlotFaults fire at their decode step: the slot is
+        quarantined and its request requeued (replayed from the prompt) or
+        reprefilled (rebuilt from prompt + generated tokens) within
+        FaultPolicy.slot_retry_budget."""
         eng, sv = self.engine, self.sv
         B, P = sv.max_batch, sv.prompt_len
         plan = eng.plan
@@ -150,7 +155,15 @@ class Scheduler:
             if r.deadline < 0:
                 raise ValueError(f"request {r.rid}: deadline must be >= 0 "
                                  f"(0 = none), got {r.deadline}")
-        store = eng.serve_store()
+        if (store is None) != (mm is None):
+            raise ValueError("store and mm persist together: inject both "
+                             "(the mm indexes that store's pages) or "
+                             "neither")
+        if store is None:
+            store = eng.serve_store()
+        elif mm.store is not store:
+            raise ValueError("the injected MemoryManager indexes a "
+                             "different CacheStore than the one passed")
         report = ServeReport(arch=plan.arch.name, backend=plan.run.backend,
                              max_batch=B, page_size=store.layout.page_size,
                              pages_total=store.pages_total)
@@ -159,9 +172,14 @@ class Scheduler:
         step = 0
         tr = self.tracer
         t_start = time.monotonic()
-        mm = MemoryManager(store, share_prefix=sv.share_prefix,
-                           evict=sv.evict, preempt=sv.preempt,
-                           policy=self.policy, metrics=tr.metrics)
+        if mm is None:
+            mm = MemoryManager(store, share_prefix=sv.share_prefix,
+                               evict=sv.evict, preempt=sv.preempt,
+                               policy=self.policy, metrics=tr.metrics)
+        # a persistent store/mm carries counters from earlier runs; report
+        # this run's contribution as deltas from these baselines
+        base = (mm.prefix_hit_tokens, mm.pages_shared, mm.evictions,
+                mm.readmit_recomputes, store.cow_copies)
         preempted_rids: set[int] = set()
         injector = eng.fault_injector()
         fpol = plan.fault_policy
@@ -430,19 +448,20 @@ class Scheduler:
                 try:
                     callback(step, len(active))
                 except StopServing:
-                    # abort: report only what retired; the caller can
-                    # replay the rest (picks are keyed by (rid, k))
+                    # abort (e.g. the replica died): report only what
+                    # retired; the Router replays the rest on the
+                    # survivors (picks are keyed by (rid, k))
                     report.aborted_step = step
                     tr.instant("sched", "aborted", step=step,
                                in_flight=len(active), queued=len(queue))
                     break
         report.wall_s = time.monotonic() - t_start
         report.peak_pages = store.peak_pages
-        report.prefix_hit_tokens = mm.prefix_hit_tokens
-        report.pages_shared = mm.pages_shared
-        report.cow_copies = store.cow_copies
-        report.evictions = mm.evictions
-        report.readmit_recomputes = mm.readmit_recomputes
+        report.prefix_hit_tokens = mm.prefix_hit_tokens - base[0]
+        report.pages_shared = mm.pages_shared - base[1]
+        report.cow_copies = store.cow_copies - base[4]
+        report.evictions = mm.evictions - base[2]
+        report.readmit_recomputes = mm.readmit_recomputes - base[3]
         if mm.share_prefix and mm.prompt_tokens:
             tr.metrics.gauge_set("serve/prefix_hit_rate",
                                  mm.prefix_hit_tokens / mm.prompt_tokens)

@@ -14,12 +14,15 @@ plain version: without nvcc or a CUDA device, loading raises.
 
 `LAUNCHES[name]` counts the launches each wrapper makes (only where it
 launches its kernel), so a run can show that its path went through the
-kernels. Every kernel has more than one route (grouped_matmul,
-flash_attention_fwd, flash_decode, flash_decode_paged: bf16 tensor-core
-tiles beside f32-FMA ones; rwkv6_chunked, ssd_chunked: f32 register tiles
-fed by cp.async beside the first f32-FMA design) and counts each launch once
-more in `ROUTES[name][route]`; a route is picked before the launch by the
-wrapper's `_route`, never switched after an error.
+kernels. The Router's replicas launch from host threads at once (each
+ctypes call releases the GIL), so the counts and the first build of a
+library are taken under locks. Every kernel has more than one route
+(grouped_matmul, flash_attention_fwd, flash_decode, flash_decode_paged:
+bf16 tensor-core tiles beside f32-FMA ones; rwkv6_chunked, ssd_chunked:
+f32 register tiles fed by cp.async beside the first f32-FMA design) and
+counts each launch once more in `ROUTES[name][route]`; a route is picked
+before the launch by the wrapper's `_route`, never switched after an
+error.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -51,6 +55,8 @@ ROUTES: dict[str, dict[str, int]] = {
     "ssd_chunked": {"tile": 0, "simt": 0}}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()     # LAUNCHES / ROUTES updates
+_LOAD_LOCK = threading.Lock()      # first build + load of a library
 
 
 def reset_launches() -> None:
@@ -62,10 +68,13 @@ def reset_launches() -> None:
 
 
 def count(name: str, route: str | None = None) -> None:
-    """One launch of `name` (through `route`, for a kernel with routes)."""
-    LAUNCHES[name] += 1
-    if route is not None:
-        ROUTES[name][route] += 1
+    """One launch of `name` (through `route`, for a kernel with routes).
+    `+=` on a dict item is a read, an add and a store, so the update is
+    taken under a lock: replica threads launch at the same time."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        if route is not None:
+            ROUTES[name][route] += 1
 
 
 def simt_route(dtype) -> str:
@@ -156,9 +165,14 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        _require_device()
-        so = _compile(find_nvcc(), name, _build_dir())
-        lib = _LIBS.setdefault(name, ctypes.CDLL(str(so)))
+        # one thread builds; the others wait for it instead of racing on
+        # the same temporary file
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                _require_device()
+                so = _compile(find_nvcc(), name, _build_dir())
+                lib = _LIBS.setdefault(name, ctypes.CDLL(str(so)))
     return lib
 
 

@@ -158,7 +158,13 @@ def _tickets(n, device):
     per device (grown when a launch needs more) and left at zero by every
     launch, whose last split of a pair takes the ticket that wraps its
     counter back. Launches on one stream run one after the other, so they
-    share it."""
+    share it.
+
+    The buffer assumes one stream per device: every path launches on the
+    thread's current stream, the default stream, the Router's replica
+    threads included. Two streams could run two split launches at once and
+    mix their counters, so a stream per replica would need a ticket buffer
+    per stream."""
     t = _TICKETS.get(device)
     if t is None or t.numel() < n:
         t = _TICKETS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,

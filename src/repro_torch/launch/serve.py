@@ -30,6 +30,15 @@ the paged KV pool and prints throughput, occupancy, pages and latency.
   python -m repro_torch.launch.serve --arch granite-moe-1b-a400m \
       --device cpu --requests 4 --batch 2 --prompt-len 16 --gen 4 \
       --page-size 4 --max-pages 12
+  python -m repro_torch.launch.serve --device cpu --requests 12 \
+      --replicas 4,2,2 --topology hetero --share-prefix --page-size 4
+                                                      # the Router, 3 replicas
+
+--replicas B0,B1,... routes the requests over a fleet of replicas with
+those decode batch sizes (repro_torch.serve.router), priced by --topology
+and dispatched by --route; --chaos SEED injects FaultPlan.sample_cluster
+(a replica dies) with --replicas, FaultPlan.sample_serve (slot faults)
+without.
 
 --reduced (the default) serves the config cut down by configs.reduced();
 --no-reduced serves the real widths. (The JAX CLI declares --reduced as a
@@ -82,6 +91,29 @@ def build_parser() -> argparse.ArgumentParser:
                          "refusing admission")
     ap.add_argument("--policy", choices=("fifo", "deadline"),
                     default="fifo", help="scheduler admission policy")
+    ap.add_argument("--replicas", default=None, metavar="B0,B1,...",
+                    help="scale-out serving: comma-separated per-replica "
+                         "decode batch sizes (e.g. '4,2,2' = one big + two "
+                         "whimpy); requests route through the Router "
+                         "instead of one Scheduler; needs --requests")
+    ap.add_argument("--topology", default=None, metavar="SPEC",
+                    help="price the Router's dispatch with this cluster "
+                         "topology's alpha-beta link costs (dist.topology "
+                         "spec, e.g. 'hetero', '3node:eth1'); default: all "
+                         "replicas equidistant")
+    ap.add_argument("--route", choices=("least_loaded", "deadline"),
+                    default="least_loaded",
+                    help="Router dispatch policy: least_loaded books by "
+                         "queue depth + page pressure + link cost; "
+                         "deadline dispatches in slack order (and runs "
+                         "each replica's scheduler in deadline mode)")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="inject a seeded random fault scenario: "
+                         "FaultPlan.sample_cluster(SEED) (a replica dies, "
+                         "its requests re-dispatch) with --replicas, else "
+                         "FaultPlan.sample_serve(SEED) (decode-slot faults "
+                         "recovered by quarantine + requeue); needs "
+                         "--requests")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome-trace-event JSON of the run")
     return ap
@@ -92,7 +124,9 @@ def main(argv=None):
 
     import numpy as np
 
-    from repro_torch.api import Engine, Plan, RunSpec, ServeSpec
+    from repro_torch.api import (ClusterSpec, Engine, FaultPlan,
+                                 PartitionSpec, Plan, ReplicaSpec, RunSpec,
+                                 ServeSpec)
     from repro_torch.api.serving import Request, Scheduler
     from repro_torch.configs import ARCHS, reduced as make_reduced
     from repro_torch.obs import NULL_TRACER, Tracer
@@ -101,28 +135,49 @@ def main(argv=None):
     if a.reduced:
         cfg = make_reduced(cfg)
     if not a.requests and (a.page_size or a.max_pages or a.policy != "fifo"
-                           or a.share_prefix or a.evict or a.preempt):
+                           or a.chaos is not None or a.share_prefix
+                           or a.evict or a.preempt):
         raise SystemExit(
-            "--page-size/--max-pages/--policy/--share-prefix/--evict/"
-            "--preempt drive the continuous-batching scheduler; the aligned "
-            "generate() path would silently drop them — add --requests N")
+            "--page-size/--max-pages/--policy/--chaos/--share-prefix/"
+            "--evict/--preempt drive the continuous-batching scheduler; the "
+            "aligned generate() path would silently drop them — add "
+            "--requests N")
+    replica_batches = []
+    if a.replicas:
+        if not a.requests:
+            raise SystemExit("--replicas routes requests over a replica "
+                             "fleet; add --requests N")
+        replica_batches = [int(x) for x in a.replicas.split(",")]
+    faults = None
+    if a.chaos is not None:
+        if replica_batches:
+            faults = FaultPlan.sample_cluster(a.chaos,
+                                              replicas=len(replica_batches))
+        else:
+            faults = FaultPlan.sample_serve(a.chaos, max_batch=a.batch)
+        print(f"chaos: {faults.describe()}")
     plan = Plan(arch=cfg,
+                partition=PartitionSpec(data=max(1, len(replica_batches))),
+                cluster=ClusterSpec(topology=a.topology),
                 serve=ServeSpec(prompt_len=a.prompt_len, gen=a.gen,
-                                max_batch=a.batch, temperature=a.temperature,
+                                max_batch=max(replica_batches + [a.batch]),
+                                temperature=a.temperature,
                                 page_size=a.page_size, max_pages=a.max_pages,
                                 share_prefix=a.share_prefix, evict=a.evict,
                                 preempt=a.preempt,
-                                kernel_backend=a.kernel_backend),
-                run=RunSpec(compute_dtype=a.compute_dtype))
+                                kernel_backend=a.kernel_backend,
+                                replicas=tuple(ReplicaSpec(max_batch=b)
+                                               for b in replica_batches)),
+                run=RunSpec(compute_dtype=a.compute_dtype), faults=faults)
     tracer = Tracer() if a.trace else NULL_TRACER
-    eng = Engine(plan, tracer=tracer, device=a.device)
 
     if a.requests:
         rng = np.random.default_rng(1)
+        policy = a.route if replica_batches else a.policy
 
         def deadline(i):
             return int(a.gen * (1 + (a.requests - i))) \
-                if a.policy == "deadline" else 0
+                if policy == "deadline" else 0
         if a.share_prefix:
             pool = [rng.integers(0, cfg.vocab_size, a.prompt_len,
                                  dtype=np.int32)
@@ -133,9 +188,44 @@ def main(argv=None):
                                                a.prompt_len, dtype=np.int32)
         reqs = [Request(rid=i, prompt=prompt_of(i), deadline=deadline(i))
                 for i in range(a.requests)]
+    if replica_batches:
+        from repro_torch.serve.router import Router
+        rep = Router(plan, policy=a.route, tracer=tracer,
+                     device=a.device).run(reqs)
+        if a.trace:
+            print(f"trace: {tracer.export(a.trace)}")
+        occ = rep.occupancy()
+        print(f"arch={cfg.name} device={a.device} "
+              f"kernels={a.kernel_backend} replicas={a.replicas} "
+              f"route={a.route} topology={a.topology or 'flat'} "
+              f"requests={a.requests} tokens={rep.tokens_out} "
+              f"throughput={rep.tokens_per_s():.1f} tok/s "
+              f"occupancy={'n/a' if occ is None else f'{occ:.2f}'}")
+        print(f"router: dispatches={rep.router['dispatches']} "
+              f"affinity_hits={rep.router['affinity_hits']} "
+              f"rebalances={rep.router['rebalances']} "
+              f"rounds={rep.router['rounds']} "
+              f"replica_downs={rep.router['replica_downs']} "
+              f"queue_peak={rep.router['queue_depth_peak']}")
+        if a.share_prefix:
+            print(f"memory: prefix_hit={rep.prefix_hit_tokens} tok "
+                  f"shared={rep.pages_shared} evictions={rep.evictions}")
+        lat = sorted(r.latency_s for r in rep.requests)
+        print(f"latency: p50={lat[len(lat) // 2] * 1e3:.1f}ms "
+              f"max={lat[-1] * 1e3:.1f}ms failed={rep.failed_requests}")
+        return
+
+    eng = Engine(plan, tracer=tracer, device=a.device)
+    if a.requests:
         rep = Scheduler(eng, policy=a.policy).run(reqs)
         if a.trace:
             print(f"trace: {tracer.export(a.trace)}")
+        if a.chaos is not None:
+            retries = sum(r.retries for r in rep.requests)
+            print(f"faults: slot_faults={rep.slot_faults} "
+                  f"requeues={rep.requeues} reprefills={rep.reprefills} "
+                  f"quarantined={rep.quarantined} retries={retries} "
+                  f"shed={rep.shed} failed={rep.failed_requests}")
         occ, pu = rep.occupancy(), rep.page_utilization()
         print(f"arch={cfg.name} device={a.device} "
               f"kernels={a.kernel_backend} requests={a.requests} "

@@ -101,17 +101,12 @@ def test_scheduler_matches_reference(weights, preset, policy):
     memory counters equal the JAX package's (serve_kernels: Pallas in
     interpret mode against the port's kernel wrappers)."""
     jp, tp = weights
-    # serve_shared: repeated prompts share pages; the port builds the JAX
-    # preset from serve_paged and the memory knobs
+    # serve_shared: repeated prompts share pages
     reqs = make_requests(1, shared=preset == "serve_shared")
-    if preset == "serve_shared":
-        plan = get_preset("serve_paged", serve__max_pages=10,
-                          serve__share_prefix=True, serve__evict=True,
-                          serve__preempt=True)
-        assert dataclasses.asdict(plan.serve) == \
-            dataclasses.asdict(j_preset(preset).serve)
-    else:
-        plan = get_preset(preset)
+    plan = get_preset(preset)
+    assert dataclasses.asdict(plan.serve) == \
+        dataclasses.asdict(j_preset(preset).serve) | {
+            "kernel_backend": plan.serve.kernel_backend}
     want = _jax_run(j_preset(preset), jp, reqs, policy=policy)
     got = _port_run(plan, tp, reqs, policy=policy)
     assert_scheduler_matches(got, want, reqs)
@@ -252,21 +247,22 @@ def test_cache_layouts_match_reference():
 
 
 def test_plan_validation():
-    """The port's backends are ref / cuda; what is not ported raises."""
+    """The port's backends are ref / cuda; the spmd backend (not ported)
+    raises, replica fleets are checked as the JAX package checks them."""
     arch = get_preset("serve_tiny").arch
     for bad in ("interpret", "tpu"):
         with pytest.raises(ValueError, match="kernel_backend"):
             Plan(arch=arch, serve=ServeSpec(kernel_backend=bad))
-    # a FaultPlan of slot faults is accepted; ReplicaDown is refused and
-    # names the Router's item
+    # a FaultPlan of slot faults is accepted; ReplicaDown needs a fleet of
+    # Router replicas with a survivor
     plan = Plan(arch=arch, serve=ServeSpec(max_batch=2),
                 faults=FaultPlan(events=(SlotFault(slot=1, step=2),)),
                 fault_policy=FaultPolicy(slot_recovery="reprefill"))
     assert plan.faults.of_type(SlotFault) == [SlotFault(slot=1, step=2)]
-    with pytest.raises(ValueError, match="item 8"):
+    with pytest.raises(ValueError, match="survivor"):
         Plan(arch=arch, serve=ServeSpec(),
              faults=FaultPlan(events=(ReplicaDown(replica=0, step=1),)))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="ReplicaSpec"):
         Plan(arch=arch, serve=ServeSpec(replicas=(object(),)))
     with pytest.raises(NotImplementedError, match="item 9"):
         Plan(arch=arch, serve=ServeSpec(),

@@ -87,7 +87,8 @@ def test_plan_rejects_knobs_the_backend_would_drop():
     with pytest.raises(NotImplementedError, match="item 9"):
         Plan(arch=CFG, run=RunSpec(backend="spmd"))
     # a FaultPlan is accepted (validated against the Plan), a stand-in is
-    # refused by type, and the serving-only ReplicaDown names the Router
+    # refused by type, and the serving-only ReplicaDown needs a fleet with
+    # a survivor (and is refused on a train Plan)
     plan = Plan(arch=CFG, cluster=ClusterSpec(num_vw=2),
                 faults=FaultPlan(seed=3, events=(
                     WorkerCrash(vw=1, wave=1), PSStall(at_push=0),
@@ -97,9 +98,11 @@ def test_plan_rejects_knobs_the_backend_would_drop():
         "FaultPlan(seed=3, LinkFaultx1, PSStallx1, WorkerCrashx1)"
     with pytest.raises(TypeError, match="FaultPlan"):
         Plan(arch=CFG, faults=object())
-    with pytest.raises(ValueError, match="item 8"):
+    with pytest.raises(ValueError, match="survivor"):
         Plan(arch=CFG, serve=ServeSpec(),
              faults=FaultPlan(events=(ReplicaDown(replica=1, step=1),)))
+    with pytest.raises(ValueError, match="serving fault"):
+        Plan(arch=CFG, faults=FaultPlan(events=(ReplicaDown(1, 1),)))
 
 
 def test_plan_replace_asp_and_loss_curve():
