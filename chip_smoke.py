@@ -161,7 +161,22 @@ Phases (each prints a line; any failure exits nonzero):
      ReplicaDown(1, 4) in f32 one replica dies, its requests replay on the
      survivors in a second round, streams held to the fault-free run's the
      same way; the deadline policy's dispatch printed;
- 24. one JSON line of per-kernel numbers.
+ 24. spmd training: qwen3-0.6b at full width on the pipelined spmd
+     backend, mesh (1, 4, 4) = 16 slots on the card (f32, TF32 off, batch
+     16 x seq 512, Nm 16; depth cut to SPMD_LAYERS = 8, 2 a stage): one
+     sgd-0.1 step of build_train_step against build_local_wave_step(cfg,
+     16) on the same params and batch (params within 1e-4), the overlap
+     schedule against the base (loss equal, params within 1e-6 of each
+     leaf's max); Engine(plan).fit() with adamw for 4 waves: wave ms,
+     tokens/s, peak device memory beside the card's name and power
+     limit, losses finite and falling, the device
+     memory the built Engine holds within 10% of params + moments (the
+     shard views copy no weight) and, after fit(), the same before and
+     after a cyclic gc (no reference cycle holds a wave's tensors); a
+     profiled wave; then granite-moe-1b-a400m reduced on a (2, 2, 2) mesh
+     of card slots against its local wave (the data axis and the MoE tp
+     sum); no kernel launched in the phase;
+ 25. one JSON line of per-kernel numbers.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script fails before printing any
 result. It imports neither jax nor the JAX package.
@@ -251,6 +266,12 @@ ROUTE_TOL = 1e-4                   # router logit K/K+1 margins counted as
 # and each greedy stream repeats its last prompt token, which would leave
 # the stream comparison of phase 4 nothing to compare.
 WEIGHT_SCALE = 10.0
+# phase 24's depth: qwen3-0.6b's width on all 16 slots of its 1 x 4 x 4
+# mesh, 2 layers a stage. The spmd wave is host-bound (~27.5 k device ops
+# a layer and wave); at all 28 layers a wave took 24.2 s and the phase
+# 328 s (PERF.md, train-spmd), too long beside the other phases in the time
+# limit; spmd_train_phase(dev, layers=None) runs the full depth.
+SPMD_LAYERS = 8
 DENSE_MATS = ("wq", "wk", "wv", "wo", "mlp_wi", "mlp_wo")
 # bf16 greedy picks whose top-2 logit margin is under this (the kernels'
 # bf16 tolerance) count as near-ties in the chaos-serve comparison
@@ -741,6 +762,202 @@ def chaos_train_phase(dev):
     del eng, rep
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def spmd_train_phase(dev, arch=None, layers=SPMD_LAYERS, card=""):
+    """Phase 24: spmd training at full width (see the module docstring).
+    `arch` replaces qwen3-0.6b (a CPU rehearsal passes a reduced one);
+    `layers` cuts its depth (None: all of its layers); `card` is the
+    card's name and power limit as nvidia-smi gives them, printed beside
+    the phase's times."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Engine, PartitionSpec, Plan, RunSpec, WSP
+    from repro_torch.configs import ARCHS, RunConfig, ShapeConfig, reduced
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.core import wave
+    from repro_torch.data.pipeline import MarkovLM, ShardedLoader
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_mesh_auto
+    from repro_torch.models import lm, moe
+    from repro_torch.optim import make_optimizer
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in
+                   tree_lib.leaves(tree) if isinstance(t, torch.Tensor))
+
+    def worst(a, b, rel=False):
+        """max |a - b| over the leaves (rel: each leaf's over its max)."""
+        out = 0.0
+        for x, y in zip(tree_lib.leaves(a), tree_lib.leaves(b)):
+            d = float((x - y).abs().max())
+            out = max(out, d / float(y.abs().max()) if rel else d)
+        return out
+
+    t_phase = time.monotonic()
+    reset_launches()
+    names = ("data", "stage", "tp")
+    q = arch or ARCHS["qwen3-0.6b"]
+    depth = q.num_layers
+    if layers is not None:
+        q = dataclasses.replace(q, num_layers=layers)
+    TB, TS, nm = 16, 512, q.num_microbatches
+    mesh = make_mesh_auto((1, q.stages, q.tp), names)
+    slots = {d.type for d in mesh.devices.ravel()}
+    if slots != {dev.type}:
+        raise AssertionError(f"spmd: mesh slots on {slots}")
+    x, y = ShardedLoader(MarkovLM(q.vocab_size, seed=24), TB, TS, 0,
+                         1).next()
+
+    # ---- 24a. one sgd step: the pipeline against the local wave ---------
+    params = lm.init_params(q, torch.Generator(device=dev).manual_seed(24),
+                            device=dev)
+    sgd = make_optimizer("sgd", 0.1)
+
+    def spmd_step(overlap):
+        run = RunConfig(arch=q, shape=ShapeConfig("spmd", TS, TB, "train"),
+                        optimizer="sgd", lr=0.1, compute_dtype="float32",
+                        loss_chunk=512, overlap=overlap)
+        step, _ = wave.build_train_step(run, mesh)
+        t0 = time.monotonic()
+        new, _, m = step(params, sgd.init(params),
+                         {"inputs": x, "labels": y})
+        return new, float(m["loss"]), sync_s(t0)
+
+    base, l_base, t_base = spmd_step(False)
+    t0 = time.monotonic()
+    deltas, _, l_local = wave.build_local_wave_step(q, nm, sgd)(
+        params, sgd.init(params), x, y)
+    l_local = float(l_local)
+    t_local = sync_s(t0)
+    local = tree_lib.tree_map(torch.add, params, deltas)
+    del deltas
+    d_local = worst(base, local)
+    del local
+    free()
+    over, l_over, t_over = spmd_step(True)
+    d_over = worst(over, base, rel=True)
+    del over
+    if d_local >= 1e-4 or abs(l_base - l_local) > 1e-5 * abs(l_local):
+        raise AssertionError(f"spmd: pipelined step vs the local wave: "
+                             f"params {d_local:.3e} (tolerance 1e-4), loss "
+                             f"{l_base} / {l_local}")
+    if l_over != l_base or d_over > 1e-6:
+        raise AssertionError(f"spmd: overlap vs base: loss {l_over} / "
+                             f"{l_base}, params {d_over:.3e} of the leaf "
+                             f"max (tolerance 1e-6)")
+    log("spmd", f"qwen3-0.6b full width ({q.num_layers} of its {depth} "
+        f"layers, {q.layer_slots} a stage; f32, TF32 off) on mesh (1, {q.stages}, {q.tp}) = {mesh.size} slots on "
+        f"{len(mesh.physical())} device(s), batch {TB} x seq {TS}, Nm {nm}: "
+        f"one sgd-0.1 step of build_train_step against "
+        f"build_local_wave_step(cfg, {nm}) on the same params and batch: "
+        f"params within {d_local:.3e} (tolerance 1e-4), loss {l_base:.6f} / "
+        f"{l_local:.6f}; the overlap schedule: loss {l_over:.6f} (equal), "
+        f"params within {d_over:.3e} of each leaf's max (tolerance 1e-6); "
+        f"step s: base {t_base:.2f}, local {t_local:.2f}, overlap "
+        f"{t_over:.2f}")
+    del base, params
+    free()
+
+    # ---- 24b. Engine.fit() on backend="spmd", adamw ---------------------
+    plan = Plan(arch=q, partition=PartitionSpec(stages=q.stages, tp=q.tp,
+                                                data=1),
+                sync=WSP(D=0),
+                run=RunSpec(backend="spmd", max_waves=4, batch=TB, seq=TS,
+                            optimizer="adamw", lr=1e-3))
+    held = torch.cuda.memory_allocated(dev)
+    eng = Engine(plan)
+    eng._ensure_spmd()
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated(dev) - held
+    st = eng._spmd
+    want = nbytes(st["params"]) + nbytes(st["opt_state"])
+    if abs(built - want) > 0.1 * want:
+        raise AssertionError(f"spmd: the built Engine holds {built} B, "
+                             f"params + moments are {want} B")
+    torch.cuda.reset_peak_memory_stats()
+    waves = []
+    rep = eng.fit(callback=lambda w, loss, dt: waves.append(dt))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    uncollected = torch.cuda.memory_allocated(dev) - held
+    gc.collect()
+    resident = torch.cuda.memory_allocated(dev) - held
+    losses = [l for _, _, l in rep.losses]
+    if not (len(losses) == 4 and np.all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"spmd: losses {losses}")
+    if abs(resident - want) > 0.1 * want or \
+            uncollected - resident > 0.01 * want:
+        raise AssertionError(f"spmd: after fit() {uncollected} B stay "
+                             f"({resident} B once the cyclic gc ran), params "
+                             f"+ moments are {want} B")
+    med = float(np.median(waves[1:]))
+    log("spmd", f"Engine(plan).fit() on backend spmd ({card}), adamw "
+        f"1e-3, 4 waves of {TB} x {TS}: wave ms first {1e3 * waves[0]:.1f}, median of the "
+        f"rest {1e3 * med:.1f} ({', '.join(f'{1e3 * w:.1f}' for w in waves)})"
+        f"; {TB * TS / med:.1f} tokens/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} of it above "
+        f"the {held / 2**30:.2f} GiB held before the Engine; the built "
+        f"Engine holds "
+        f"{built / 2**30:.3f} GiB = params + adamw moments "
+        f"{want / 2**30:.3f} GiB (the shard views copy no weight), after "
+        f"fit() {uncollected / 2**30:.3f} GiB ({resident / 2**30:.3f} once "
+        f"the cyclic gc ran: no reference cycle holds a wave's tensors); "
+        f"losses "
+        f"{', '.join(f'{l:.4f}' for l in losses)}; wait_seconds "
+        f"{rep.wait_seconds}")
+    profile_run("spmd: one Engine.step() wave", eng.step, cpu=False)
+    del eng, st, rep
+    free()
+
+    # ---- 24c. granite-moe reduced on a (2, 2, 2) mesh of card slots -----
+    g = reduced(ARCHS["granite-moe-1b-a400m"], stages=2, tp=2, num_layers=4,
+                num_microbatches=2, remat=True, capacity_factor=8.0)
+    gmesh = make_mesh_auto((2, 2, 2), names)
+    gp = lm.init_params(g, torch.Generator(device=dev).manual_seed(25),
+                        device=dev)
+    xg, yg = ShardedLoader(MarkovLM(g.vocab_size, seed=25), 8, 32, 0,
+                           1).next()
+    step, _ = wave.build_train_step(
+        RunConfig(arch=g, shape=ShapeConfig("g", 32, 8, "train"),
+                  optimizer="sgd", lr=0.1, compute_dtype="float32",
+                  loss_chunk=16), gmesh)
+    new, _, m = step(gp, sgd.init(gp), {"inputs": xg, "labels": yg})
+    with moe.record_routing() as recs:
+        dg, _, lg = wave.build_local_wave_step(g, 4, sgd)(
+            gp, sgd.init(gp), xg, yg)
+    margin = min(float(moe.topk_margin(r["logits"].detach(),
+                                       g.top_k).min()) for r in recs)
+    d_g = worst(new, tree_lib.tree_map(torch.add, gp, dg))
+    if d_g >= 1e-4 or not float(m["aux"]) > 0:
+        raise AssertionError(f"spmd: granite (2, 2, 2) vs its local wave: "
+                             f"params {d_g:.3e}, aux {float(m['aux'])}, "
+                             f"router K/K+1 margin {margin:.3e}")
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"spmd: kernels launched {launched}; training "
+                             f"runs the plain path")
+    log("spmd", f"granite-moe-1b-a400m reduced ({g.num_layers} layers, d "
+        f"{g.d_model}, {g.num_experts} experts top-{g.top_k}) on mesh "
+        f"(2, 2, 2) = 8 {dev.type} slots: one sgd step within {d_g:.3e} of "
+        f"its local wave (tolerance 1e-4), loss {float(m['loss']):.6f} / "
+        f"{float(lg):.6f}, aux {float(m['aux']):.4f}, smallest router K/K+1 "
+        f"margin {margin:.3e}; kernels launched in the phase: none; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    free()
 
 
 def cluster_phase(dev, arch=None):
@@ -2698,7 +2915,11 @@ def main() -> int:
     free_device()
     cl_launches = cluster_phase(dev)
 
-    # ---- 24. the kernels line ------------------------------------------
+    # ---- 24. spmd training at full width ---------------------------------
+    free_device()
+    spmd_train_phase(dev, card=smi)
+
+    # ---- 25. the kernels line ------------------------------------------
     src = {"flash_attention_fwd": ("src/repro_torch/kernels/csrc/"
                                    "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:94"),

@@ -1,21 +1,27 @@
-"""The Engine: one facade executing a Plan (the port of repro.api.engine,
-threads backend).
+"""The Engine: one facade executing a Plan (the port of repro.api.engine).
 
-fit() dispatches on the Plan's SyncPolicy:
+fit() dispatches on the Plan alone:
 
-  WSP / ASP     threaded virtual-worker fleet against the sharded parameter
-                server (true async, D >= 0, stragglers, periodic checkpoint,
-                seeded faults under the FleetSupervisor: heartbeat
-                eviction and elastic rejoin)
-  BSP           the synchronous AllReduce loop (ring all-reduce of every
-                wave's deltas, simulated straggler-gated clock)
+  backend='threads' + WSP/ASP   threaded virtual-worker fleet against the
+                                sharded parameter server (true async, D >=
+                                0, stragglers, periodic checkpoint, seeded
+                                faults under the FleetSupervisor: heartbeat
+                                eviction and elastic rejoin)
+  backend='threads' + BSP       the synchronous AllReduce loop (ring
+                                all-reduce of every wave's deltas,
+                                simulated straggler-gated clock)
+  backend='spmd'                the pipelined wave step over a (data,
+                                stage, tp) mesh (core.wave.build_train_step,
+                                D = 0), the mesh's slots wrapping over the
+                                Engine's devices (launch.mesh, trap Y1)
 
-step() runs one synchronous wave of a one-worker fleet; save()/restore()
-checkpoint atomically and resume exactly. Each worker's params, grads,
-optimizer state and deltas live on the Engine's device; the parameter
-server keeps w_global in host memory, and each wave's deltas and pulls
-cross in one flat copy (runtime.staging). Training runs f32 (the JAX
-threads path never casts, trap T8).
+step() runs one synchronous wave (of a one-worker fleet on threads, of the
+pipelined step on spmd); save()/restore() checkpoint atomically and resume
+exactly. Each worker's params, grads, optimizer state and deltas live on
+the Engine's device; the parameter server keeps w_global in host memory,
+and each wave's deltas and pulls cross in one flat copy
+(runtime.staging). Training runs f32 (the JAX threads path never casts,
+trap T8).
 
 Serve-mode Plans (Plan.serve = ServeSpec) run on the threads backend
 through the non-pipelined `lm.forward_ref` cache path:
@@ -51,7 +57,8 @@ torch.inference_mode(), writing the caches in place. Entry points run on
 the CUDA card unless the caller passes device="cpu" — then the kernels'
 wrappers take their plain PyTorch versions. A fleet of serve replicas is
 repro_torch.serve.router's Router, one Engine a replica over one shared
-params dict. The spmd backend (ROADMAP Queue 1 item 9) is not ported.
+params dict. Serving on the spmd backend is the serve half of ROADMAP
+Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -74,7 +81,7 @@ from repro_torch.dist import collectives
 from repro_torch.dist.topology import make_topology
 from repro_torch.dist.transport import NullTransport, SimulatedTransport
 from repro_torch.models import frontend, lm
-from repro_torch.obs import NULL_TRACER
+from repro_torch.obs import NULL_TRACER, emit_pipeline_ticks
 from repro_torch.obs.metrics import SECONDS_BOUNDS
 from repro_torch.runtime.checkpoint import (latest_checkpoint,
                                             load_checkpoint, save_checkpoint)
@@ -138,6 +145,7 @@ class Engine:
         self._step_ctx = None      # lazy state for step()
         self._serve = None         # lazy state for the serve surface
         self._serve_paged = None   # lazy paged (CacheStore) executors
+        self._spmd = None          # lazy state for the spmd backend
         self._step_offset = 0      # waves already in a restored checkpoint
         self._fleet_ran = False    # the threaded fleet is single-shot
         self._bsp_wave = 0         # waves the BSP loop has run (this engine)
@@ -147,6 +155,20 @@ class Engine:
     # ------------------------------------------------------------------
     # materialization
     # ------------------------------------------------------------------
+    def _model_arch(self):
+        """The arch whose parameter shapes this engine trains: the spmd
+        backend re-factors stages/tp from the PartitionSpec (the padded
+        layer count can change), the threads backend uses the arch as
+        declared."""
+        plan = self.plan
+        if plan.run.backend != "spmd":
+            return plan.arch
+        arch = dataclasses.replace(plan.arch, stages=plan.stages, tp=plan.tp)
+        if plan.partition.num_microbatches:
+            arch = dataclasses.replace(
+                arch, num_microbatches=plan.partition.num_microbatches)
+        return arch
+
     def _ensure_model(self):
         from repro_torch.core import wave
         from repro_torch.optim import make_optimizer
@@ -156,9 +178,10 @@ class Engine:
                                              run.weight_decay)
         if self._params is None:
             gen = torch.Generator(device=self.device).manual_seed(run.seed)
-            self._params = lm.init_params(cfg, gen, dtype=torch.float32,
+            self._params = lm.init_params(self._model_arch(), gen,
+                                          dtype=torch.float32,
                                           device=self.device)
-        if self._wave_step is None:
+        if self._wave_step is None and run.backend != "spmd":
             self._wave_step = wave.build_local_wave_step(
                 cfg, plan.num_microbatches, self._optimizer)
         if self._source is None:
@@ -249,18 +272,32 @@ class Engine:
             self.restore()
         with self.tracer.span("engine", "fit", backend=plan.run.backend,
                               sync=plan.sync.describe()):
-            self.report = plan.sync.execute(
-                self, rejoin_failed_after=rejoin_failed_after,
-                callback=callback)
+            if plan.run.backend == "spmd":
+                if rejoin_failed_after is not None:
+                    raise ValueError("elastic rejoin is a feature of the "
+                                     "threaded parameter-server fleet; the "
+                                     "spmd backend has no workers to "
+                                     "rejoin")
+                self.report = self._fit_spmd(callback=callback)
+            else:
+                self.report = plan.sync.execute(
+                    self, rejoin_failed_after=rejoin_failed_after,
+                    callback=callback)
         return self.attach_telemetry(self.report)
 
     def step(self) -> float:
-        """One synchronous wave with single-worker semantics (worker vw0
-        against the parameter server). Returns the wave's loss;
-        `step_times` holds its wave, D2H, push, pull and H2D seconds."""
+        """One synchronous wave: with single-worker semantics (worker vw0
+        against the parameter server) on threads, one pipelined wave step
+        on spmd. Returns the wave's loss; on threads `step_times` holds its
+        wave, D2H, push, pull and H2D seconds."""
         if self.plan.serve is not None:
             raise ValueError("step() drives a training wave; this Plan "
                              "serves — use prefill()/decode()/generate()")
+        if self.plan.run.backend == "spmd":
+            self._ensure_spmd()
+            with self.tracer.span("engine", "step",
+                                  wave=self._spmd["wave"]):
+                return self._spmd_step()
         policy = self.plan.sync
         if not isinstance(policy, WSP):
             raise ValueError(
@@ -324,6 +361,11 @@ class Engine:
                 meta["push_count"]
             return save_checkpoint(ckpt_dir, self._step_offset + step,
                                    {"params": params}, meta)
+        if self._spmd is not None:
+            step = self._step_offset + self._spmd["wave"]
+            return save_checkpoint(ckpt_dir, step,
+                                   {"params": self._spmd["params"]},
+                                   {"wave": step})
         self._ensure_model()
         step = self._step_offset + self._bsp_wave
         return save_checkpoint(ckpt_dir, step, {"params": self._params},
@@ -349,6 +391,12 @@ class Engine:
             self.ps.load_state_dict({"flat": leaves,
                                      "clocks": dict(self.ps.clock.state.clocks),
                                      "push_count": self.ps.push_count})
+        if self._spmd is not None:
+            # the restored weights on the mesh's device, and optimizer
+            # moments for them (those of the pre-restore weights go)
+            st = self._spmd
+            st["params"] = self._params = self._spmd_params()
+            st["opt_state"] = self._optimizer.init(st["params"])
         if self._serve is not None:
             self._serve["params"] = self._params
         return meta
@@ -590,6 +638,96 @@ class Engine:
         report.wall_s = sim_t
         report.wait_seconds = waits
         self._params = params
+        return report
+
+    # ------------------------------------------------------------------
+    # spmd backend: the pipelined wave step (core.wave.build_train_step)
+    # ------------------------------------------------------------------
+    def _ensure_spmd(self):
+        if self._spmd is not None:
+            return
+        from repro_torch.configs.base import RunConfig, ShapeConfig
+        from repro_torch.core import wave
+        from repro_torch.launch.mesh import make_mesh_auto
+
+        plan, run = self.plan, self.plan.run
+        dsz = plan.partition.data
+        # the default card means every visible CUDA device; slots wrap
+        # over them (trap Y1), so no device count is refused
+        devices = None if self.device == torch.device("cuda") \
+            else self.device
+        mesh = make_mesh_auto((dsz, plan.stages, plan.tp),
+                              ("data", "stage", "tp"), devices)
+        self._ensure_model()           # params for the stage-replaced arch
+        shape = plan.shape or ShapeConfig("plan", run.seq, run.batch * dsz,
+                                          "train")
+        rc = RunConfig(arch=self._model_arch(), shape=shape,
+                       optimizer=run.optimizer,
+                       lr=run.lr, weight_decay=run.weight_decay,
+                       compute_dtype=run.compute_dtype,
+                       loss_chunk=min(run.loss_chunk, run.seq),
+                       overlap=run.overlap)
+        step, _ = wave.build_train_step(rc, mesh)
+        self._spmd = {"mesh": mesh, "step": step, "wave": 0,
+                      "loader": ShardedLoader(self._source,
+                                              shape.global_batch, run.seq,
+                                              0, 1)}
+        st = self._spmd
+        st["params"] = self._params = self._spmd_params()
+        st["opt_state"] = self._optimizer.init(st["params"])
+
+    def _spmd_params(self):
+        """self._params as f32 tensors on the mesh's first slot's device:
+        the same tensors when they are already there, else a copy."""
+        dev = self._spmd["mesh"].devices.flat[0]
+        leaves = tree_lib.leaves(self._params)
+        if all(isinstance(t, torch.Tensor) and t.device == dev
+               and t.dtype == torch.float32 for t in leaves):
+            return self._params
+        return device_tree(self._params, dev)
+
+    def _spmd_step(self) -> float:
+        st = self._spmd
+        x, y = st["loader"].next()
+        st["params"], st["opt_state"], m = st["step"](
+            st["params"], st["opt_state"], {"inputs": x, "labels": y})
+        # the Engine's params are the trained ones: no stale copy is held
+        self._params = st["params"]
+        st["wave"] += 1
+        return float(m["loss"])
+
+    def _fit_spmd(self, *, callback: Optional[Callable] = None
+                  ) -> TrainReport:
+        self._ensure_spmd()
+        run = self.plan.run
+        report = TrainReport()
+        tick_plan = self._tick_plan()
+        t_start = time.monotonic()
+        for w in range(run.max_waves):
+            t0 = time.monotonic()
+            with self.tracer.span("engine", "wave", wave=w):
+                loss = self._spmd_step()      # float(): waits for the wave
+            dt = time.monotonic() - t0
+            if tick_plan is not None:
+                # the Plan's pipeline schedule, scaled into the measured
+                # window (the ticks are not timed one by one)
+                sched, ticks = tick_plan
+                emit_pipeline_ticks(self.tracer, "spmd", sched, ticks,
+                                    t0, t0 + dt)
+            report.losses.append((time.monotonic() - t_start, "spmd", loss))
+            report.waves += 1
+            if callback is not None:
+                callback(w, loss, dt)
+            if run.ckpt_dir and run.ckpt_every and \
+                    ((w + 1) % run.ckpt_every == 0
+                     or w + 1 == run.max_waves):
+                # the final wave checkpoints even off-cadence: resume must
+                # see the end-of-run state (as the threads backend)
+                self.save()
+        report.wall_s = time.monotonic() - t_start
+        # the wave step has no sync gate; the key keeps one wait_seconds
+        # schema across backends
+        report.wait_seconds = {"spmd": 0.0}
         return report
 
     def _sync(self):

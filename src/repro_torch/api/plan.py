@@ -13,9 +13,11 @@ Engine.prefill()/decode()/generate(). `faults=FaultPlan(...)` and
 recovery posture (repro_torch.faults), validated against the Plan they
 ride. A serve Plan with `partition.data` > 1 is a fleet of replicas
 (`ServeSpec.replicas` sizes each one) run by repro_torch.serve.router's
-Router, its dispatch priced by `cluster.topology`. The spmd backend is not
-ported and raises NotImplementedError naming its ROADMAP item (Queue 1
-item 9).
+Router, its dispatch priced by `cluster.topology`. `run.backend="spmd"`
+trains through the pipelined wave step (core.wave.build_train_step) over a
+(data, stage, tp) mesh factored by the PartitionSpec, at WSP(D=0) or BSP;
+a serve Plan on the spmd backend raises NotImplementedError naming its
+ROADMAP item (Queue 1 item 9, the serve half).
 """
 from __future__ import annotations
 
@@ -79,7 +81,7 @@ class PartitionSpec:
 class RunSpec:
     """Everything about one run that is neither model, fleet nor sync."""
 
-    backend: str = "threads"    # threads (host-level) | spmd (not ported)
+    backend: str = "threads"    # threads (host-level) | spmd (pipelined)
     max_waves: int = 20
     batch: int = 8              # per-VW wave batch
     seq: int = 64
@@ -190,19 +192,24 @@ class Plan:
     def vocab(self) -> int:
         return self.run.vocab or (self.arch.vocab_size if self.arch else 256)
 
+    @property
+    def devices_needed(self) -> int:
+        return self.partition.devices or \
+            (self.partition.data * self.stages * self.tp)
+
     # ---- validation -----------------------------------------------------
     def validate(self) -> None:
         if not isinstance(self.sync, SyncPolicy):
             raise TypeError(f"sync must be a SyncPolicy, got {self.sync!r}")
         self.sync.validate()
         cl, run, p = self.cluster, self.run, self.partition
-        if run.backend == "spmd":
-            raise NotImplementedError(
-                "the pipelined spmd backend is ROADMAP Queue 1 item 9; the "
-                "port runs backend='threads'")
-        if run.backend != "threads":
+        if run.backend not in ("threads", "spmd"):
             raise ValueError(f"unknown backend {run.backend!r}; expected "
                              f"'threads' or 'spmd'")
+        if run.backend == "spmd" and self.serve is not None:
+            raise NotImplementedError(
+                "serving on the pipelined spmd backend is the serve half of "
+                "ROADMAP Queue 1 item 9; serve Plans run backend='threads'")
         if cl.num_vw < 1:
             raise ValueError(f"num_vw must be >= 1, got {cl.num_vw}")
         if cl.speeds is not None and len(cl.speeds) != cl.num_vw:
@@ -240,13 +247,16 @@ class Plan:
         for name in ("stages", "tp", "data", "num_microbatches", "devices"):
             if getattr(p, name) < 0:
                 raise ValueError(f"partition.{name} must be >= 0")
-        if p.stages or p.tp or (p.data != 1 and self.serve is None):
+        if run.backend == "threads" and \
+                (p.stages or p.tp or (p.data != 1 and self.serve is None)):
             raise ValueError(
                 "PartitionSpec.stages/tp/data factor the spmd mesh; the "
                 "threads backend runs each VW's wave step whole (only "
                 "partition.num_microbatches applies; on a serve Plan "
                 "partition.data counts Router replicas) — unset them or "
                 "use backend='spmd'")
+        if run.backend == "spmd":
+            self._validate_spmd()
         self._validate_faults()
         if self.serve is not None:
             self._validate_serve()
@@ -271,6 +281,60 @@ class Plan:
                     "straggle_fns/fail_at simulate per-worker behavior in "
                     "the threaded PS runtime; the BSP loop models "
                     "heterogeneity through cluster.speeds only")
+
+    def _validate_spmd(self) -> None:
+        """The spmd backend's mesh and the knobs it would silently drop (the
+        JAX package's checks and messages)."""
+        cl, run, p = self.cluster, self.run, self.partition
+        if self.arch is None:
+            raise ValueError("the spmd backend builds the pipelined wave "
+                             "step from the architecture; Plan.arch is "
+                             "required")
+        model = self.stages * self.tp
+        if self.devices_needed % model:
+            raise ValueError(
+                f"stages*tp = {self.stages}*{self.tp} = {model} does not "
+                f"divide the device count {self.devices_needed}")
+        if p.data * model != self.devices_needed:
+            raise ValueError(
+                f"mesh data*stages*tp = {p.data}*{self.stages}*{self.tp} "
+                f"= {p.data * model} != devices {self.devices_needed}")
+        if isinstance(self.sync, WSP):
+            if self.sync.D != 0:
+                raise ValueError(
+                    "the spmd backend reduces every wave collectively "
+                    "(D = 0); true-async D > 0 needs backend='threads'")
+            if self.sync.async_push:
+                raise ValueError("async_push is a threads-backend knob; "
+                                 "spmd overlap is run.overlap (the skewed "
+                                 "pipeline schedule)")
+        elif not isinstance(self.sync, BSP):
+            raise ValueError(f"spmd backend supports WSP(D=0) or BSP, got "
+                             f"{self.sync.describe()}")
+        if self.shape is not None:
+            if self.shape.kind != "train":
+                raise ValueError(f"Engine.fit trains; shape kind "
+                                 f"{self.shape.kind!r} is a serving shape")
+            if self.shape.seq_len != run.seq or \
+                    self.shape.global_batch != p.data * run.batch:
+                raise ValueError(
+                    f"shape ({self.shape.global_batch}x"
+                    f"{self.shape.seq_len}) disagrees with run.batch*data x "
+                    f"run.seq ({p.data * run.batch}x{run.seq}); the loader "
+                    f"and the wave step must see the same shapes")
+        if run.codec is not None or run.compression_ratio is not None \
+                or cl.topology is not None:
+            raise ValueError(
+                "codec/compression_ratio/topology model the host-level PS "
+                "path; the spmd backend reduces in-graph — unset them or "
+                "use backend='threads'")
+        if cl.num_vw != 1 or cl.speeds is not None \
+                or cl.straggle_fns is not None or cl.fail_at:
+            raise ValueError(
+                "the spmd backend's DP width is partition.data and the mesh "
+                "is homogeneous; ClusterSpec heterogeneity knobs (num_vw/"
+                "speeds/straggle_fns/fail_at) only drive the threaded fleet "
+                "— unset them or use backend='threads'")
 
     def _validate_faults(self) -> None:
         """Fault scenarios are validated against the Plan they ride: event
@@ -318,12 +382,13 @@ class Plan:
                 f"{type(bad[0]).__name__} is a serving fault; this Plan "
                 f"trains — use the training events (LinkFault/WorkerCrash/"
                 f"WorkerSlowdown/PSStall) or set Plan.serve")
-        if isinstance(self.sync, BSP):
+        if run.backend != "threads" or isinstance(self.sync, BSP):
             raise ValueError(
                 "fault injection seams live in the threaded parameter-"
-                "server runtime (transport, PS, worker fleet); the BSP "
-                "backend has none of them — drop Plan.faults or use a WSP "
-                "policy")
+                "server runtime (transport, PS, worker fleet); the "
+                f"{'spmd' if run.backend != 'threads' else 'BSP'} backend "
+                f"has none of them — drop Plan.faults or use "
+                f"backend='threads' with a WSP policy")
         for ev in self.faults.of_type(WorkerCrash, WorkerSlowdown):
             if ev.vw >= cl.num_vw:
                 raise ValueError(

@@ -1,6 +1,6 @@
 """Named experiment presets: one-line access to the canonical train and
-serve scenarios (the threads-backend presets of repro.api.presets, over the
-same tiny config).
+serve scenarios (the presets of repro.api.presets, over the same tiny
+config; serve_spmd waits for the spmd backend's serve half).
 
     from repro_torch.api import Engine, get_preset
     report = Engine(get_preset("single_node")).fit()
@@ -96,6 +96,16 @@ def bsp_baseline() -> Plan:
                 cluster=ClusterSpec(num_vw=2, topology="2node"),
                 sync=BSP(),
                 run=RunSpec(max_waves=12, batch=8, seq=32))
+
+
+@preset("spmd_tiny")
+def spmd_tiny() -> Plan:
+    """The pipelined spmd wave path on a 1x1x1 mesh (one slot; grow
+    data/stages/tp, the slots wrapping over the card)."""
+    return Plan(arch=_tiny_arch(stages=1, tp=1),
+                partition=PartitionSpec(stages=1, tp=1, data=1),
+                sync=WSP(D=0),
+                run=RunSpec(backend="spmd", max_waves=8, batch=8, seq=32))
 
 
 @preset("serve_tiny")

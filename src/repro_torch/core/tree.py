@@ -24,20 +24,23 @@ def _children(node):
 def flatten_with_path(tree) -> list[tuple[str, Any]]:
     """[(path, leaf)] in jax.tree order; a path joins the dict keys and
     sequence indices with "/"."""
-    out = []
-
-    def walk(node, prefix):
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            out.append(("/".join(prefix), node))
-            return
-        for k, child in kids:
-            walk(child, prefix + [str(k)])
-
-    walk(tree, [])
+    out: list = []
+    _walk(tree, [], out)
     return out
+
+
+# module-level recursions: a nested recursive closure is a reference
+# cycle (function -> its cell -> function) that would keep the leaves it
+# saw alive until the cyclic garbage collector runs
+def _walk(node, prefix, out):
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        out.append(("/".join(prefix), node))
+        return
+    for k, child in kids:
+        _walk(child, prefix + [str(k)], out)
 
 
 def leaves(tree) -> list:
@@ -48,21 +51,21 @@ def unflatten_like(template, new_leaves):
     """A tree shaped like `template` whose leaves are `new_leaves`, taken
     in jax.tree order."""
     it = iter(new_leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            built = {k: build(node[k]) for k in sorted(node)}
-            return {k: built[k] for k in node}     # keep the caller's order
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(c) for c in node)
-        return next(it)
-
-    out = build(template)
+    out = _build(template, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the template holds")
     return out
+
+
+def _build(node, it):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        built = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: built[k] for k in node}         # keep the caller's order
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(c, it) for c in node)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest):

@@ -1,10 +1,12 @@
 """The training CLI — a thin layer over repro_torch.api (the port of
-repro.launch.train, --mode wsp).
+repro.launch.train).
 
   --mode wsp     threaded multi-VW WSP runtime with the parameter server
                  (true async D>=0, stragglers, checkpoint/restart); each
                  worker trains on --device, the PS keeps w_global on the host
-  --mode spmd    the pipelined multi-device backend: ROADMAP Queue 1 item 9
+  --mode spmd    the pipelined wave step over a --mesh data,stage,tp of
+                 slots (WSP D=0) on --device: one controller, the slots
+                 wrapping over the visible cards (or the CPU)
 
 Examples:
   python -m repro_torch.launch.train --mode wsp --device cpu --reduced \\
@@ -14,6 +16,8 @@ Examples:
   python -m repro_torch.launch.train --mode wsp --device cpu --reduced \\
       --waves 6 --num-vw 3 --D 1 --chaos 5 --trace t.json  # a chaos fleet
   python -m repro_torch.obs.summary t.json   # its trace, audited against D
+  python -m repro_torch.launch.train --mode spmd --device cpu --reduced \\
+      --waves 3 --mesh 2,2,2 --batch 8 --seq 32      # pipelined, 8 slots
 
 As in the JAX CLI, --reduced is a store_true flag: without it the arch
 trains at its real widths.
@@ -59,6 +63,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "in between; k>1 lets async pushes overlap)")
     ap.add_argument("--speeds", default=None,
                     help="comma-separated per-VW slowdowns (s/wave)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="spmd mode: accepted for the JAX CLI's sake (its "
+                         "fake host device count); the mesh's slots wrap "
+                         "over the visible devices, so it changes nothing")
+    ap.add_argument("--mesh", default="2,2,2",
+                    help="spmd mode: data,stage,tp")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome-trace-event JSON (Perfetto-"
                          "loadable) of the run, with the metrics snapshot "
@@ -70,6 +80,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "link outage on a push path, a slowdown onset and a "
                          "PS stall — with eviction + rejoin recovery "
                          "enabled; prints the run's fault digest")
+    ap.add_argument("--stall-grace-s", type=float, default=1.0,
+                    help="with --chaos: seconds a worker may lag the fleet "
+                         "by the eviction lag before it is evicted as "
+                         "stalled (FaultPolicy.stall_grace_s; the JAX CLI's "
+                         "1 s by default)")
     return ap
 
 
@@ -81,9 +96,9 @@ def main(argv=None):
         print("accepted --topology specs:")
         print(topology_help())
         return
-    if a.mode == "spmd":
-        raise SystemExit("--mode spmd (the pipelined multi-device backend) "
-                         "is ROADMAP Queue 1 item 9; use --mode wsp")
+    if a.mode == "spmd" and a.chaos is not None:
+        raise SystemExit("--chaos needs the threaded WSP runtime; "
+                         "use --mode wsp")
 
     import numpy as np
 
@@ -103,6 +118,8 @@ def main(argv=None):
                            head_dim=dm // heads if heads else 0)
     print(f"arch={cfg.name} params={cfg.param_count():,} (analytic) "
           f"device={a.device}")
+    if a.mode == "spmd":
+        return _spmd(a, cfg, tracer)
     if a.overlap and a.pull_every == 1:
         print("note: --overlap with --pull-every 1 serializes every push "
               "behind the following pull; use --pull-every > 1 to actually "
@@ -113,7 +130,8 @@ def main(argv=None):
         faults = FaultPlan.sample_train(a.chaos, num_vw=a.num_vw,
                                         max_waves=a.waves)
         fault_kwargs = dict(faults=faults, fault_policy=FaultPolicy(
-            evict_lag=1, rejoin_after_waves=1, allow_degraded=True))
+            evict_lag=1, rejoin_after_waves=1, allow_degraded=True,
+            stall_grace_s=a.stall_grace_s))
         print(f"chaos: {faults.describe()}")
     plan = Plan(
         arch=cfg,
@@ -154,6 +172,42 @@ def main(argv=None):
                    for k, v in rep.comm.get("bytes_by_link", {}).items()}
         print(f"network: modeled={rep.comm_seconds:.2f}s "
               f"bytes_by_link={by_link}")
+
+
+def _spmd(a, cfg, tracer):
+    """--mode spmd: one Engine over the (data, stage, tp) mesh."""
+    import torch
+
+    from repro_torch.api import Engine, PartitionSpec, Plan, RunSpec, WSP
+
+    if a.topology or a.codec or a.compression:
+        print("warning: --topology/--codec/--compression only apply to "
+              "--mode wsp; ignored in spmd mode", file=sys.stderr)
+    if a.devices:
+        print(f"note: --devices {a.devices} changes nothing here: the "
+              f"mesh's slots wrap over the visible devices",
+              file=sys.stderr)
+    dsz, ssz, tsz = (int(x) for x in a.mesh.split(","))
+    plan = Plan(
+        arch=cfg,
+        partition=PartitionSpec(data=dsz, stages=ssz, tp=tsz),
+        sync=WSP(D=0),
+        run=RunSpec(backend="spmd", max_waves=a.waves, batch=a.batch,
+                    seq=a.seq, optimizer=a.optimizer, lr=a.lr,
+                    overlap=a.overlap, resume=a.resume,
+                    ckpt_dir=a.ckpt_dir,
+                    ckpt_every=a.ckpt_every if a.ckpt_dir else 0))
+    eng = Engine(plan, tracer=tracer, device=a.device)
+    n_dev = torch.cuda.device_count() if eng.device.type == "cuda" else 1
+    print(f"mesh=({dsz},{ssz},{tsz}) devices={n_dev}")
+
+    def log(w, loss, dt):
+        if w % 5 == 0 or w == a.waves - 1:
+            print(f"wave {w:4d} loss={loss:.4f} ({dt:.2f}s)")
+
+    eng.fit(callback=log)
+    if a.trace:
+        print(f"trace: {tracer.export(a.trace)}")
 
 
 if __name__ == "__main__":

@@ -15,9 +15,14 @@ Conventions:
 `kind` is a Python int, so each layer runs one path and writes only the
 cache group it owns; the JAX package computes both under a `where` on a
 traced kind, which writes the same values.
+
+apply_layer_tp runs a training layer over tensor-parallel shards (the spmd
+backend's tp axis): the shards' attention and MLP partials are summed on
+the stage's device where the JAX package psums them over tp.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -306,6 +311,19 @@ def apply_layer(cfg: ArchConfig, p, x, ctx: LayerCtx, cache=None):
         att, cache = _attn_decode(cfg, p, xn, ctx, cache)
     else:
         att, cache = _attn_train(cfg, p, xn, ctx, cache)
+    return _finish_layer(cfg, p, x, xn, att, ctx, cache,
+                         lambda xn2: _mlp(cfg, p, xn2, ctx))
+
+
+def _mlp(cfg: ArchConfig, p, x, ctx: LayerCtx):
+    return _mlp_moe(cfg, p, x, ctx) if cfg.num_experts else \
+        _mlp_dense(cfg, p, x)
+
+
+def _finish_layer(cfg: ArchConfig, p, x, xn, att, ctx: LayerCtx, cache,
+                  mlp):
+    """The layer after its attention output `att`: the hybrid's SSD branch,
+    the sandwich norms, both residuals and the MLP (`mlp(xn2)`)."""
     if cfg.hybrid_parallel:
         sy, cache = _ssd_branch(cfg, {k[4:]: v for k, v in p.items()
                                       if k.startswith("ssd_")}, xn, ctx,
@@ -315,9 +333,51 @@ def apply_layer(cfg: ArchConfig, p, x, ctx: LayerCtx, cache=None):
     if cfg.norm_style == "rms_sandwich":
         att = rms_norm(att, p["ln1_post"], eps=cfg.norm_eps)
     x = x + att
-    xn2 = _norm(cfg, p, "ln2", x)
-    m = _mlp_moe(cfg, p, xn2, ctx) if cfg.num_experts else \
-        _mlp_dense(cfg, p, xn2)
+    m = mlp(_norm(cfg, p, "ln2", x))
     if cfg.norm_style == "rms_sandwich":
         m = rms_norm(m, p["ln2_post"], eps=cfg.norm_eps)
     return x + m, cache
+
+
+def _tp_sum(parts, device):
+    """The psum over tp: the shards' partials added on `device` (the
+    stage's), in shard order."""
+    out = parts[0].to(device)
+    for part in parts[1:]:
+        out = out + part.to(device)
+    return out
+
+
+def apply_layer_tp(cfg: ArchConfig, ps, x, ctx: LayerCtx):
+    """One training layer over tp shards: ps[t] holds shard t's per-layer
+    leaves (lm.shard_blocks), each on its slot's device; x lives on the
+    stage's device. As the JAX package's layer on each tp device: norm the
+    (replicated) x once, take each shard's attention partial and sum them
+    (the psum), add the residual; then the same for the dense or MoE MLP
+    partials. Leaves the spec keeps whole (norms, router, the SSD branch,
+    wk/wv when KV % tp != 0) are read from shard 0.
+
+    Every shard of a MoE layer routes the same tokens and computes the
+    same load-balancing loss; the JAX package sums aux over stages only,
+    so it counts once — here only shard 0 appends it to ctx.aux (trap Y2).
+    Where KV % tp != 0 each shard holds all KV heads beside its H/tp query
+    heads and groups them as the JAX device does (trap Y3). One shard is
+    apply_layer itself."""
+    if len(ps) == 1 or cfg.ssm_type == "rwkv6":
+        # RWKV6 leaves are never tp-split: every shard computes the layer
+        return apply_layer(cfg, ps[0], x, ctx)[0]
+    if ctx.mode != "train":
+        raise NotImplementedError(
+            "tensor-parallel prefill and decode are the serve half of the "
+            "spmd backend (ROADMAP Queue 1 item 9)")
+    devs = [next(iter(p.values())).device for p in ps]
+    xn = _norm(cfg, ps[0], "ln1", x)
+    att = _tp_sum([_attn_train(cfg, p, xn.to(d), ctx, None)[0]
+                   for p, d in zip(ps, devs)], x.device)
+    quiet = dataclasses.replace(ctx, aux=None)
+
+    def mlp(xn2):
+        return _tp_sum([_mlp(cfg, p, xn2.to(d), ctx if t == 0 else quiet)
+                        for t, (p, d) in enumerate(zip(ps, devs))], x.device)
+
+    return _finish_layer(cfg, ps[0], x, xn, att, ctx, None, mlp)[0]

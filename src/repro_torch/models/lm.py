@@ -1,5 +1,7 @@
-"""Model assembly: parameter init, per-layer metadata, the weight carrier
-from the JAX package, the loss, and the plain (non-pipelined) forward.
+"""Model assembly: parameter init and sharding specs, per-layer metadata,
+the weight carrier from the JAX package, the loss, the shard views and
+stage application of the spmd pipeline (core.wave), and the plain
+(non-pipelined) forward.
 
 Parameter layout (the JAX package's): block leaves are stacked over all
 layers on dim 0 with `padded_layers = stages * layer_slots` slots; the
@@ -8,6 +10,7 @@ for leaf (`params_from_numpy`).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -15,7 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.blocks import LayerCtx, apply_layer
+from repro_torch.models.blocks import (LayerCtx, apply_layer,
+                                       apply_layer_tp)
 from repro_torch.models.layers import (chunked_cross_entropy, layer_norm,
                                        rms_norm)
 
@@ -134,6 +138,40 @@ def _block_shapes(cfg: ArchConfig) -> dict[str, tuple[tuple, str]]:
     return out
 
 
+# the per-layer dim each block leaf splits over tp (the JAX package's
+# PartitionSpecs, lm.py _block_shapes); every other leaf is whole
+_TP_DIM = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "mlp_wi": 2, "mlp_wo": 0,
+           "moe_w_in": 3, "moe_w_out": 1}
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The JAX package's sharding specs as plain tuples: per leaf, one entry
+    per dim naming the mesh axis it is split over (None: whole). Block
+    leaves split their stacked layer dim over "stage" and, when cfg.tp > 1,
+    one dim over "tp" — wk / wv stay whole where KV % tp != 0 (trap Y3),
+    RWKV6 splits none. The embed and head carry JAX's ("stage", "tp") vocab
+    split, which only places them across devices; the port keeps both
+    whole on the data slot's first device (the numbers are the same)."""
+    tp = "tp" if cfg.tp > 1 else None
+    kv_tp = tp if cfg.num_kv_heads and cfg.num_kv_heads % cfg.tp == 0 \
+        else None
+    blocks = {}
+    for name, (shape, _) in sorted(_block_shapes(cfg).items()):
+        spec = [None] * len(shape)
+        dim = None if cfg.ssm_type == "rwkv6" else _TP_DIM.get(name)
+        if dim is not None:
+            spec[dim] = kv_tp if name in ("wk", "wv") else tp
+        blocks[name] = ("stage",) + tuple(spec)
+    specs = {"blocks": blocks, "final_norm": (None,)}
+    if cfg.norm_style == "ln_pre":
+        specs["final_norm_b"] = (None,)
+    if cfg.frontend == "none":
+        specs["embed"] = (("stage", "tp"), None)
+    if not cfg.tie_embeddings:
+        specs["head"] = (None, ("stage", "tp"))
+    return specs
+
+
 def _init_leaf(gen, shape, init, cfg: ArchConfig, dtype, device):
     if init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -227,6 +265,69 @@ def lm_loss(cfg: ArchConfig, params, hidden, labels, *, chunk=512):
     return chunked_cross_entropy(h, head_matrix(cfg, params), labels,
                                  chunk=min(chunk, h.shape[1]),
                                  valid_vocab=cfg.vocab_size)
+
+
+# ----------------------------------------------------------------------------
+# Shard views and stage application (the spmd pipeline, core.wave)
+# ----------------------------------------------------------------------------
+def shard_blocks(cfg: ArchConfig, blocks, mesh, data: int = 0):
+    """Each (stage, tp) slot's slice of the stacked block leaves, for data
+    slot `data` of `mesh` (a launch.mesh.Mesh whose last axes are stage and
+    tp): out[s][t] is the list, one entry per layer slot, of dicts leaf ->
+    that layer's slice, on the slot's device.
+
+    The stage slice is `layer_slots` rows of the stacked layer axis, the tp
+    slice a chunk of the dim the spec marks "tp" (a mesh tp above cfg.tp
+    == 1 gives every tp slot the whole leaf). Every slice is a view made by
+    one split / chunk / unbind per leaf, and a copy only where the slot's
+    device differs from the leaf's: autograd writes each leaf's grad once,
+    where indexing a layer per tick would add a full-size zero grad per
+    layer and tick (trap L4)."""
+    specs = param_specs(cfg)["blocks"]
+    devs = mesh.devices.reshape(-1, mesh.shape["stage"],
+                                mesh.shape["tp"])[data]
+    n_st, n_tp = devs.shape
+    sl = cfg.layer_slots
+    out = [[[{} for _ in range(sl)] for _ in range(n_tp)]
+           for _ in range(n_st)]
+    for name, leaf in blocks.items():
+        spec = specs[name]
+        tdim = spec.index("tp") if "tp" in spec else None
+        if tdim is not None and leaf.shape[tdim] % n_tp:
+            raise ValueError(f"{name} {tuple(leaf.shape)}: dim {tdim} does "
+                             f"not split over tp {n_tp}")
+        stage_views = leaf.split(sl)
+        if len(stage_views) != n_st:
+            raise ValueError(f"{name}: {len(stage_views)} stages of "
+                             f"{sl} slots against a mesh of {n_st} stages")
+        for s, sv in enumerate(stage_views):
+            parts = sv.chunk(n_tp, dim=tdim) if tdim is not None \
+                else [sv] * n_tp
+            for t, part in enumerate(parts):
+                for j, layer in enumerate(part.to(devs[s, t]).unbind(0)):
+                    out[s][t][j][name] = layer
+    return out
+
+
+def stage_apply(cfg: ArchConfig, stage_layers, x, meta_local,
+                ctx: LayerCtx):
+    """One pipeline stage in train mode: stage_layers[t] is tp shard t's
+    list of per-layer leaf dicts (shard_blocks(...)[s], or its first entry
+    alone when the layer runs whole), meta_local this stage's [slots]
+    arrays (kind, valid, full_i, win_i). Padded slots are skipped; the JAX
+    package computes them and masks the result out, which gives the same
+    x. MoE layers append their aux loss to ctx.aux. Returns x."""
+    uk = uniform_kind(cfg)
+    for j in range(cfg.layer_slots):
+        if uk is None and not meta_local["valid"][j]:
+            continue
+        ctx_j = dataclasses.replace(
+            ctx, kind=uk if uk is not None else int(meta_local["kind"][j]),
+            full_i=int(meta_local["full_i"][j]),
+            win_i=int(meta_local["win_i"][j]), ssm_i=j)
+        x = apply_layer_tp(cfg, [shard[j] for shard in stage_layers], x,
+                           ctx_j)
+    return x
 
 
 # ----------------------------------------------------------------------------

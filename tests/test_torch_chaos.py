@@ -306,12 +306,16 @@ def test_stop_serving_aborts_with_the_step(weights):
 
 def test_train_cli_chaos_and_summary(capsys, tmp_path):
     """launch/train.py --chaos SEED runs the seeded plan with eviction and
-    rejoin and prints its digest; the summary CLI audits its trace."""
+    rejoin and prints its digest; the summary CLI audits its trace. The CLI
+    runs the oracle's stall grace (POLICY's 5 s): under the 1 s default a
+    loaded box evicts a live worker as stalled (ROADMAP C1)."""
     from repro_torch.launch import train as cli
     from repro_torch.obs.summary import main as summary_main
     path = tmp_path / "chaos.json"
+    assert cli.build_parser().parse_args([]).stall_grace_s == 1.0
     cli.main(["--mode", "wsp", "--device", "cpu", "--reduced", "--waves",
               "6", "--num-vw", "3", "--D", "1", "--chaos", "5",
+              "--stall-grace-s", str(POLICY["stall_grace_s"]),
               "--time-scale", "0.001", "--trace", str(path)])
     out = capsys.readouterr().out
     digest = _fit(_sampled(5)).fit().fault_digest()

@@ -16,7 +16,8 @@ from repro.dist.topology import make_topology as j_make_topology
 from repro.dist.transport import NullTransport as JNullTransport
 from repro.dist.transport import SimulatedTransport as JSimulatedTransport
 import repro_torch.faults as tf
-from repro_torch.api import (BSP, ClusterSpec, Plan, RunSpec, ServeSpec, WSP)
+from repro_torch.api import (BSP, ClusterSpec, PartitionSpec, Plan, RunSpec,
+                             ServeSpec, WSP)
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.param_server import ParameterServer
@@ -135,9 +136,10 @@ def test_plan_validates_fault_scenarios():
     # only the threaded PS runtime has injection seams
     with pytest.raises(ValueError, match="BSP"):
         Plan(arch=CFG, sync=BSP(), faults=crash)
-    # the spmd backend is not ported (item 9) and is refused before faults
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Plan(arch=CFG, run=RunSpec(backend="spmd"), faults=crash)
+    # the spmd backend has no fault seams (JAX's message)
+    with pytest.raises(ValueError, match="spmd"):
+        Plan(arch=CFG, run=RunSpec(backend="spmd"), faults=crash,
+             partition=PartitionSpec(stages=2, tp=1, data=1, devices=2))
     # event indices must land inside the fleet / run
     with pytest.raises(ValueError, match="outside the fleet"):
         Plan(arch=CFG, cluster=ClusterSpec(num_vw=2),

@@ -70,7 +70,9 @@ def test_default_device_is_cuda_and_kernels_do_not_fall_back():
     "repro_torch.faults.plan", "repro_torch.faults.errors",
     "repro_torch.faults.injector", "repro_torch.faults.supervisor",
     "repro_torch.faults", "repro_torch.obs.summary",
-    "repro_torch.models.frontend"])
+    "repro_torch.models.frontend", "repro_torch.models.cnn",
+    "repro_torch.configs.paper_models", "repro_torch.launch.mesh",
+    "repro_torch.core.wave"])
 def test_copied_modules_stand_alone(module):
     """The modules copied from pure-Python JAX-package modules import in a
     fresh interpreter without jax or repro (they keep their own copy of

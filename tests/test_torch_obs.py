@@ -4,8 +4,8 @@ path, Chrome-trace export, the summary CLI (its lines equal the JAX
 package's on the same trace), the WSP staleness audit, Scheduler event
 invariants and the Telemetry helpers. On the CPU, at small sizes.
 
-test_obs.py's spmd case of the wait-seconds check belongs to the spmd
-backend, ROADMAP Queue 1 item 9, and is left out here.
+test_obs.py's spmd case of the wait-seconds check is in
+tests/test_torch_spmd_api.py, beside the spmd backend's other tests.
 """
 import json
 import time

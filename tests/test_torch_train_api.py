@@ -84,8 +84,15 @@ def test_plan_rejects_knobs_the_backend_would_drop():
         Plan(sync=BSP(), cluster=ClusterSpec(num_vw=2, fail_at={0: 1}))
     with pytest.raises(ValueError, match="spmd mesh"):
         Plan(arch=CFG, partition=PartitionSpec(stages=4, data=2))
+    # the spmd backend trains (its mesh validated as JAX's); serving on it
+    # is the serve half of item 9
+    plan = Plan(arch=CFG, run=RunSpec(backend="spmd"))
+    assert (plan.stages, plan.tp, plan.devices_needed) == (CFG.stages, 1, 2)
+    with pytest.raises(ValueError, match="reduces in-graph"):
+        Plan(arch=CFG, run=RunSpec(backend="spmd", codec="int8"))
     with pytest.raises(NotImplementedError, match="item 9"):
-        Plan(arch=CFG, run=RunSpec(backend="spmd"))
+        Plan(arch=CFG, run=RunSpec(backend="spmd"),
+             serve=ServeSpec(prompt_len=8, gen=4, max_batch=2))
     # a FaultPlan is accepted (validated against the Plan), a stand-in is
     # refused by type, and the serving-only ReplicaDown needs a fleet with
     # a survivor (and is refused on a train Plan)
@@ -398,5 +405,11 @@ def test_launch_train_wsp_routes_through_engine(capsys):
     assert "waves=2" in out and "last_loss=" in out and "push_ms=" in out
     train.main(["--topology", "list"])
     assert "<k>node[:LINK]" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="item 9"):
-        train.main(["--mode", "spmd", "--device", "cpu"])
+    # --mode spmd trains through the pipelined Engine, and refuses --chaos
+    # as the JAX CLI does
+    with pytest.raises(SystemExit, match="threaded WSP runtime"):
+        train.main(["--mode", "spmd", "--device", "cpu", "--chaos", "5"])
+    train.main(["--mode", "spmd", "--device", "cpu", "--reduced",
+                "--layers", "2", "--d-model", "32", "--waves", "1",
+                "--mesh", "1,2,1", "--batch", "4", "--seq", "16"])
+    assert "mesh=(1,2,1) devices=1" in capsys.readouterr().out
