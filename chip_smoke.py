@@ -106,8 +106,8 @@ Phases (each prints a line; any failure exits nonzero):
  16. train-parity: one wave of reduced qwen3-0.6b on the card against the
      same wave on the CPU in this process: loss, grads and adamw deltas;
  17. fleet: Engine.fit() at full width — single_node (2 VWs, WSP D 1) and
-     bsp_baseline (2 VWs), 4 waves each of batch 16 x seq 256 in 4-row
-     microbatches (Nm 4), and
+     bsp_baseline (2 VWs) on FLEET_LAYERS = 8 layers, 4 waves each of
+     batch 16 x seq 256 in 4-row microbatches (Nm 4), and
      paper_hetero (4 VWs, D 2, async push, pull_every 2) at qwen3's widths
      on 4 layers: per-VW wave ms, gate waits, overlap seconds, peak
      memory; the staleness audit (max distance <= D) holds and every loss
@@ -163,7 +163,7 @@ Phases (each prints a line; any failure exits nonzero):
      same way; the deadline policy's dispatch printed;
  24. spmd training: qwen3-0.6b at full width on the pipelined spmd
      backend, mesh (1, 4, 4) = 16 slots on the card (f32, TF32 off, batch
-     16 x seq 512, Nm 16; depth cut to SPMD_LAYERS = 8, 2 a stage): one
+     16 x seq 512, Nm 16; depth cut to SPMD_LAYERS = 4, 1 a stage): one
      sgd-0.1 step of build_train_step against build_local_wave_step(cfg,
      16) on the same params and batch (params within 1e-4), the overlap
      schedule against the base (loss equal, params within 1e-6 of each
@@ -176,7 +176,26 @@ Phases (each prints a line; any failure exits nonzero):
      profiled wave; then granite-moe-1b-a400m reduced on a (2, 2, 2) mesh
      of card slots against its local wave (the data axis and the MoE tp
      sum); no kernel launched in the phase;
- 25. one JSON line of per-kernel numbers.
+ 25. spmd serving: qwen3-0.6b at full width on the pipelined spmd
+     backend, mesh (1, 4, 4) = 16 slots on the card (bf16, kernels
+     "cuda"; depth cut to SPMD_SERVE_LAYERS = 4, 1 a stage):
+     Engine.generate of 8 x 128 + 32 over the per-slot contiguous caches
+     (flash_attention_fwd and flash_decode at one tp shard's 4 / 2 heads
+     of 128 and one-row microbatches: layers x 4 x 8 launches a step,
+     exact, all tc), then a profiled short run (device ops, idle share);
+     the paged Scheduler over 48 pages of 16 for 8 requests of 16-128 +
+     16 (flash_decode_paged over each (stage, tp) slot's own pool, exact):
+     decode step ms, mean TTFT, tok/s, peak pages, the pool and one slot's
+     pool bytes, peak device memory beside the card's name and power
+     limit; each of the three kernels against its plain version at the
+     shard shapes (the paged one over a slot's pool); the same requests
+     in f32 through the kernels against the plain spmd path and the
+     threads Engine (streams part only after a top-2 margin under
+     LOGIT_TOL, printed); then granite-moe-1b-a400m (grouped_matmul over
+     tp shards), rwkv6-3b (rwkv6_chunked) and hymba-1.5b (ssd_chunked
+     beside the attention kernels) reduced on a (1, 2, 2) mesh, their
+     launches exact and on their fast routes;
+ 26. one JSON line of per-kernel numbers.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script fails before printing any
 result. It imports neither jax nor the JAX package.
@@ -266,12 +285,21 @@ ROUTE_TOL = 1e-4                   # router logit K/K+1 margins counted as
 # and each greedy stream repeats its last prompt token, which would leave
 # the stream comparison of phase 4 nothing to compare.
 WEIGHT_SCALE = 10.0
-# phase 24's depth: qwen3-0.6b's width on all 16 slots of its 1 x 4 x 4
-# mesh, 2 layers a stage. The spmd wave is host-bound (~27.5 k device ops
-# a layer and wave); at all 28 layers a wave took 24.2 s and the phase
-# 328 s (PERF.md, train-spmd), too long beside the other phases in the time
-# limit; spmd_train_phase(dev, layers=None) runs the full depth.
-SPMD_LAYERS = 8
+# phases 24 and 25's depth: qwen3-0.6b's width on all 16 slots of its
+# 1 x 4 x 4 mesh, 1 layer a stage. The spmd wave and decode step are
+# host-bound (~27.5 k device ops a layer and train wave; a decode step is
+# 4 tp shards x 8 one-row microbatches of small ops a layer, ~2.5 k device
+# ops); at all 28 layers a wave took 24.2 s and the train phase 328 s, a
+# decode step 1.5-1.9 s (PERF.md, train-spmd and serve-spmd), too long
+# beside the other phases in the time limit; spmd_train_phase(dev,
+# layers=None) and spmd_serve_phase(dev, layers=None, checks=False) run
+# the full depth.
+SPMD_LAYERS = 4
+SPMD_SERVE_LAYERS = 4
+# phase 17's depth for single_node and bsp_baseline (full width; the
+# host-side PS and ring all-reduce copy every layer's deltas each wave):
+# at all 28 layers the two took 112 s on a slow host (PERF.md, fleet)
+FLEET_LAYERS = 8
 DENSE_MATS = ("wq", "wk", "wv", "wo", "mlp_wi", "mlp_wo")
 # bf16 greedy picks whose top-2 logit margin is under this (the kernels'
 # bf16 tolerance) count as near-ties in the chaos-serve comparison
@@ -540,10 +568,11 @@ def train_phases(dev):
     run = RunSpec(max_waves=4, batch=16, seq=256, optimizer="adamw",
                   lr=1e-3)
     part = PartitionSpec(num_microbatches=4)
+    qf = dataclasses.replace(q, num_layers=FLEET_LAYERS)
     fleet = [("single_node", get_preset("single_node").replace(
-                 arch=q, run=run, partition=part)),
+                 arch=qf, run=run, partition=part)),
              ("bsp_baseline", get_preset("bsp_baseline").replace(
-                 arch=q, run=run, partition=part)),
+                 arch=qf, run=run, partition=part)),
              ("paper_hetero", get_preset("paper_hetero").replace(
                  arch=dataclasses.replace(q, num_layers=4), run=run,
                  partition=part))]
@@ -958,6 +987,310 @@ def spmd_train_phase(dev, arch=None, layers=SPMD_LAYERS, card=""):
         f"margin {margin:.3e}; kernels launched in the phase: none; phase "
         f"{time.monotonic() - t_phase:.1f} s")
     free()
+
+
+def spmd_serve_phase(dev, arch=None, layers=SPMD_SERVE_LAYERS, card="",
+                     checks=True):
+    """Phase 25: spmd serving at full width (see the module docstring).
+    `arch` replaces qwen3-0.6b (a CPU rehearsal passes a reduced one);
+    `layers` cuts its depth (None: all of its layers); `card` is the
+    card's name and power limit as nvidia-smi gives them, printed beside
+    the phase's numbers; checks=False runs the bf16 generate and Scheduler
+    alone (the full-depth record). Returns {path: launches} of the measured
+    runs."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (Engine, PartitionSpec, Plan, RunSpec,
+                                 ServeSpec)
+    from repro_torch.api.serving import Request, Scheduler
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_paged)
+    from repro_torch.models import lm
+
+    def measured():
+        return dict(LAUNCHES, routes={n: dict(r) for n, r in ROUTES.items()})
+
+    def expect(tag, got, need, f32=False):
+        """`need` {kernel: launches}: exactly those, every other kernel
+        none, and (bf16) every launch on its fast route."""
+        for name in LAUNCHES:
+            if got[name] != need.get(name, 0):
+                raise AssertionError(f"serve-spmd {tag}: launches {got} "
+                                     f"against exactly {need}")
+            fast = sum(n for r, n in got["routes"].get(name, {}).items()
+                       if (r == "simt_f32" if f32 else
+                           r.startswith("tc") or r == "tile"))
+            if name in got["routes"] and fast != got[name]:
+                raise AssertionError(f"serve-spmd {tag}: {name} routes "
+                                     f"{got['routes'][name]}")
+
+    def scaled(a, seed, dtype, mats=DENSE_MATS):
+        """Seeded random params of `a` on the card, the block matrices
+        `mats` scaled by WEIGHT_SCALE, in `dtype`."""
+        p = lm.init_params(a, torch.Generator(device=dev).manual_seed(seed),
+                           dtype=torch.float32, device=dev)
+        for name in mats:
+            p["blocks"][name].mul_(WEIGHT_SCALE)
+        return {k: ({n: t.to(dtype) for n, t in v.items()}
+                    if k == "blocks" else v.to(dtype)) for k, v in p.items()}
+
+    def err_max(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    class Margins(Scheduler):
+        """Records each greedy pick's top-2 logit margin, keyed (rid, k)."""
+
+        def __init__(self, engine):
+            super().__init__(engine)
+            self.margins = {}
+
+        def _pick_one(self, row, rid, k):
+            top = np.partition(row, -2)[-2:]
+            self.margins[(rid, k)] = float(top[1] - top[0])
+            return super()._pick_one(row, rid, k)
+
+    def streams_held(tag, got, oracle):
+        """got's streams equal the oracle's (a Margins run) but after a
+        step whose oracle top-2 margin is under LOGIT_TOL; returns the
+        divergences and the smallest margin."""
+        parted = 0
+        for a, b in zip(got.requests, oracle.requests):
+            if a.tokens != b.tokens:
+                k = next(i for i, (x, y) in enumerate(zip(a.tokens,
+                                                          b.tokens)) if x != y)
+                m = oracle_margins[tag][(b.rid, k)]
+                if m >= LOGIT_TOL:
+                    raise AssertionError(
+                        f"serve-spmd f32 {tag}: rid {a.rid} parts at token "
+                        f"{k}, top-2 margin {m:.3e} >= {LOGIT_TOL}")
+                log("serve-spmd", f"f32 {tag}: rid {a.rid} parts at token "
+                    f"{k} after a top-2 margin of {m:.3e} (< {LOGIT_TOL})")
+                parted += 1
+        return parted
+
+    t_phase = time.monotonic()
+    q = arch or ARCHS["qwen3-0.6b"]
+    depth = q.num_layers
+    if layers is not None:
+        q = dataclasses.replace(q, num_layers=layers)
+    S_, T_ = q.stages, q.tp
+    part = PartitionSpec(stages=S_, tp=T_, data=1)
+    spmd = RunSpec(backend="spmd", compute_dtype="bfloat16")
+    gen_sv = ServeSpec(prompt_len=128, gen=32, max_batch=8,
+                       kernel_backend="cuda")
+    sch_sv = ServeSpec(prompt_len=128, gen=16, max_batch=8, page_size=16,
+                       max_pages=48, kernel_backend="cuda")
+    nm = min(q.num_microbatches, gen_sv.max_batch)
+    per = q.num_layers * T_ * nm          # launches a prefill / decode step
+    rng = np.random.default_rng(25)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, q.vocab_size, int(rng.integers(16, 129)), dtype=np.int32))
+        for i in range(8)]
+    held = torch.cuda.memory_allocated(dev)
+    p16 = scaled(q, 25, torch.bfloat16)
+    out = {}
+    shape = (f"{q.name} full width ({q.num_layers} of its {depth} layers, "
+             f"{q.layer_slots} a stage; d {q.d_model}, "
+             f"{q.num_heads}/{q.num_kv_heads} heads of {q.head_dim}, vocab "
+             f"{q.vocab_size}) on mesh (1, {S_}, {T_}), Nm {nm}, bf16")
+
+    # ---- 25a. Engine.generate, contiguous cache --------------------------
+    plan = Plan(arch=q, run=spmd, partition=part, serve=gen_sv)
+    eng = Engine(plan, params=p16, device=dev)
+    Engine(plan.replace(serve__gen=2), params=p16, device=dev).generate()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    rep = eng.generate()
+    torch.cuda.synchronize()
+    got = measured()
+    expect("generate", got, {"flash_attention_fwd": per,
+                             "flash_decode": per * rep.decode_steps})
+    if rep.tokens.shape != (8, 32) or not (
+            (rep.tokens >= 0) & (rep.tokens < q.vocab_size)).all():
+        raise AssertionError(f"serve-spmd generate: tokens {rep.tokens}")
+    out[f"{q.name} generate-spmd"] = got
+    log("serve-spmd", f"{shape}; {card}: generate 8 x 128 + 32: prefill "
+        f"{rep.prefill_s * 1e3:.1f} ms, decode step {rep.ms_per_token():.2f}"
+        f" ms over {rep.decode_steps} steps, {rep.tokens_per_s():.1f} tok/s;"
+        f" launches a step: {per} flash_decode, the prefill {per} "
+        f"flash_attention_fwd (exact, all tc); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} above "
+        f"the {held / 2**30:.2f} held before the phase)")
+    profile_run("serve-spmd: Engine.generate, batch 8 x 4 tokens",
+                Engine(plan.replace(serve__gen=4), params=p16,
+                       device=dev).generate, cpu=False)
+    del eng, rep
+
+    # ---- 25b. the paged Scheduler ----------------------------------------
+    plan_s = plan.replace(serve=sch_sv)
+    eng = Engine(plan_s, params=p16, device=dev)
+    Scheduler(eng).run([Request(100 + i, r.prompt, max_new_tokens=2)
+                        for i, r in enumerate(reqs[:2])])
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    rep = Scheduler(eng).run([Request(r.rid, r.prompt) for r in reqs])
+    torch.cuda.synchronize()
+    got = measured()
+    expect("Scheduler", got, {
+        "flash_attention_fwd": per * rep.prefill_calls,
+        "flash_decode_paged": per * rep.decode_steps})
+    toks = [t for r in rep.requests for t in r.tokens]
+    if rep.tokens_out != 8 * 16 or not all(0 <= t < q.vocab_size
+                                           for t in toks):
+        raise AssertionError(f"serve-spmd Scheduler: {rep.tokens_out} "
+                             f"tokens")
+    out[f"{q.name} serve-spmd"] = got
+    store = eng.serve_store()
+    stats = store.stats()
+    slot = store.tree[0][0][0]["kv_full"]
+    slot_bytes = sum(t.numel() * t.element_size() for t in slot)
+    log("serve-spmd", f"{shape}; {card}: Scheduler, 8 requests of 16-128 "
+        f"+ 16 tokens over 48 pages of 16: {rep.tokens_out} tokens "
+        f"({len(set(toks))} distinct) in {rep.wall_s:.3f} s = "
+        f"{rep.tokens_per_s():.1f} tok/s; decode step "
+        f"{rep.ms_per_token():.2f} ms over {rep.decode_steps} steps; mean "
+        f"TTFT {rep.mean_ttft() * 1e3:.1f} ms over {rep.prefill_calls} "
+        f"prefill groups ({rep.prefill_s / rep.prefill_calls * 1e3:.1f} ms "
+        f"each); peak pages {rep.peak_pages}/{rep.pages_total}; pool "
+        f"{stats['pool_bytes'] / 2**20:.2f} MiB, one (stage, tp) slot's "
+        f"K + V pools {slot_bytes / 2**20:.3f} MiB ({slot[0].shape[0]} "
+        f"layer groups x {tuple(slot[0].shape[1:])}); launches {per} a "
+        f"step / prefill group (exact, all tc); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not checks:
+        log("serve-spmd", f"phase {time.monotonic() - t_phase:.1f} s")
+        return out
+
+    # ---- 25c. each kernel against its plain version at the shard shapes --
+    errs = {}
+    kp, vp = slot
+    for t_ in (kp, vp):
+        t_.normal_()
+    store.alloc(0, 144)
+    tab = store.tree[0][0][0]["block_tab"][:1]
+    g = torch.Generator(device=dev).manual_seed(26)
+    hq, hkv, hd = q.num_heads // T_, q.num_kv_heads // T_, q.head_dim
+    q1 = torch.randn((1, hq, hd), generator=g, device=dev).to(torch.bfloat16)
+    for n in (1, 77, 144):
+        lens = torch.tensor([n], dtype=torch.int32, device=dev)
+        for layer in range(kp.shape[0]):
+            e = err_max(flash_decode_paged(q1, kp, vp, tab, lens,
+                                           layer=layer),
+                        kref.decode_paged_ref(q1, kp, vp, tab, lens,
+                                              layer=layer))
+            errs["flash_decode_paged"] = max(errs.get(
+                "flash_decode_paged", 0.0), e)
+    grp = torch.randn((2, 8, 160, hkv, hd), generator=g,
+                      device=dev).to(torch.bfloat16)
+    kc, vc = grp[0, 5:6].transpose(1, 2), grp[1, 5:6].transpose(1, 2)
+    lens = torch.tensor([133], dtype=torch.int32, device=dev)
+    errs["flash_decode"] = err_max(flash_decode(q1, kc, vc, lens),
+                                   kref.decode_ref(q1, kc, vc, lens))
+    qa = torch.randn((1, 128, hq, hd), generator=g,
+                     device=dev).to(torch.bfloat16).transpose(1, 2)
+    ka = torch.randn((1, 128, hkv, hd), generator=g,
+                     device=dev).to(torch.bfloat16).transpose(1, 2)
+    errs["flash_attention_fwd"] = err_max(
+        flash_attention_fwd(qa, ka, ka), kref.attention_ref(qa, ka, ka))
+    if max(errs.values()) > TOL["bfloat16"]:
+        raise AssertionError(f"serve-spmd: kernels vs plain at the shard "
+                             f"shapes {errs}")
+    log("serve-spmd", f"kernels vs plain at one shard's shapes (q {hq} / "
+        f"kv {hkv} x {hd}, 1 row; the paged decode over slot (0, 0)'s own "
+        f"pool, every layer group, lengths 1 / 77 / 144): max |kernel - "
+        f"plain| {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} "
+        f"(tolerance {TOL['bfloat16']})")
+    del eng, store, slot, kp, vp, grp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 25d. f32: kernels against the plain spmd path and threads -------
+    p32 = scaled(q, 25, torch.float32)
+    plan32 = plan_s.replace(run=RunSpec(backend="spmd",
+                                        compute_dtype="float32"))
+    oracle_margins = {}
+    reset_launches()
+    got_k = Scheduler(Engine(plan32, params=p32, device=dev)).run(
+        [Request(r.rid, r.prompt) for r in reqs])
+    torch.cuda.synchronize()
+    f32_launches = measured()
+    expect("f32", f32_launches, {
+        "flash_attention_fwd": per * got_k.prefill_calls,
+        "flash_decode_paged": per * got_k.decode_steps}, f32=True)
+    parted = {}
+    for tag, p in (("spmd ref", plan32.replace(
+            serve__kernel_backend="ref")), ("threads", plan32.replace(
+                run=RunSpec(compute_dtype="float32"),
+                partition=PartitionSpec(), serve__kernel_backend="ref"))):
+        sch = Margins(Engine(p, params=p32, device=dev))
+        oracle = sch.run([Request(r.rid, r.prompt) for r in reqs])
+        oracle_margins[tag] = sch.margins
+        parted[tag] = streams_held(tag, got_k, oracle)
+    log("serve-spmd", f"f32, the same requests through the kernels on the "
+        f"spmd Engine ({got_k.decode_steps} decode steps, launches exact on "
+        f"simt_f32) against the plain spmd path and the threads Engine: "
+        + "; ".join(f"{tag}: {8 - n}/8 streams identical, smallest top-2 "
+                    f"margin {min(oracle_margins[tag].values()):.3e}"
+                    for tag, n in parted.items()))
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 25e. the other kernels, reduced, on a (1, 2, 2) mesh -------------
+    # widths the scan kernels take (WKV heads of 64; SSD heads of 64,
+    # state 16); need(L layers, Lf full-attention layers, Nm, report): the
+    # exact launches (tp 2; the RWKV6 layers and the SSD branch run once)
+    for name, over, mats, need in (
+            ("granite-moe-1b-a400m", {"capacity_factor": 8.0}, GRANITE_MATS,
+             lambda L, Lf, n, r: {
+                 "grouped_matmul": 2 * L * 2 * n * (r.prefill_calls
+                                                    + r.decode_steps),
+                 "flash_attention_fwd": L * 2 * n * r.prefill_calls,
+                 "flash_decode_paged": L * 2 * n * r.decode_steps}),
+            ("rwkv6-3b", {"d_model": 128}, RWKV_MATS, lambda L, Lf, n, r: {
+                "rwkv6_chunked": L * n * r.prefill_calls}),
+            ("hymba-1.5b", {"ssm_state": 16}, HYMBA_MATS,
+             lambda L, Lf, n, r: {
+                "ssd_chunked": L * n * r.prefill_calls,
+                "flash_attention_fwd": Lf * 2 * n * r.prefill_calls,
+                "flash_decode_paged": Lf * 2 * n * r.decode_steps})):
+        a = reduced(ARCHS[name], stages=2, tp=2, num_microbatches=2,
+                    num_layers=4, **over)
+        pa = scaled(a, 27, torch.bfloat16, mats)
+        sv = ServeSpec(prompt_len=32, gen=8, max_batch=4, page_size=8,
+                       max_pages=24, kernel_backend="cuda")
+        rq = [Request(rid=i, prompt=rng.integers(
+            0, a.vocab_size, int(rng.integers(4, 33)), dtype=np.int32))
+            for i in range(6)]
+        ea = Engine(Plan(arch=a, run=spmd, serve=sv, partition=PartitionSpec(
+            stages=2, tp=2, data=1)), params=pa, device=dev)
+        Scheduler(ea).run([Request(50, rq[0].prompt, max_new_tokens=2)])
+        reset_launches()
+        ra = Scheduler(ea).run(rq)
+        torch.cuda.synchronize()
+        got = measured()
+        full = sum(1 for k in a.layer_kinds() if k == 0) \
+            if a.attn_type != "none" else 0
+        want = need(a.num_layers, full, 2, ra)
+        expect(name, got, want)
+        out[f"{name} serve-spmd (reduced, 1 x 2 x 2)"] = got
+        log("serve-spmd", f"{name} reduced ({a.num_layers} layers, d "
+            f"{a.d_model}) on mesh (1, 2, 2), bf16 through the kernels: "
+            f"{ra.tokens_out} tokens, {ra.prefill_calls} prefill groups, "
+            f"{ra.decode_steps} decode steps; launches "
+            f"{ {k: got[k] for k in want} } (exact, fast routes)")
+        del ea, pa
+    log("serve-spmd", f"phase {time.monotonic() - t_phase:.1f} s")
+    return out
 
 
 def cluster_phase(dev, arch=None):
@@ -2919,7 +3252,11 @@ def main() -> int:
     free_device()
     spmd_train_phase(dev, card=smi)
 
-    # ---- 25. the kernels line ------------------------------------------
+    # ---- 25. spmd serving at full width ----------------------------------
+    free_device()
+    sp_launches = spmd_serve_phase(dev, card=smi)
+
+    # ---- 26. the kernels line ------------------------------------------
     src = {"flash_attention_fwd": ("src/repro_torch/kernels/csrc/"
                                    "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:94"),
@@ -2947,7 +3284,8 @@ def main() -> int:
              "gemma3-1b serve": g3_launches,
              "minitron-8b serve": mt_launches,
              "musicgen-medium generate": mg_launches,
-             "qwen3-0.6b serve-cluster (3 replicas)": cl_launches}
+             "qwen3-0.6b serve-cluster (3 replicas)": cl_launches,
+             **sp_launches}
     power = smi.split(",")[-1].strip()
     kernels = []
     for name in ("flash_decode_paged", "flash_attention_fwd",

@@ -23,8 +23,9 @@ and each wave's deltas and pulls cross in one flat copy
 (runtime.staging). Training runs f32 (the JAX threads path never casts,
 trap T8).
 
-Serve-mode Plans (Plan.serve = ServeSpec) run on the threads backend
-through the non-pipelined `lm.forward_ref` cache path:
+Serve-mode Plans (Plan.serve = ServeSpec) run with the same dispatch rule.
+On the threads backend they run the non-pipelined `lm.forward_ref` cache
+path:
 
   prefill() / decode() / generate()   one aligned batch over the contiguous
                                       cache (with kernel_backend="cuda":
@@ -57,8 +58,15 @@ torch.inference_mode(), writing the caches in place. Entry points run on
 the CUDA card unless the caller passes device="cpu" — then the kernels'
 wrappers take their plain PyTorch versions. A fleet of serve replicas is
 repro_torch.serve.router's Router, one Engine a replica over one shared
-params dict. Serving on the spmd backend is the serve half of ROADMAP
-Queue 1 item 9.
+params dict.
+
+On the spmd backend the same surface runs the pipelined serve steps
+(core.wave.build_prefill_step / build_decode_step) over a (1, stage, tp)
+mesh of slots on the Engine's device: params for the stage-replaced arch
+(`_model_arch`), their shard views made once, and every cache placed per
+slot (serve.cache.shard_cache; the CacheStore holds one contiguous pool
+per (stage, tp) slot). With kernel_backend="cuda" each tp shard of each
+microbatch launches the attention kernels at its own heads and rows.
 """
 from __future__ import annotations
 
@@ -398,7 +406,11 @@ class Engine:
             st["params"] = self._params = self._spmd_params()
             st["opt_state"] = self._optimizer.init(st["params"])
         if self._serve is not None:
-            self._serve["params"] = self._params
+            st = self._serve
+            st["params"] = self._params
+            if st["mesh"] is not None:     # the steps' shard views, anew
+                st["shards"][0] = lm.shard_blocks(
+                    st["cfg"], self._params["blocks"], st["mesh"], 0)
         return meta
 
     # ------------------------------------------------------------------
@@ -648,16 +660,10 @@ class Engine:
             return
         from repro_torch.configs.base import RunConfig, ShapeConfig
         from repro_torch.core import wave
-        from repro_torch.launch.mesh import make_mesh_auto
 
         plan, run = self.plan, self.plan.run
         dsz = plan.partition.data
-        # the default card means every visible CUDA device; slots wrap
-        # over them (trap Y1), so no device count is refused
-        devices = None if self.device == torch.device("cuda") \
-            else self.device
-        mesh = make_mesh_auto((dsz, plan.stages, plan.tp),
-                              ("data", "stage", "tp"), devices)
+        mesh = self._mesh(dsz)
         self._ensure_model()           # params for the stage-replaced arch
         shape = plan.shape or ShapeConfig("plan", run.seq, run.batch * dsz,
                                           "train")
@@ -675,6 +681,16 @@ class Engine:
         st = self._spmd
         st["params"] = self._params = self._spmd_params()
         st["opt_state"] = self._optimizer.init(st["params"])
+
+    def _mesh(self, data: int):
+        """A (data, stages, tp) mesh of slots over this Engine's device:
+        the default card means every visible CUDA device, and the slots
+        wrap over them (trap Y1), so no device count is refused."""
+        from repro_torch.launch.mesh import make_mesh_auto
+        devices = None if self.device == torch.device("cuda") \
+            else self.device
+        return make_mesh_auto((data, self.plan.stages, self.plan.tp),
+                              ("data", "stage", "tp"), devices)
 
     def _spmd_params(self):
         """self._params as f32 tensors on the mesh's first slot's device:
@@ -743,53 +759,120 @@ class Engine:
                              f"unset — give the Plan a ServeSpec")
 
     def _ensure_serve(self):
+        """Build the serve executors the Plan names: the pipelined mesh
+        steps (backend='spmd', core.wave.build_prefill_step /
+        build_decode_step over a (1, stage, tp) mesh of this Engine's
+        device) or the forward_ref cache path (threads)."""
         if self._serve is not None:
             return
         plan, run, sv = self.plan, self.plan.run, self.plan.serve
-        cfg = plan.arch
+        cfg = self._model_arch()
         cdt, cache_dt = cache_lib.serve_dtypes(run.compute_dtype,
                                                sv.cache_dtype)
         if self._params is None:
             gen = torch.Generator(device=self.device).manual_seed(run.seed)
             self._params = lm.init_params(cfg, gen, dtype=cdt,
                                           device=self.device)
-        pre_fn, dec_fn = _ref_serve_steps(cfg, sv.kernel_backend)
         self._serve = {"cfg": cfg, "params": self._params,
-                       "prefill": pre_fn, "decode": dec_fn,
-                       "cache_dt": cache_dt, "dtype": cdt}
+                       "cache_dt": cache_dt, "dtype": cdt, "mesh": None}
+        if run.backend != "spmd":
+            self._serve["prefill"], self._serve["decode"] = \
+                _ref_serve_steps(cfg, sv.kernel_backend)
+            return
+        from repro_torch.core import wave
+        mesh = self._serve["mesh"] = self._mesh(1)
+        self._serve["shards"] = [lm.shard_blocks(cfg, self._params["blocks"],
+                                                 mesh, 0)]
+        rc_pre, rc_dec = self._serve_runs(cfg)
+        pre, _, _ = wave.build_prefill_step(rc_pre, mesh,
+                                            cache_len=sv.max_len)
+        dec, _, self._serve["cspecs"] = wave.build_decode_step(
+            rc_dec, mesh, pos_per_row=True)
+        self._serve["prefill"], self._serve["decode"] = \
+            self._spmd_serve_steps(pre, dec, paged=False)
+
+    def _serve_runs(self, cfg):
+        """The RunConfigs of the spmd prefill (prompt_len x max_batch) and
+        decode (max_len x max_batch) steps."""
+        from repro_torch.configs.base import RunConfig, ShapeConfig
+        run, sv = self.plan.run, self.plan.serve
+        common = dict(arch=cfg, optimizer=run.optimizer, lr=run.lr,
+                      weight_decay=run.weight_decay,
+                      compute_dtype=run.compute_dtype,
+                      cache_dtype=sv.cache_dtype, overlap=run.overlap,
+                      kernel_backend=sv.kernel_backend)
+        return (RunConfig(shape=ShapeConfig("serve_prefill", sv.prompt_len,
+                                            sv.max_batch, "prefill"),
+                          **common),
+                RunConfig(shape=ShapeConfig("serve_decode", sv.max_len,
+                                            sv.max_batch, "decode"),
+                          **common))
+
+    def _spmd_serve_steps(self, pre, dec, *, paged: bool):
+        """The spmd steps called as the threads ones are (prefill (params,
+        prompts[, lens], cache); decode (params, tokens, cache, pos)), over
+        the shard views of the params made once in _ensure_serve: the
+        params are in the compute dtype already (T8), so a step copies no
+        weight."""
+        shards = self._serve["shards"]
+
+        def pre_fn(params, prompts, *rest):     # (cache) or (lens, cache)
+            batch = {"inputs": prompts, "cache": rest[-1]}
+            if paged:
+                batch["lens"] = rest[0]
+            return pre(params, batch, shards)
+
+        def dec_fn(params, tokens, cache, pos):
+            return dec(params, {"inputs": tokens, "cache": cache,
+                                "pos": pos}, shards)
+
+        return pre_fn, dec_fn
 
     def _ensure_serve_store(self):
         if self._serve_paged is not None:
             return
         self._ensure_serve()
-        sv = self.plan.serve
+        st, sv = self._serve, self.plan.serve
         layout = cache_lib.make_layout(sv.max_batch, sv.max_len,
                                        page_size=sv.page_size,
                                        max_pages=sv.max_pages)
-        pre_fn, dec_fn = _ref_paged_steps(self._serve["cfg"],
-                                          sv.kernel_backend)
+        if st["mesh"] is None:
+            pre_fn, dec_fn = _ref_paged_steps(st["cfg"], sv.kernel_backend)
+        else:
+            from repro_torch.core import wave
+            rc_pre, rc_dec = self._serve_runs(st["cfg"])
+            pre, _, _ = wave.build_prefill_step(rc_pre, st["mesh"],
+                                                layout=layout, var_len=True)
+            dec, _, _ = wave.build_decode_step(rc_dec, st["mesh"],
+                                               pos_per_row=True,
+                                               layout=layout)
+            pre_fn, dec_fn = self._spmd_serve_steps(pre, dec, paged=True)
         self._serve_paged = {"layout": layout, "prefill": pre_fn,
                              "decode": dec_fn}
 
     def serve_store(self) -> cache_lib.CacheStore:
         """A fresh CacheStore (empty page pool) for this Plan's serve
-        shapes on this Engine's device."""
+        shapes on this Engine's device (spmd: one pool per mesh slot)."""
         self._require_serve("serve_store")
         self._ensure_serve_store()
         return cache_lib.CacheStore(self._serve["cfg"],
                                     self._serve_paged["layout"],
                                     dtype=self._serve["cache_dt"],
-                                    device=self.device)
+                                    device=self.device,
+                                    mesh=self._serve["mesh"])
 
     def serve_cache(self):
         """A blank contiguous cache for max_batch requests of up to
         serve.max_len positions."""
         self._require_serve("serve_cache")
         self._ensure_serve()
-        sv = self.plan.serve
-        return cache_lib.init_cache(self._serve["cfg"], sv.max_batch,
-                                    sv.max_len, dtype=self._serve["cache_dt"],
-                                    device=self.device)
+        st, sv = self._serve, self.plan.serve
+        cache = cache_lib.init_cache(st["cfg"], sv.max_batch, sv.max_len,
+                                     dtype=st["cache_dt"], device=self.device)
+        if st["mesh"] is None:
+            return cache
+        return cache_lib.shard_cache(st["cfg"], cache, st["mesh"],
+                                     st["cspecs"])
 
     def _tokens(self, x, what: str):
         """Token ids, or [B, S, d_model] embeddings (stub-frontend archs,

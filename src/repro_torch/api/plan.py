@@ -15,9 +15,10 @@ ride. A serve Plan with `partition.data` > 1 is a fleet of replicas
 (`ServeSpec.replicas` sizes each one) run by repro_torch.serve.router's
 Router, its dispatch priced by `cluster.topology`. `run.backend="spmd"`
 trains through the pipelined wave step (core.wave.build_train_step) over a
-(data, stage, tp) mesh factored by the PartitionSpec, at WSP(D=0) or BSP;
-a serve Plan on the spmd backend raises NotImplementedError naming its
-ROADMAP item (Queue 1 item 9, the serve half).
+(data, stage, tp) mesh factored by the PartitionSpec, at WSP(D=0) or BSP,
+and serves through the pipelined prefill / decode steps
+(core.wave.build_prefill_step / build_decode_step) over a (1, stage, tp)
+mesh: one replica, its batch whole on the mesh.
 """
 from __future__ import annotations
 
@@ -206,10 +207,6 @@ class Plan:
         if run.backend not in ("threads", "spmd"):
             raise ValueError(f"unknown backend {run.backend!r}; expected "
                              f"'threads' or 'spmd'")
-        if run.backend == "spmd" and self.serve is not None:
-            raise NotImplementedError(
-                "serving on the pipelined spmd backend is the serve half of "
-                "ROADMAP Queue 1 item 9; serve Plans run backend='threads'")
         if cl.num_vw < 1:
             raise ValueError(f"num_vw must be >= 1, got {cl.num_vw}")
         if cl.speeds is not None and len(cl.speeds) != cl.num_vw:
@@ -476,6 +473,19 @@ class Plan:
                 "partition.data + ServeSpec.replicas, and cluster.topology "
                 "alone prices the Router's dispatch — unset the rest")
         p = self.partition
+        if run.backend == "spmd":
+            if p.data != 1 or sv.replicas:
+                raise ValueError(
+                    "spmd serve batches live whole on the model (stage x "
+                    "tp) mesh; data-parallel serve replicas are threads-"
+                    "backend only for now — set partition.data=1 (and drop "
+                    "ServeSpec.replicas) or use backend='threads'")
+            if cl.topology is not None:
+                raise ValueError(
+                    "cluster.topology prices the Router's dispatch over "
+                    "threads-backend serve replicas; the spmd mesh is a "
+                    "single replica — unset it")
+            return
         if p.data < 1:
             raise ValueError(
                 f"partition.data counts the Router's serve replicas and "

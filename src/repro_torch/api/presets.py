@@ -1,6 +1,6 @@
 """Named experiment presets: one-line access to the canonical train and
 serve scenarios (the presets of repro.api.presets, over the same tiny
-config; serve_spmd waits for the spmd backend's serve half).
+config).
 
     from repro_torch.api import Engine, get_preset
     report = Engine(get_preset("single_node")).fit()
@@ -114,6 +114,16 @@ def serve_tiny() -> Plan:
     Engine.generate(), or continuous batching via repro_torch.api.serving)."""
     return Plan(arch=_tiny_arch(),
                 serve=ServeSpec(prompt_len=8, gen=8, max_batch=4))
+
+
+@preset("serve_spmd")
+def serve_spmd() -> Plan:
+    """The pipelined serve steps on a (1, 2, 1) mesh (its slots wrap over
+    the Engine's device)."""
+    return Plan(arch=_tiny_arch(num_layers=2),
+                partition=PartitionSpec(stages=2, tp=1, data=1),
+                serve=ServeSpec(prompt_len=8, gen=8, max_batch=4),
+                run=RunSpec(backend="spmd"))
 
 
 @preset("serve_paged")

@@ -27,8 +27,10 @@ is the gradient all-reduce; across devices the .to() copies' backward is).
 
 Bubble ticks and padded layer slots are skipped in Python; JAX computes
 masked garbage there and discards it with a `where`, so the results are
-the same. The serve steps (build_prefill_step, build_decode_step) are the
-serve half of ROADMAP Queue 1 item 9.
+the same. The serve steps (build_prefill_step, build_decode_step) run
+the same tick loop with the cache riding along: each (stage, tp) slot owns
+its cache (serve.cache.shard_cache), and a live tick computes on the
+microbatch's rows of it in place.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ from repro_torch.models import lm
 from repro_torch.models.blocks import LayerCtx
 from repro_torch.models.layers import chunked_cross_entropy
 from repro_torch.optim import make_optimizer
+from repro_torch.serve import cache as cache_lib
 
 S_AX, T_AX, D_AX = "stage", "tp", "data"
 
@@ -78,30 +81,40 @@ def n_dp(mesh) -> int:
 # one data slot's pipeline
 # ----------------------------------------------------------------------------
 def pipeline_wave(cfg: ArchConfig, shards, x_local, meta, *, mode: str,
-                  nm: int, remat: bool = False, overlap: bool = False):
+                  nm: int, cache=None, pos=None, lens=None, merge=None,
+                  remat: bool = False, overlap: bool = False,
+                  kernel_backend: str = "ref"):
     """One VW's wave through its pipeline. shards: lm.shard_blocks's
     [stage][tp] per-layer leaves of this data slot; x_local [Bl, S, d] its
     rows, on stage 0's device; meta: lm.layer_meta's [stages, slots]
     arrays. Returns (y [Bl, S, d] on the last stage's device, aux: the
-    stages' MoE losses summed over layers and microbatches).
+    stages' MoE losses summed over layers and microbatches; None in
+    prefill and decode, where the JAX package drops it too).
 
     overlap=False is the baseline schedule: each tick computes and then
     hands its output to the next stage. overlap=True is the skewed one of
     the JAX package: each tick hands on the output computed *last* tick
     (the double-buffered carry), so microbatch j reaches stage s at tick j
     + 2s. Each microbatch meets the same compute in the same order, so the
-    loss is bit-identical. With remat each stage call runs under
-    torch.utils.checkpoint (jax.checkpoint in the JAX package): backward
-    recomputes the stage from its saved input."""
-    if mode != "train":
-        raise NotImplementedError(
-            f"pipeline_wave mode {mode!r}: prefill and decode are the serve "
-            f"half of the spmd backend (ROADMAP Queue 1 item 9)")
+    loss (and in serve, the logits) is bit-identical. With remat each
+    train stage call runs under torch.utils.checkpoint (jax.checkpoint in
+    the JAX package): backward recomputes the stage from its saved input.
+
+    Prefill and decode (no autograd): cache[s][t] is the (stage, tp)
+    slot's cache (serve.cache.shard_cache), written in place: a live tick
+    computes on slice_mb's views of the microbatch's rows and update_mb
+    writes back what was not a view; a bubble tick skips the slice, the
+    stage call and the write alike (as the JAX package's cond does). pos
+    (decode, [Bl]) and lens (prefill, [Bl] or None) are sliced with the
+    microbatch. merge (decode over a sequence-sharded cache): the other
+    data slots' shard offsets, their kv_full groups in each slot's
+    "kv_merge" (see build_decode_step)."""
     stages = cfg.stages
     Bl = x_local.shape[0]
+    mb = Bl // nm
     # one unbind: indexing a microbatch per tick would add a full-size zero
     # grad of x per microbatch in backward (trap L4)
-    x_mbs = x_local.reshape(nm, Bl // nm, *x_local.shape[1:]).unbind(0)
+    x_mbs = x_local.reshape(nm, mb, *x_local.shape[1:]).unbind(0)
     # a mesh tp above cfg.tp == 1 replicates: the layer runs whole, once
     tp_live = len(shards[0]) if cfg.tp > 1 else 1
     stage_dev = [next(iter(shards[s][0][0].values())).device
@@ -113,16 +126,33 @@ def pipeline_wave(cfg: ArchConfig, shards, x_local, meta, *, mode: str,
         metas = {k: meta[k][s] for k in ("kind", "valid", "full_i",
                                          "win_i")}
 
-        def call(x_in):
+        def call(x_in, j):
             aux = []
             y = lm.stage_apply(cfg, shards[s][:tp_live], x_in, metas,
                                LayerCtx(mode="train", aux=aux))
             return y, (torch.stack(aux).sum() if aux else
                        x_in.new_zeros((), dtype=torch.float32))
 
+        def serve_call(x_in, j):
+            rows = slice(j * mb, (j + 1) * mb)
+            dev = stage_dev[s]
+            ctx = LayerCtx(
+                mode=mode, kernel_backend=kernel_backend, merge=merge,
+                pos=None if pos is None else pos[rows].to(dev),
+                lens=None if lens is None else lens[rows].to(dev))
+            slots = cache[s][:tp_live]
+            views = [cache_lib.slice_mb(c, j, mb) for c in slots]
+            y = lm.stage_apply(cfg, shards[s][:tp_live], x_in, metas, ctx,
+                               views)
+            for c, v in zip(slots, views):
+                cache_lib.update_mb(c, v, j, mb, True)
+            return y, None
+
+        if mode != "train":
+            return serve_call
         if remat:
-            return lambda x_in: torch.utils.checkpoint.checkpoint(
-                call, x_in, use_reentrant=False, preserve_rng_state=False)
+            return lambda x_in, j: torch.utils.checkpoint.checkpoint(
+                call, x_in, j, use_reentrant=False, preserve_rng_state=False)
         return call
 
     fns = [stage_fn(s) for s in range(stages)]
@@ -138,9 +168,10 @@ def pipeline_wave(cfg: ArchConfig, shards, x_local, meta, *, mode: str,
             j = t - skew * s
             if not 0 <= j < nm:
                 continue                                  # bubble tick
-            y, a = fns[s](x_mbs[j] if s == 0 else buf[s])
+            y, a = fns[s](x_mbs[j] if s == 0 else buf[s], j)
             ys[s] = y
-            aux.append(a)
+            if a is not None:
+                aux.append(a)
             if s == stages - 1:
                 out[j] = y
         # the ppermute s -> s + 1: of this tick's outputs, or (overlap) of
@@ -148,6 +179,8 @@ def pipeline_wave(cfg: ArchConfig, shards, x_local, meta, *, mode: str,
         send, sent = (sent, ys) if overlap else (ys, sent)
         buf = [None] + [None if y is None else y.to(stage_dev[s + 1])
                         for s, y in enumerate(send[:-1])]
+    if not aux:
+        return torch.cat(out), None
     aux_t = aux[0].to(stage_dev[-1])
     for a in aux[1:]:
         aux_t = aux_t + a.to(stage_dev[-1])
@@ -247,6 +280,186 @@ def build_train_step(run: RunConfig, mesh):
                              "labels": (dp_axes(mesh), None)},
                    "opt": None, "meta": meta, "optimizer": opt}
     return train_step, state_specs
+
+
+# ----------------------------------------------------------------------------
+# serve steps (prefill / decode)
+# ----------------------------------------------------------------------------
+def _serve_nm(run: RunConfig, mesh) -> tuple[int, int]:
+    """(Nm, rows a microbatch) of a serve step: the arch's Nm, cut to the
+    rows of a data slot and then to a divisor of them."""
+    cfg, shp = run.arch, run.shape
+    vw_b = max(1, shp.global_batch // n_dp(mesh))
+    nm = min(cfg.num_microbatches, vw_b)
+    while vw_b % nm:
+        nm -= 1
+    return nm, vw_b // nm
+
+
+def _serve_setup(run: RunConfig, mesh):
+    cfg = run.arch
+    assert cfg.stages == mesh.shape[S_AX], (cfg.stages, mesh.shape)
+    assert cfg.tp in (1, mesh.shape[T_AX]), (cfg.tp, mesh.shape)
+    cdt, cache_dt = cache_lib.serve_dtypes(run.compute_dtype,
+                                           run.cache_dtype)
+    return cfg, _serve_nm(run, mesh)[0], _meta_tree(cfg), cdt, cache_dt
+
+
+def _stage_shards(cfg, mesh, params, cdt, shards):
+    """Every data slot's shard views of params' blocks in the compute
+    dtype: `shards` when the caller made them once (the Engine does), else
+    made here (a cast copies f32 leaves, as JAX's cast in every step)."""
+    if shards is not None:
+        return shards
+    blocks = _cast_tree(params["blocks"], cdt)
+    return [lm.shard_blocks(cfg, blocks, mesh, d) for d in range(n_dp(mesh))]
+
+
+def build_decode_step(run: RunConfig, mesh, *, pos_per_row: bool = False,
+                      layout=None):
+    """(step, pspecs, cspecs): step(params, batch{'inputs','cache','pos'},
+    shards=None) -> (logits [B, 1, vocab] f32, cache), the cache written
+    in place. batch['cache'] is serve.cache.shard_cache's per-slot nesting
+    of a cache of cspecs (init_cache / init_paged, then shard_cache);
+    shards the Engine's lm.shard_blocks views (None: made per call).
+
+    pos a scalar (the aligned batch) or, with pos_per_row, a [B] vector
+    (each row at its own depth; needs data = 1). layout: a PageLayout —
+    the cache is the paged pool + block table (data = 1). Without a layout
+    and under 16 rows the contiguous cache's sequence splits over the data
+    slots and every data slot runs the whole batch: each computes the
+    attention partial over its sequence shard and the partials merge
+    (merge_decode_partials; with one data slot that is the plain decode,
+    which the port runs through the kernel). From 16 rows the batch splits
+    over the data slots instead."""
+    cfg, nm, meta, cdt, cache_dt = _serve_setup(run, mesh)
+    shp = run.shape
+    pspecs = lm.param_specs(cfg)
+    seq_sharded = (layout is None and shp.global_batch < 16
+                   and D_AX in mesh.axis_names)
+    ndp = n_dp(mesh)
+    if layout is not None:
+        _, cspecs = cache_lib.paged_struct(cfg, layout, dtype=cache_dt)
+    else:
+        _, cspecs = cache_lib.cache_struct(
+            cfg, shp.global_batch, shp.seq_len,
+            seq_shards=16 if seq_sharded else 1, dtype=cache_dt)
+    if pos_per_row and ndp != 1:
+        raise ValueError("pos_per_row decode needs the whole batch on every "
+                         "data shard; use a data=1 mesh")
+    if layout is not None and ndp != 1:
+        raise ValueError("the paged pool is shared by the whole batch; "
+                         "paged decode needs a data=1 mesh")
+
+    def decode_step(params, batch, shards=None):
+        shards = _stage_shards(cfg, mesh, params, cdt, shards)
+        dev = params["final_norm"].device
+        x = lm.embed_tokens(cfg, params, torch.as_tensor(
+            batch["inputs"], device=dev)).to(cdt)
+        caches = batch["cache"]
+        B = x.shape[0]
+        pos = torch.as_tensor(batch["pos"], dtype=torch.int64, device=dev)
+        pos = pos.expand(B) if pos.dim() == 0 else pos
+        if seq_sharded and ndp > 1:
+            # every data slot holds a sequence shard of kv_full and runs
+            # the whole batch; the rest of the state is whole over data, so
+            # data slot 0's pipeline carries the other slots' shards
+            offs = tuple(d * caches[d][0][0]["kv_full"][0].shape[2]
+                         for d in range(1, ndp)) \
+                if "kv_full" in caches[0][0][0] else None
+            if offs:
+                cache0 = [[dict(c, kv_merge=tuple(
+                    caches[d][s][t]["kv_full"] for d in range(1, ndp)))
+                    for t, c in enumerate(row)]
+                    for s, row in enumerate(caches[0])]
+            else:
+                cache0 = caches[0]
+            y, _ = pipeline_wave(cfg, shards[0], x.to(_slot0(mesh, 0)),
+                                 meta, mode="decode", nm=nm, cache=cache0,
+                                 pos=pos, merge=offs, overlap=run.overlap,
+                                 kernel_backend=run.kernel_backend)
+            hid = _bcast_from_last(y, dev)
+        else:
+            Bl = B // ndp
+            hid = torch.cat([_bcast_from_last(pipeline_wave(
+                cfg, shards[d], x[d * Bl:(d + 1) * Bl].to(_slot0(mesh, d)),
+                meta, mode="decode", nm=nm, cache=caches[d],
+                pos=pos[d * Bl:(d + 1) * Bl], overlap=run.overlap,
+                kernel_backend=run.kernel_backend)[0], dev)
+                for d in range(ndp)])
+        return lm.logits_ref(cfg, params, hid), caches
+
+    return decode_step, pspecs, cspecs
+
+
+def build_prefill_step(run: RunConfig, mesh, *, cache_len: int = 0,
+                       layout=None, var_len: bool = False):
+    """(step, pspecs, cspecs): step(params, batch{'inputs','cache'
+    [,'lens']}, shards=None) -> (last_logits [B, 1, vocab] f32, cache),
+    the cache (shard_cache's nesting) written in place.
+
+    cache_len > the shape's seq_len sizes the contiguous cache for the
+    decode that follows (prompt_len inputs, prompt_len + gen positions;
+    the prefill write zeroes the unwritten tail). layout: a PageLayout —
+    prefill scatters K/V page by page through the cache's block table.
+    var_len: batch['lens'] [B] per-row prompt lengths (right-padded
+    prompts); cache writes stop at each row's length and the logits are
+    each row's last real position's. Both need data = 1."""
+    cfg, nm, meta, cdt, cache_dt = _serve_setup(run, mesh)
+    shp = run.shape
+    pspecs = lm.param_specs(cfg)
+    if layout is not None:
+        _, cspecs = cache_lib.paged_struct(cfg, layout, dtype=cache_dt)
+    else:
+        _, cspecs = cache_lib.cache_struct(cfg, shp.global_batch,
+                                           cache_len or shp.seq_len,
+                                           dtype=cache_dt)
+    ndp = n_dp(mesh)
+    if (layout is not None or var_len) and ndp != 1:
+        raise ValueError("paged / variable-length prefill needs the whole "
+                         "batch on every data shard; use a data=1 mesh")
+    # under 16 rows the cache's batch is whole over data: data slot d's
+    # rows are its rows of data slot 0's cache
+    split = shp.global_batch >= 16
+
+    def prefill_step(params, batch, shards=None):
+        shards = _stage_shards(cfg, mesh, params, cdt, shards)
+        dev = params["final_norm"].device
+        x = lm.embed_tokens(cfg, params, torch.as_tensor(
+            batch["inputs"], device=dev)).to(cdt)
+        caches = batch["cache"]
+        lens = None
+        if var_len:
+            lens = torch.as_tensor(batch["lens"], dtype=torch.int64,
+                                   device=dev)
+        Bl = x.shape[0] // ndp
+        outs = []
+        for d in range(ndp):
+            rows = slice(d * Bl, (d + 1) * Bl)
+            cache_d = caches[d] if split or d == 0 else [
+                [cache_lib.slice_mb(c, d, Bl) for c in row]
+                for row in caches[0]]
+            y, _ = pipeline_wave(
+                cfg, shards[d], x[rows].to(_slot0(mesh, d)), meta,
+                mode="prefill", nm=nm, cache=cache_d,
+                lens=None if lens is None else lens[rows],
+                overlap=run.overlap, kernel_backend=run.kernel_backend)
+            if lens is None:
+                last = y[:, -1:]
+            else:
+                idx = (lens[rows] - 1).clamp_min(0).to(y.device)
+                last = y[torch.arange(y.shape[0], device=y.device), idx][:,
+                                                                         None]
+            outs.append(_bcast_from_last(last, dev))
+        return lm.logits_ref(cfg, params, torch.cat(outs)), caches
+
+    return prefill_step, pspecs, cspecs
+
+
+def _slot0(mesh, d: int):
+    """Data slot d's stage-0, tp-0 device (where its pipeline starts)."""
+    return mesh.devices.reshape(-1, mesh.shape[S_AX], mesh.shape[T_AX])[
+        d, 0, 0]
 
 
 def wave_grads(cfg: ArchConfig, nm: int, params, inputs, labels):

@@ -1,5 +1,11 @@
-"""Serving driver — a thin CLI over the repro_torch.api serve surface
-(threads backend only).
+"""Serving driver — a thin CLI over the repro_torch.api serve surface.
+
+  --backend threads   the non-pipelined forward_ref cache path
+  --backend spmd      the pipelined prefill / decode steps over a
+                      (1, stages, tp) --mesh of slots on the device (the
+                      slots wrap over the visible devices, trap Y1; the
+                      JAX CLI's --devices fake host count is accepted and
+                      changes nothing)
 
 By default one aligned batch runs through Engine.generate(); --requests N
 instead pushes N requests through the continuous-batching Scheduler over
@@ -33,6 +39,12 @@ the paged KV pool and prints throughput, occupancy, pages and latency.
   python -m repro_torch.launch.serve --device cpu --requests 12 \
       --replicas 4,2,2 --topology hetero --share-prefix --page-size 4
                                                       # the Router, 3 replicas
+  python -m repro_torch.launch.serve --backend spmd --mesh 1,2,2 \
+      --device cpu [--requests 4 --page-size 4]       # pipelined, 4 slots
+  python -m repro_torch.launch.serve --backend spmd --mesh 1,4,4 \
+      --no-reduced --compute-dtype bfloat16 --requests 8 --batch 8 \
+      --prompt-len 128 --gen 16 --page-size 16 --max-pages 48 \
+      --kernel-backend cuda             # qwen3-0.6b full width, 16 slots
 
 --replicas B0,B1,... routes the requests over a fleet of replicas with
 those decode batch sizes (repro_torch.serve.router), priced by --topology
@@ -59,6 +71,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs; on cpu the kernel backend "
                          "runs the kernels' plain PyTorch versions")
+    ap.add_argument("--backend", choices=("threads", "spmd"),
+                    default="threads",
+                    help="threads: the forward_ref cache path; spmd: the "
+                         "pipelined steps over --mesh")
+    ap.add_argument("--mesh", default="1,2,1",
+                    help="spmd backend: data,stages,tp (data must be 1)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="spmd backend: accepted for the JAX CLI's sake (its "
+                         "fake host device count); the mesh's slots wrap "
+                         "over the visible devices, so it changes nothing")
     ap.add_argument("--kernel-backend", choices=("ref", "cuda"),
                     default="ref",
                     help="hot-path attention, WKV / SSD prefill and MoE "
@@ -147,7 +169,17 @@ def main(argv=None):
         if not a.requests:
             raise SystemExit("--replicas routes requests over a replica "
                              "fleet; add --requests N")
+        if a.backend != "threads":
+            raise SystemExit("--replicas is threads-backend only (the "
+                             "spmd mesh serves as a single replica)")
         replica_batches = [int(x) for x in a.replicas.split(",")]
+    partition = PartitionSpec(data=max(1, len(replica_batches)))
+    if a.backend == "spmd":
+        dsz, ssz, tsz = (int(x) for x in a.mesh.split(","))
+        partition = PartitionSpec(data=dsz, stages=ssz, tp=tsz)
+        if a.devices:
+            print(f"note: --devices {a.devices} changes nothing here: the "
+                  f"mesh's slots wrap over the visible devices")
     faults = None
     if a.chaos is not None:
         if replica_batches:
@@ -156,8 +188,7 @@ def main(argv=None):
         else:
             faults = FaultPlan.sample_serve(a.chaos, max_batch=a.batch)
         print(f"chaos: {faults.describe()}")
-    plan = Plan(arch=cfg,
-                partition=PartitionSpec(data=max(1, len(replica_batches))),
+    plan = Plan(arch=cfg, partition=partition,
                 cluster=ClusterSpec(topology=a.topology),
                 serve=ServeSpec(prompt_len=a.prompt_len, gen=a.gen,
                                 max_batch=max(replica_batches + [a.batch]),
@@ -168,7 +199,8 @@ def main(argv=None):
                                 kernel_backend=a.kernel_backend,
                                 replicas=tuple(ReplicaSpec(max_batch=b)
                                                for b in replica_batches)),
-                run=RunSpec(compute_dtype=a.compute_dtype), faults=faults)
+                run=RunSpec(backend=a.backend,
+                            compute_dtype=a.compute_dtype), faults=faults)
     tracer = Tracer() if a.trace else NULL_TRACER
 
     if a.requests:
@@ -227,7 +259,7 @@ def main(argv=None):
                   f"quarantined={rep.quarantined} retries={retries} "
                   f"shed={rep.shed} failed={rep.failed_requests}")
         occ, pu = rep.occupancy(), rep.page_utilization()
-        print(f"arch={cfg.name} device={a.device} "
+        print(f"arch={cfg.name} backend={a.backend} device={a.device} "
               f"kernels={a.kernel_backend} requests={a.requests} "
               f"slots={a.batch} tokens={rep.tokens_out} "
               f"decode={rep.ms_per_token():.1f}ms/step "
@@ -253,8 +285,8 @@ def main(argv=None):
     rep = eng.generate()
     if a.trace:
         print(f"trace: {tracer.export(a.trace)}")
-    print(f"arch={cfg.name} device={a.device} kernels={a.kernel_backend} "
-          f"batch={a.batch} prefill({a.prompt_len} tok)="
+    print(f"arch={cfg.name} backend={a.backend} device={a.device} "
+          f"kernels={a.kernel_backend} batch={a.batch} prefill({a.prompt_len} tok)="
           f"{rep.prefill_s * 1e3:.1f}ms decode {rep.decode_steps} steps="
           f"{rep.decode_s * 1e3:.1f}ms ({rep.ms_per_token():.1f} ms/tok)")
     print("generated ids[0]:", np.asarray(rep.tokens)[0].tolist())

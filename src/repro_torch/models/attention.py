@@ -110,8 +110,11 @@ def banded_attention(q, k, v, *, window: int, q_block: int = 256):
     return out.to(q.dtype)
 
 
-def decode_attend(q1, k_cache, v_cache, gpos, pos, *, window: int = 0):
-    """Single-token attention against a KV cache.
+def decode_partial(q1, k_cache, v_cache, gpos, pos, *, window: int = 0):
+    """The unnormalised softmax state of single-token attention against a
+    KV cache (or one sequence shard of it): (o [B, KV, G, hd] f32, m, l
+    [B, KV, G]) — the exp-weighted value sum, the running max (floored at
+    NEG_INF / 2, so an empty shard contributes nothing) and the exp sum.
 
     q1 [B, 1, H, hd] (already roped at `pos`); k_cache/v_cache [B, Sc, KV,
     hd]; gpos [Sc] (or per-row [B, Sc]) global positions of the cached
@@ -133,10 +136,33 @@ def decode_attend(q1, k_cache, v_cache, gpos, pos, *, window: int = 0):
         valid &= (pos_b[:, None] - gpos_b) < window
     valid = valid[:, None, None, :]
     s = torch.where(valid, s, NEG_INF)
-    m = s.amax(dim=-1)
-    m_safe = m.clamp_min(NEG_INF / 2)
+    m_safe = s.amax(dim=-1).clamp_min(NEG_INF / 2)
     p = torch.where(valid, torch.exp(s - m_safe[..., None]), 0.0)
-    l = p.sum(dim=-1)
     o = torch.einsum("bkgc,bckd->bkgd", p, v_cache.float())
+    return o, m_safe, p.sum(dim=-1)
+
+
+def merge_decode_partials(parts, q1):
+    """Flash-decoding's logsumexp merge of decode_partial states over
+    sequence shards (the JAX package's pmax / psum over its merge axis):
+    each shard's o and l rescaled by exp(m - max m), summed, normalised.
+    Returns [B, 1, H, hd] in q1's dtype; one part is decode_attend."""
+    m_g = parts[0][1]
+    for _, m, _ in parts[1:]:
+        m_g = torch.maximum(m_g, m)
+    o = l = 0.0
+    for o_d, m_d, l_d in parts:
+        corr = torch.exp(m_d - m_g)
+        l = l + l_d * corr
+        o = o + o_d * corr[..., None]
+    out = o / l.clamp_min(1e-30)[..., None]
+    return out.reshape(q1.shape).to(q1.dtype)
+
+
+def decode_attend(q1, k_cache, v_cache, gpos, pos, *, window: int = 0):
+    """Single-token attention against a KV cache: decode_partial's state,
+    normalised (see there for the arguments). Returns [B, 1, H, hd]."""
+    B, _, H, hd = q1.shape
+    o, _, l = decode_partial(q1, k_cache, v_cache, gpos, pos, window=window)
     out = o / l.clamp_min(1e-30)[..., None]
     return out.reshape(B, 1, H, hd).to(q1.dtype)

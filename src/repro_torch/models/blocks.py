@@ -16,9 +16,10 @@ Conventions:
 cache group it owns; the JAX package computes both under a `where` on a
 traced kind, which writes the same values.
 
-apply_layer_tp runs a training layer over tensor-parallel shards (the spmd
-backend's tp axis): the shards' attention and MLP partials are summed on
-the stage's device where the JAX package psums them over tp.
+apply_layer_tp runs a layer over tensor-parallel shards (the spmd
+backend's tp axis), in training, prefill and decode: the shards' attention
+and MLP partials are summed on the stage's device where the JAX package
+psums them over tp, each shard attending over its own cache shard.
 """
 from __future__ import annotations
 
@@ -58,6 +59,16 @@ class LayerCtx:
                                     # (windowed layers run none)
     aux: Optional[list] = None      # training: each MoE layer appends its
                                     # load-balancing loss here (None: drop)
+    seq_offset: int = 0             # the contiguous kv_full's first position
+    merge: Optional[tuple] = None   # decode over sequence shards: the first
+                                    # positions of the other data slots'
+                                    # shards (their groups in
+                                    # cache["kv_merge"]); every shard's
+                                    # partial merges as JAX's pmax / psum
+                                    # over data
+    write_kv: bool = True           # False: the KV groups are another tp
+                                    # shard's (KV whole over tp, trap Y3),
+                                    # read here and written there
 
 
 def _norm(cfg: ArchConfig, p, key, x):
@@ -125,7 +136,7 @@ def _attn_train(cfg: ArchConfig, p, xn, ctx: LayerCtx, cache):
     else:
         o = attn_lib.flash_attention(q, k, v, causal=True, window=0)
 
-    if ctx.mode == "prefill" and cache is not None:
+    if ctx.mode == "prefill" and cache is not None and ctx.write_kv:
         if ctx.kind == 1:
             _ring_write_prompt(cache["kv_win"], ctx, k, v)
         else:
@@ -196,9 +207,10 @@ def _attn_decode(cfg: ArchConfig, p, xn, ctx: LayerCtx, cache):
         kw, vw = cache["kv_win"]
         i = ctx.win_i
         W = kw.shape[2]
-        sel = torch.ones(B, dtype=torch.bool, device=xn.device)
-        cache_lib.upd_kv_rows(kw, i, pos_b % W, k, sel)
-        cache_lib.upd_kv_rows(vw, i, pos_b % W, v, sel)
+        if ctx.write_kv:
+            sel = torch.ones(B, dtype=torch.bool, device=xn.device)
+            cache_lib.upd_kv_rows(kw, i, pos_b % W, k, sel)
+            cache_lib.upd_kv_rows(vw, i, pos_b % W, v, sel)
         gpos = pos_b[:, None] - (
             (pos_b[:, None] - torch.arange(W, device=xn.device)) % W)
         o = attn_lib.decode_attend(q, kw[i], vw[i], gpos, pos_b,
@@ -210,9 +222,10 @@ def _attn_decode(cfg: ArchConfig, p, xn, ctx: LayerCtx, cache):
     if cache_lib.is_paged(cache):
         tab = cache["block_tab"]
         cap = tab.shape[1] * kf.shape[2]                 # pps * page_size
-        sel = (pos_b >= 0) & (pos_b < cap)
-        cache_lib.page_write_token(kf, i, tab, pos_b, k, sel)
-        cache_lib.page_write_token(vf, i, tab, pos_b, v, sel)
+        if ctx.write_kv:
+            sel = (pos_b >= 0) & (pos_b < cap)
+            cache_lib.page_write_token(kf, i, tab, pos_b, k, sel)
+            cache_lib.page_write_token(vf, i, tab, pos_b, v, sel)
         if ctx.kernel_backend != "ref":
             # the kernel indexes the pool through the block table with
             # per-row lengths: no page_view materialization
@@ -225,21 +238,34 @@ def _attn_decode(cfg: ArchConfig, p, xn, ctx: LayerCtx, cache):
             v_view, _ = cache_lib.page_view(vf, i, tab)
             o = attn_lib.decode_attend(q, k_view, v_view, gpos, pos_b)
     else:
-        Sc = kf.shape[2]
-        in_rng = (pos_b >= 0) & (pos_b < Sc)
-        lic = pos_b.clamp(0, Sc - 1)
-        cache_lib.upd_kv_rows(kf, i, lic, k, in_rng)
-        cache_lib.upd_kv_rows(vf, i, lic, v, in_rng)
-        if ctx.kernel_backend != "ref":
-            # per-row live lengths; the cache group goes in as a strided
-            # [B, KV, S, hd] view, uncopied
-            lens_row = (pos_b + 1).clamp(0, Sc).to(torch.int32)
-            o = kernel_ops.decode_attention(
-                q[:, 0], kf[i].transpose(1, 2), vf[i].transpose(1, 2),
-                lens_row, window=0, backend=ctx.kernel_backend)[:, None]
-        else:
-            gpos = torch.arange(Sc, device=xn.device)
-            o = attn_lib.decode_attend(q, kf[i], vf[i], gpos, pos_b)
+        # this slot's group from ctx.seq_offset, and (ctx.merge) the other
+        # data slots' sequence shards: the token lands in the shard holding
+        # its position
+        groups = (cache["kv_full"],) + cache.get("kv_merge", ())
+        offs = (ctx.seq_offset,) + (ctx.merge or ())
+        parts = []
+        for (kf, vf), off in zip(groups, offs):
+            Sc = kf.shape[2]
+            li = pos_b - off
+            if ctx.write_kv:
+                in_rng = (li >= 0) & (li < Sc)
+                lic = li.clamp(0, Sc - 1)
+                cache_lib.upd_kv_rows(kf, i, lic, k, in_rng)
+                cache_lib.upd_kv_rows(vf, i, lic, v, in_rng)
+            if ctx.kernel_backend != "ref" and not ctx.merge:
+                # per-row live lengths; the cache group goes in as a
+                # strided [B, KV, S, hd] view, uncopied
+                lens_row = (li + 1).clamp(0, Sc).to(torch.int32)
+                o = kernel_ops.decode_attention(
+                    q[:, 0], kf[i].transpose(1, 2), vf[i].transpose(1, 2),
+                    lens_row, window=0, backend=ctx.kernel_backend)[:, None]
+            else:
+                # the merge runs no kernel, as in the JAX package
+                gpos = off + torch.arange(Sc, device=xn.device)
+                parts.append(attn_lib.decode_partial(q, kf[i], vf[i], gpos,
+                                                     pos_b))
+        if parts:
+            o = attn_lib.merge_decode_partials(parts, q)
     return o.reshape(B, 1, Hl * hd) @ p["wo"].to(xn.dtype), cache
 
 
@@ -348,36 +374,40 @@ def _tp_sum(parts, device):
     return out
 
 
-def apply_layer_tp(cfg: ArchConfig, ps, x, ctx: LayerCtx):
-    """One training layer over tp shards: ps[t] holds shard t's per-layer
-    leaves (lm.shard_blocks), each on its slot's device; x lives on the
-    stage's device. As the JAX package's layer on each tp device: norm the
-    (replicated) x once, take each shard's attention partial and sum them
-    (the psum), add the residual; then the same for the dense or MoE MLP
-    partials. Leaves the spec keeps whole (norms, router, the SSD branch,
-    wk/wv when KV % tp != 0) are read from shard 0.
+def apply_layer_tp(cfg: ArchConfig, ps, x, ctx: LayerCtx, caches=None):
+    """One layer over tp shards: ps[t] holds shard t's per-layer leaves
+    (lm.shard_blocks), each on its slot's device; caches[t] (prefill and
+    decode) shard t's cache (serve.cache.shard_cache's slot, sliced to the
+    microbatch); x lives on the stage's device. As the JAX package's layer
+    on each tp device: norm the (replicated) x once, take each shard's
+    attention partial over its own cache shard and sum them (the psum), add
+    the residual; then the same for the dense or MoE MLP partials. Leaves
+    the spec keeps whole (norms, router, the SSD branch, wk/wv when KV % tp
+    != 0) are read from shard 0, and the SSD branch runs once, on shard 0's
+    cache (its state is whole over tp).
 
     Every shard of a MoE layer routes the same tokens and computes the
     same load-balancing loss; the JAX package sums aux over stages only,
     so it counts once — here only shard 0 appends it to ctx.aux (trap Y2).
     Where KV % tp != 0 each shard holds all KV heads beside its H/tp query
-    heads and groups them as the JAX device does (trap Y3). One shard is
-    apply_layer itself."""
+    heads and groups them as the JAX device does (trap Y3); their cache is
+    one copy, which shard 0 writes and the others read. One shard, and an
+    RWKV6 layer (never tp-split), is apply_layer itself."""
+    c0 = caches[0] if caches else None
     if len(ps) == 1 or cfg.ssm_type == "rwkv6":
-        # RWKV6 leaves are never tp-split: every shard computes the layer
-        return apply_layer(cfg, ps[0], x, ctx)[0]
-    if ctx.mode != "train":
-        raise NotImplementedError(
-            "tensor-parallel prefill and decode are the serve half of the "
-            "spmd backend (ROADMAP Queue 1 item 9)")
+        return apply_layer(cfg, ps[0], x, ctx, c0)[0]
     devs = [next(iter(p.values())).device for p in ps]
     xn = _norm(cfg, ps[0], "ln1", x)
-    att = _tp_sum([_attn_train(cfg, p, xn.to(d), ctx, None)[0]
-                   for p, d in zip(ps, devs)], x.device)
+    attn = _attn_decode if ctx.mode == "decode" else _attn_train
+    reader = dataclasses.replace(
+        ctx, write_kv=cfg.num_kv_heads % len(ps) == 0)
+    att = _tp_sum([attn(cfg, p, xn.to(d), ctx if t == 0 else reader,
+                        caches[t] if caches else None)[0]
+                   for t, (p, d) in enumerate(zip(ps, devs))], x.device)
     quiet = dataclasses.replace(ctx, aux=None)
 
     def mlp(xn2):
         return _tp_sum([_mlp(cfg, p, xn2.to(d), ctx if t == 0 else quiet)
                         for t, (p, d) in enumerate(zip(ps, devs))], x.device)
 
-    return _finish_layer(cfg, ps[0], x, xn, att, ctx, None, mlp)[0]
+    return _finish_layer(cfg, ps[0], x, xn, att, ctx, c0, mlp)[0]

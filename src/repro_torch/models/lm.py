@@ -310,13 +310,17 @@ def shard_blocks(cfg: ArchConfig, blocks, mesh, data: int = 0):
 
 
 def stage_apply(cfg: ArchConfig, stage_layers, x, meta_local,
-                ctx: LayerCtx):
-    """One pipeline stage in train mode: stage_layers[t] is tp shard t's
-    list of per-layer leaf dicts (shard_blocks(...)[s], or its first entry
-    alone when the layer runs whole), meta_local this stage's [slots]
-    arrays (kind, valid, full_i, win_i). Padded slots are skipped; the JAX
-    package computes them and masks the result out, which gives the same
-    x. MoE layers append their aux loss to ctx.aux. Returns x."""
+                ctx: LayerCtx, caches=None):
+    """One pipeline stage: stage_layers[t] is tp shard t's list of
+    per-layer leaf dicts (shard_blocks(...)[s], or its first entry alone
+    when the layer runs whole), meta_local this stage's [slots] arrays
+    (kind, valid, full_i, win_i). In prefill and decode caches[t] is shard
+    t's stage-local cache (its groups indexed by the stage's full_i /
+    win_i, its SSM state by the slot j), written in place; ctx carries the
+    microbatch's pos / lens. Padded slots are skipped; the JAX package
+    computes them and masks the result and the cache writes out, which
+    gives the same x and cache. MoE layers append their aux loss to
+    ctx.aux. Returns x."""
     uk = uniform_kind(cfg)
     for j in range(cfg.layer_slots):
         if uk is None and not meta_local["valid"][j]:
@@ -326,7 +330,7 @@ def stage_apply(cfg: ArchConfig, stage_layers, x, meta_local,
             full_i=int(meta_local["full_i"][j]),
             win_i=int(meta_local["win_i"][j]), ssm_i=j)
         x = apply_layer_tp(cfg, [shard[j] for shard in stage_layers], x,
-                           ctx_j)
+                           ctx_j, caches)
     return x
 
 

@@ -68,41 +68,67 @@ def _zeros(struct, device):
 # ----------------------------------------------------------------------------
 # contiguous layout
 # ----------------------------------------------------------------------------
-def cache_struct(cfg, batch: int, max_len: int, *, dtype=torch.bfloat16):
-    """{name: (shape, dtype)} of the contiguous cache (K/V groups are
-    pairs). Group layout (global, stage-major):
-      kv_full [stages*m_full, B, S, KV, hd]
+S_AX, T_AX, D_AX = "stage", "tp", "data"
+
+
+def _kv_tp(cfg):
+    """The tp axis the KV-head dim splits over, or None where the spec keeps
+    KV whole (KV % tp != 0, trap Y3)."""
+    return T_AX if (cfg.num_kv_heads and cfg.tp > 1
+                    and cfg.num_kv_heads % cfg.tp == 0) else None
+
+
+def cache_struct(cfg, batch: int, max_len: int, *, seq_shards: int = 1,
+                 dtype=torch.bfloat16):
+    """({name: (shape, dtype)}, {name: spec}) of the contiguous cache (K/V
+    groups are pairs). A spec names, per dim, the mesh axis the dim splits
+    over (None: whole), as the JAX package's PartitionSpecs do. Group
+    layout (global, stage-major):
+      kv_full [stages*m_full, B, S, KV, hd]  (S split over data when
+                                              seq_shards > 1)
       kv_win  [stages*m_win,  B, W, KV, hd]
       ssm_state [Lp, B, H, K, P] f32; conv_tail / shift small
+    B splits over data from 16 rows on; KV over tp where KV % tp == 0.
     """
     from repro_torch.models.lm import layer_meta
     meta = layer_meta(cfg)
     st, Lp = cfg.stages, cfg.padded_layers
     hd, KV = cfg.head_dim, cfg.num_kv_heads
-    out = {}
+    kv_tp = _kv_tp(cfg)
+    batch_ax = D_AX if batch >= 16 else None
+    seq_ax = D_AX if seq_shards > 1 else None
+    shapes, specs = {}, {}
     if meta["m_full"] > 0 and cfg.attn_type != "none":
         shp = (st * meta["m_full"], batch, max_len, KV, hd)
-        out["kv_full"] = ((shp, dtype), (shp, dtype))
+        shapes["kv_full"] = ((shp, dtype), (shp, dtype))
+        specs["kv_full"] = ((S_AX, batch_ax, seq_ax, kv_tp, None),) * 2
     if meta["m_win"] > 0:
         W = min(cfg.window_size, max_len)
         shp = (st * meta["m_win"], batch, W, KV, hd)
-        out["kv_win"] = ((shp, dtype), (shp, dtype))
+        shapes["kv_win"] = ((shp, dtype), (shp, dtype))
+        specs["kv_win"] = ((S_AX, batch_ax, None, kv_tp, None),) * 2
     if cfg.ssm_type == "ssd":
         H, N = cfg.n_ssm_heads, cfg.ssm_state
-        out["ssm_state"] = ((Lp, batch, H, N, cfg.d_inner // H), torch.float32)
-        out["conv_tail"] = ((Lp, batch, 3, cfg.d_inner + 2 * N), dtype)
+        shapes["ssm_state"] = ((Lp, batch, H, N, cfg.d_inner // H),
+                               torch.float32)
+        specs["ssm_state"] = (S_AX, batch_ax, None, None, None)
+        shapes["conv_tail"] = ((Lp, batch, 3, cfg.d_inner + 2 * N), dtype)
+        specs["conv_tail"] = (S_AX, batch_ax, None, None)
     if cfg.ssm_type == "rwkv6":
         H = cfg.n_ssm_heads
         hds = cfg.d_model // H
-        out["ssm_state"] = ((Lp, batch, H, hds, hds), torch.float32)
-        out["shift"] = ((Lp, batch, 2, cfg.d_model), dtype)
-    return out
+        shapes["ssm_state"] = ((Lp, batch, H, hds, hds), torch.float32)
+        specs["ssm_state"] = (S_AX, batch_ax, None, None, None)
+        shapes["shift"] = ((Lp, batch, 2, cfg.d_model), dtype)
+        specs["shift"] = (S_AX, batch_ax, None, None)
+    return shapes, specs
 
 
-def init_cache(cfg, batch: int, max_len: int, *, dtype=torch.bfloat16,
-               device="cpu"):
-    return {k: _zeros(s, device) for k, s in
-            cache_struct(cfg, batch, max_len, dtype=dtype).items()}
+def init_cache(cfg, batch: int, max_len: int, *, seq_shards: int = 1,
+               dtype=torch.bfloat16, device="cpu"):
+    shapes, _ = cache_struct(cfg, batch, max_len, seq_shards=seq_shards,
+                             dtype=dtype)
+    return {k: _zeros(s, device) for k, s in shapes.items()}
 
 
 # ----------------------------------------------------------------------------
@@ -149,23 +175,28 @@ def make_layout(max_batch: int, max_len: int, *, page_size: int = 0,
 
 
 def paged_struct(cfg, layout: PageLayout, *, dtype=torch.bfloat16):
-    """The contiguous struct with kv_full re-homed to the page pool, plus
-    the block table."""
+    """(shapes, specs) of the paged tree: the contiguous struct with kv_full
+    re-homed to the page pool (split over stage and, as the contiguous
+    group, over tp), plus the block table (whole: every stage resolves the
+    same logical -> physical map)."""
     from repro_torch.models.lm import layer_meta
-    out = cache_struct(cfg, layout.max_batch, layout.max_len, dtype=dtype)
-    if "kv_full" in out:
+    shapes, specs = cache_struct(cfg, layout.max_batch, layout.max_len,
+                                 dtype=dtype)
+    if "kv_full" in shapes:
         shp = (cfg.stages * layer_meta(cfg)["m_full"], layout.num_pages + 1,
                layout.page_size, cfg.num_kv_heads, cfg.head_dim)
-        out["kv_full"] = ((shp, dtype), (shp, dtype))
-    out["block_tab"] = ((layout.max_batch, layout.pages_per_slot),
-                        torch.int32)
-    return out
+        shapes["kv_full"] = ((shp, dtype), (shp, dtype))
+        specs["kv_full"] = ((S_AX, None, None, _kv_tp(cfg), None),) * 2
+    shapes["block_tab"] = ((layout.max_batch, layout.pages_per_slot),
+                           torch.int32)
+    specs["block_tab"] = (None, None)
+    return shapes, specs
 
 
 def init_paged(cfg, layout: PageLayout, *, dtype=torch.bfloat16,
                device="cpu"):
     tree = {k: _zeros(s, device) for k, s in
-            paged_struct(cfg, layout, dtype=dtype).items()}
+            paged_struct(cfg, layout, dtype=dtype)[0].items()}
     tree["block_tab"].fill_(-1)
     return tree
 
@@ -265,22 +296,148 @@ def upd_kv_rows(group, i, pos_idx, new_row, sel):
 
 
 # ----------------------------------------------------------------------------
+# the spmd placement and the pipeline's microbatch views
+# ----------------------------------------------------------------------------
+def shard_cache(cfg, cache, mesh, specs):
+    """Every (data, stage, tp) slot's own cache: out[d][s][t] is a dict
+    with the keys of `cache` (a global tree of init_cache / init_paged)
+    whose leaves are the slot's part of each global leaf under `specs`
+    (cache_struct's or paged_struct's).
+
+    A leaf's stage part is its `layer_slots` groups of dim 0; a dim the
+    spec splits over tp (the KV heads) or data (batch rows, or sequence
+    positions) gives each slot its chunk. Every slot leaf is contiguous —
+    a view where the chunk already is, else a copy made here once (so a
+    KV-head chunk of a page pool is a pool of its own, as the paged
+    decode kernel needs). A leaf the spec keeps whole over tp (KV % tp !=
+    0, trap Y3; the SSM / RWKV state) or over data is one tensor on the
+    (0, s, 0) slot's device, the same object in every such slot: written
+    once, by shard 0 of data slot 0. The block table (no stage dim) is one
+    copy per device. `cache` is not used after: its leaves may be shared."""
+    grid = mesh.devices.reshape(-1, mesh.shape[S_AX], mesh.shape[T_AX])
+    n_d, n_s, n_t = grid.shape
+    out = [[[{} for _ in range(n_t)] for _ in range(n_s)] for _ in range(n_d)]
+    tabs: dict = {}
+    for key, leaf in cache.items():
+        spec = specs[key]
+        pair = isinstance(leaf, tuple)
+        parts = [_shard_leaf(x, sp, grid, tabs) for x, sp in
+                 (zip(leaf, spec) if pair else [(leaf, spec)])]
+        for d in range(n_d):
+            for s in range(n_s):
+                for t in range(n_t):
+                    got = tuple(p[d][s][t] for p in parts)
+                    out[d][s][t][key] = got if pair else got[0]
+    return out
+
+
+def _shard_leaf(x, spec, grid, tabs):
+    """[d][s][t] parts of one global leaf (see shard_cache)."""
+    n_d, n_s, n_t = grid.shape
+    if S_AX not in spec:                     # the block table, read-only
+        return [[[tabs.setdefault(grid[d, s, t], x.to(grid[d, s, t]))
+                  for t in range(n_t)] for s in range(n_s)]
+                for d in range(n_d)]
+    out = []
+    for d in range(n_d):
+        rows = []
+        for s, xs in enumerate(x.chunk(n_s, dim=spec.index(S_AX))):
+            if d and D_AX not in spec:
+                rows.append(out[0][s])       # whole over data: data slot 0's
+                continue
+            if D_AX in spec:
+                xs = xs.chunk(n_d, dim=spec.index(D_AX))[d]
+            if T_AX in spec:
+                rows.append([c.to(grid[d, s, t]).contiguous() for t, c in
+                             enumerate(xs.chunk(n_t, dim=spec.index(T_AX)))])
+            else:
+                rows.append([xs.to(grid[d, s, 0]).contiguous()] * n_t)
+        out.append(rows)
+    return out
+
+
+def slot_trees(tree) -> list:
+    """The per-slot cache dicts of a tree: the dict itself, or every dict
+    of shard_cache's nesting."""
+    if isinstance(tree, dict):
+        return [tree]
+    return [c for row in tree for slot in row for c in slot]
+
+
+def _each(v, fn):
+    """fn over a leaf or the leaves of nested tuples (K/V pairs, and the
+    data slots' pairs of a sequence-sharded decode's kv_merge)."""
+    return tuple(_each(a, fn) for a in v) if isinstance(v, tuple) else fn(v)
+
+
+def _leaves(v) -> list:
+    return [x for a in v for x in _leaves(a)] if isinstance(v, tuple) \
+        else [v]
+
+
+def slice_mb(cache, j, mb):
+    """The per-microbatch view of a (slot's) cache the pipeline stage
+    computes on: per-slot leaves sliced to rows [j*mb, (j+1)*mb) at dim 1,
+    the page pool whole (microbatches own disjoint pages; writes are
+    scatters), the block table row-sliced alongside the batch. Every leaf
+    is a view: the stage's writes land in `cache`."""
+    if cache is None:
+        return None
+    paged = is_paged(cache)
+    out = {}
+    for key, v in cache.items():
+        if key == "block_tab":
+            out[key] = v[j * mb:(j + 1) * mb]
+        elif paged and key == "kv_full":
+            out[key] = v
+        else:
+            out[key] = _each(v, lambda a: a[:, j * mb:(j + 1) * mb])
+    return out
+
+
+def update_mb(cache, new_rows, j, mb, valid):
+    """Write a stage's per-microbatch cache back into `cache`. The stage
+    wrote slice_mb's views in place, so only a leaf that is not such a view
+    is copied in: per-slot rows when the tick is `valid`, a replaced page
+    pool whole (its scatters routed dead rows to the trash page, as in the
+    JAX package); the block table is read-only in a step. Returns
+    `cache`."""
+    paged = is_paged(cache)
+    for key, v in cache.items():
+        pool = paged and key == "kv_full"
+        if key == "block_tab" or not (valid or pool):
+            continue
+        for a, n in zip(_leaves(v), _leaves(new_rows[key])):
+            dst = a if pool else a[:, j * mb:(j + 1) * mb]
+            if n.data_ptr() != dst.data_ptr() or n.stride() != dst.stride():
+                dst.copy_(n)
+    return cache
+
+
+# ----------------------------------------------------------------------------
 # the store
 # ----------------------------------------------------------------------------
 class CacheStore:
     """Owns one serve cache: the device tree plus host-side page
     accounting. The Scheduler allocates pages at admission and frees them
     at retirement; the Engine's serve steps read and write the tree in
-    place."""
+    place.
+
+    mesh: a launch.mesh.Mesh of the spmd backend; the tree is then
+    shard_cache's per-slot nesting, one contiguous pool per (stage, tp)
+    slot (None: the one global tree on `device`). The accounting and
+    stats() are the global tree's either way."""
 
     def __init__(self, cfg, layout: PageLayout, *, dtype=torch.bfloat16,
-                 device="cpu"):
+                 device="cpu", mesh=None):
         self.cfg, self.layout, self.dtype = cfg, layout, dtype
         self.device = torch.device(device)
-        self.tree = init_paged(cfg, layout, dtype=dtype, device=self.device)
+        self.mesh = mesh
+        self.tree = self._place(init_paged(cfg, layout, dtype=dtype,
+                                           device=self.device))
         # attention-free / all-windowed families have no full-attention KV
         # group: there is no pool to ration
-        self._has_pool = "kv_full" in self.tree
+        self._has_pool = "kv_full" in slot_trees(self.tree)[0]
         self._tab = np.full((layout.max_batch, layout.pages_per_slot), -1,
                             np.int32)
         self._free = list(range(layout.num_pages)) if self._has_pool else []
@@ -396,8 +553,8 @@ class CacheStore:
 
     def copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write primitive: device-copy page `src` -> `dst` across
-        the K and V pools of every layer group, in place."""
-        for pool in self.tree["kv_full"]:
+        the K and V pools of every layer group (every slot's), in place."""
+        for pool in self._unique("kv_full"):
             pool[:, dst].copy_(pool[:, src])
         self.cow_copies += 1
 
@@ -406,7 +563,26 @@ class CacheStore:
             self.last_touch[p] = step
 
     def _sync_tab(self) -> None:
-        self.tree["block_tab"].copy_(torch.from_numpy(self._tab))
+        tab = torch.from_numpy(self._tab)
+        for t in self._unique("block_tab"):
+            t.copy_(tab)
+
+    def _place(self, tree):
+        """A global tree as this store holds it (see the class doc)."""
+        if self.mesh is None:
+            return tree
+        return shard_cache(self.cfg, tree, self.mesh,
+                           paged_struct(self.cfg, self.layout)[1])
+
+    def _unique(self, key) -> list:
+        """The distinct tensors under `key` over the tree's slots (a leaf
+        shared by slots once)."""
+        seen = {}
+        for c in slot_trees(self.tree):
+            v = c.get(key, ())
+            for t in (v if isinstance(v, tuple) else (v,)):
+                seen.setdefault(id(t), t)
+        return list(seen.values())
 
     # ---- views / updates ---------------------------------------------
     def prefill_input(self, slots, skip_pages=None):
@@ -425,12 +601,14 @@ class CacheStore:
             if skip_pages is not None and skip_pages[j]:
                 tab[j, :skip_pages[j]] = -1
         out = {"block_tab": torch.from_numpy(tab).to(self.device)}
-        structs = paged_struct(self.cfg, lo, dtype=self.dtype)
+        structs = paged_struct(self.cfg, lo, dtype=self.dtype)[0]
         for key in SLOT_KEYS:
             if key in structs:
                 out[key] = _zeros(structs[key], self.device)
+        out = self._place(out)
         if self._has_pool:
-            out["kv_full"] = self.tree["kv_full"]
+            for o, c in zip(slot_trees(out), slot_trees(self.tree)):
+                o["kv_full"] = c["kv_full"]
         return out
 
     def append_rows(self, out_tree, pairs) -> None:
@@ -441,38 +619,45 @@ class CacheStore:
             return
         srcs = torch.tensor([s for s, _ in pairs], device=self.device)
         dsts = torch.tensor([d for _, d in pairs], device=self.device)
-        for key in SLOT_KEYS:
-            if key in self.tree:
-                leaves = self.tree[key]
-                news = out_tree[key]
-                pairs_ = zip(leaves, news) if isinstance(leaves, tuple) \
-                    else [(leaves, news)]
-                for big, f in pairs_:
-                    big[:, dsts] = f[:, srcs]
+        done = set()
+        for mine, new in zip(slot_trees(self.tree), slot_trees(out_tree)):
+            for key in SLOT_KEYS:
+                if key not in mine:
+                    continue
+                leaves, news = mine[key], new[key]
+                for big, f in (zip(leaves, news) if isinstance(leaves, tuple)
+                               else [(leaves, news)]):
+                    if id(big) not in done:     # a shared leaf once
+                        done.add(id(big))
+                        big[:, dsts.to(big.device)] = f[:, srcs.to(f.device)]
 
     def update(self, out_tree) -> None:
         """Absorb a decode step's output tree (the host block table stays
         authoritative)."""
-        tab = self.tree["block_tab"]
-        self.tree = dict(out_tree)
-        self.tree["block_tab"] = tab
+        for mine, new in zip(slot_trees(self.tree), slot_trees(out_tree)):
+            if new is not mine:
+                mine.update({k: v for k, v in new.items()
+                             if k != "block_tab"})
 
     # ---- reporting ---------------------------------------------------
     def stats(self) -> dict:
         """Page accounting + bytes."""
         lo = self.layout
+        # the global tree's bytes, whatever the placement (a leaf kept whole
+        # over tp counts once, as one global array)
+        shapes = paged_struct(self.cfg, lo, dtype=self.dtype)[0]
         page_bytes = 0
         if self._has_pool:
-            k, _ = self.tree["kv_full"]
+            (shp, dt), _ = shapes["kv_full"]
             # one page across both K and V pools, all layer groups
-            page_bytes = 2 * k.shape[0] * lo.page_size * int(
-                np.prod(k.shape[3:])) * k.element_size()
+            page_bytes = 2 * shp[0] * lo.page_size * int(np.prod(shp[3:])) \
+                * dt.itemsize
         slot_bytes = 0
         for key in SLOT_KEYS:
-            if key in self.tree:
-                leaves = self.tree[key]
-                leaves = leaves if isinstance(leaves, tuple) else (leaves,)
-                slot_bytes += sum(t.numel() * t.element_size() for t in leaves)
+            if key in shapes:
+                st = shapes[key]
+                for shp, dt in (st if isinstance(st[1], tuple) else (st,)):
+                    slot_bytes += int(np.prod(shp)) * dt.itemsize
         return {
             "page_size": lo.page_size,
             "pages_total": self.pages_total,

@@ -154,6 +154,10 @@ class Router:
         if plan.serve is None:
             raise ValueError("the Router drives serve Plans; Plan.serve is "
                              "unset — give the Plan a ServeSpec")
+        if plan.run.backend != "threads":
+            raise ValueError("data-parallel serve replicas are threads-"
+                             "backend only for now; the spmd mesh serves "
+                             "as a single replica")
         if policy not in ROUTER_POLICIES:
             raise ValueError(f"unknown router policy {policy!r}; expected "
                              f"one of {ROUTER_POLICIES}")

@@ -559,3 +559,84 @@ def test_gemma3_hd256_kernels_match_plain_versions(card, dtype):
     torch.testing.assert_close(out.float(), tref.decode_paged_ref(
         q1, kp, vp, tab, lens, layer=3).float(), **_tol(dtype))
     assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_one_tp_shards_shapes(card, dtype):
+    """The attention kernels at the shapes one tp shard of qwen3-0.6b's
+    (1, 4, 4) serve mesh hands them: 4 query / 2 KV heads of 128 and a
+    1-row microbatch — the paged decode over one (stage, tp) slot's own
+    pool (2 stage-local layer groups, 48 pages of 16 + the trash page),
+    the contiguous decode over a row slice of one stage's group, and the
+    prefill attention; each against its plain version, on the route
+    `_route` gives. A KV-head chunk of a global pool is strided: the paged
+    kernel refuses it (trap T-a)."""
+    g = torch.Generator(device=card).manual_seed(25)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device=card).to(dtype)
+
+    tc = "tc" if dtype == torch.bfloat16 else "simt_f32"
+    q1 = rnd(1, 4, 128)
+    kp, vp = rnd(2, 49, 16, 2, 128), rnd(2, 49, 16, 2, 128)
+    tab = torch.tensor([[3, 17, 40, 8, 22, -1, -1, -1, -1]],
+                       dtype=torch.int32, device=card)
+    for layer, n in ((0, 1), (1, 77), (1, 80)):
+        lens = torch.tensor([n], dtype=torch.int32, device=card)
+        reset_launches()
+        out = flash_decode_paged(q1, kp, vp, tab, lens, layer=layer)
+        torch.cuda.synchronize()
+        assert _ran("flash_decode_paged") == tc
+        torch.testing.assert_close(out.float(), tref.decode_paged_ref(
+            q1, kp, vp, tab, lens, layer=layer).float(), **_tol(dtype))
+    group = rnd(2, 8, 160, 2, 128)                 # one stage's kv_full
+    kc = group[1, 5:6].transpose(1, 2)             # microbatch 5's row
+    lens = torch.tensor([133], dtype=torch.int32, device=card)
+    reset_launches()
+    out = flash_decode(q1, kc, kc, lens)
+    torch.cuda.synchronize()
+    assert _ran("flash_decode") == tc
+    torch.testing.assert_close(out.float(), tref.decode_ref(
+        q1, kc, kc, lens).float(), **_tol(dtype))
+    q = rnd(1, 128, 4, 128).transpose(1, 2)
+    k = rnd(1, 128, 2, 128).transpose(1, 2)
+    reset_launches()
+    out = flash_attention_fwd(q, k, k)
+    torch.cuda.synchronize()
+    assert _ran("flash_attention_fwd") == tc
+    torch.testing.assert_close(out.float(), tref.attention_ref(
+        q, k, k).float(), **_tol(dtype))
+    whole = rnd(8, 49, 16, 8, 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_decode_paged(q1, whole[:2, :, :, :2], whole[:2, :, :, :2],
+                           tab, lens, layer=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 8, 40])
+def test_grouped_matmul_at_a_tp_shard(card, dtype, C):
+    """granite-moe-1b-a400m's w_in over tp 2 (its ff split: f = G ff / tp
+    = 512) and w_out's shard ([E, ff / tp, d]) as the model reshapes them,
+    at a decode microbatch's and a prefill microbatch's capacities."""
+    g = torch.Generator(device=card).manual_seed(C)
+    E, d, G, ff = 32, 1024, 2, 512
+    w_in = torch.randn((E, d, G, ff), generator=g, device=card) * d ** -0.5
+    w_out = torch.randn((E, ff, d), generator=g, device=card) * ff ** -0.5
+    for x_dim, w in ((d, w_in.chunk(2, dim=3)[1].to(dtype).reshape(
+            E, d, G * ff // 2)), (ff // 2, w_out.chunk(2, dim=1)[0].to(
+                dtype))):
+        x = torch.randn((E, C, x_dim), generator=g, device=card).to(dtype)
+        reset_launches()
+        out = grouped_matmul(x, w)
+        torch.cuda.synchronize()
+        want_route = "simt_f32" if dtype == torch.float32 else (
+            "tc_decode" if C <= 16 else "tc_prefill")
+        assert _ran("grouped_matmul") == want_route == moe_gmm._route(x, w)
+        want = tref.gmm_ref(x, w)
+        if dtype == torch.float32:
+            scale = float(want.abs().max())
+            torch.testing.assert_close(out, want, atol=2e-5 * scale,
+                                       rtol=2e-5)
+        else:
+            torch.testing.assert_close(out.float(), want.float(),
+                                       **_tol(dtype))

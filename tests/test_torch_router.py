@@ -80,13 +80,18 @@ def test_cluster_plan_validation():
     assert "replicas=2" in plan.describe()
     with pytest.raises(ValueError, match="data"):
         Plan(arch=cfg, serve=_sv(), partition=PartitionSpec(data=0))
-    # the spmd backend is not ported (item 9), replicas or not
-    for serve, part in ((_sv(), PartitionSpec(data=2)),
-                        (_sv(replicas=(ReplicaSpec(), ReplicaSpec())),
-                         PartitionSpec(data=2))):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            Plan(arch=cfg, serve=serve, run=RunSpec(backend="spmd"),
-                 partition=part)
+    # spmd serve keeps one replica on the mesh (tests/test_router.py:68-77),
+    # and the Router drives threads replicas only
+    with pytest.raises(ValueError, match="data-parallel serve"):
+        Plan(arch=cfg, serve=_sv(), run=RunSpec(backend="spmd"),
+             partition=PartitionSpec(stages=2, tp=1, data=2, devices=4))
+    with pytest.raises(ValueError, match="data-parallel serve"):
+        Plan(arch=cfg, serve=_sv(replicas=(ReplicaSpec(), ReplicaSpec())),
+             run=RunSpec(backend="spmd"),
+             partition=PartitionSpec(stages=2, tp=1, data=1, devices=2))
+    with pytest.raises(ValueError, match="threads-backend only"):
+        Router(Plan(arch=cfg, serve=_sv(), run=RunSpec(backend="spmd"),
+                    partition=PartitionSpec(stages=2, tp=1, data=1)), **CPU)
     # per-replica specs must match the fleet size and fit the ceiling
     with pytest.raises(ValueError, match="replicas"):
         Plan(arch=cfg, serve=_sv(replicas=(ReplicaSpec(max_batch=2),)),

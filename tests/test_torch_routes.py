@@ -550,3 +550,50 @@ def test_decode_hd256_matches_pallas():
     np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
                                **_tol("float32"))
     assert np.all(got[0].numpy() == 0.0)
+
+
+def test_routes_at_one_tp_shards_shapes():
+    """The spmd serve path at qwen3-0.6b's (1, 4, 4) mesh (trap T-c): one
+    tp shard holds 4 query and 2 KV heads of 128 and one microbatch is one
+    row, and every launch still routes tc — the paged decode over one
+    (stage, tp) slot's own pool (a contiguous pool per slot; the KV-head
+    chunk of the global pool would be strided, which the kernel refuses,
+    trap T-a), the contiguous decode over a row slice of one stage's group
+    (`layer` is a stage-local index), and the prefill attention of a
+    1-row microbatch."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serve import cache as cache_lib
+
+    cfg = dataclasses.replace(ARCHS["qwen3-0.6b"], num_layers=8)
+    mesh = make_test_mesh(1, 4, 4, devices="cpu")
+    store = cache_lib.CacheStore(
+        cfg, cache_lib.make_layout(8, 144, page_size=16, max_pages=48),
+        dtype=BF16, mesh=mesh)
+    q1 = torch.zeros(1, 4, 128, dtype=BF16)
+    for s in range(4):
+        for t in range(4):
+            view = cache_lib.slice_mb(store.tree[0][s][t], 5, 1)
+            kp, vp = view["kv_full"]
+            assert kp.shape == (2, 49, 16, 2, 128) and kp.is_contiguous()
+            assert view["block_tab"].shape == (1, 9)
+            assert fd._route(q1, kp, vp) == "tc"
+    glob = cache_lib.init_paged(cfg, store.layout, dtype=BF16)["kv_full"][0]
+    assert not glob[:2, :, :, :2].is_contiguous()
+    shapes, specs = cache_lib.cache_struct(cfg, 8, 160, seq_shards=16,
+                                           dtype=BF16)
+    slots = cache_lib.shard_cache(cfg, cache_lib.init_cache(
+        cfg, 8, 160, seq_shards=16, dtype=BF16), mesh, specs)
+    kf, vf = cache_lib.slice_mb(slots[0][3][1], 7, 1)["kv_full"]
+    for i in range(2):
+        assert fd._route(q1, kf[i].transpose(1, 2),
+                         vf[i].transpose(1, 2)) == "tc"
+    q = torch.zeros(1, 128, 4, 128, dtype=BF16).transpose(1, 2)
+    k = torch.zeros(1, 128, 2, 128, dtype=BF16).transpose(1, 2)
+    assert fa._route(q, k, k) == "tc"
+    # one row x 2 KV heads: short caches stay one block a row (a split
+    # would cost its merge more than the tc route's 256-position span)
+    assert fd._splits(1, 2, 144, "tc") == (1, 144)
+    assert fd._splits(1, 2, 160, "tc") == (1, 160)

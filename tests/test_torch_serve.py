@@ -20,8 +20,9 @@ from repro.api import get_preset as j_preset
 from repro.api.serving import Request as JRequest
 from repro.api.serving import Scheduler as JScheduler
 from repro.serve import cache as jcache
-from repro_torch.api import (Engine, FaultPlan, FaultPolicy, Plan,
-                             ReplicaDown, ServeSpec, SlotFault, get_preset)
+from repro_torch.api import (Engine, FaultPlan, FaultPolicy, PartitionSpec,
+                             Plan, ReplicaDown, ServeSpec, SlotFault,
+                             get_preset)
 from repro_torch.api.serving import Request, Scheduler
 from repro_torch.serve import cache as tcache
 from test_torch_model import carried_params
@@ -226,20 +227,21 @@ def test_page_ops_match_reference():
 
 def test_cache_layouts_match_reference():
     """cache_struct / paged_struct give the JAX package's groups and shapes
-    for every architecture (the layout knowledge later families reuse)."""
+    for every architecture (the layout knowledge later families reuse);
+    their specs are held to JAX's in tests/test_torch_spmd_serve.py."""
     from repro.configs import ARCHS as J_ARCHS
     from repro.configs import reduced as j_reduced
     from repro_torch.configs import ARCHS, reduced
     for name in ARCHS:
         arch, jarch = reduced(ARCHS[name]), j_reduced(J_ARCHS[name])
-        got = tcache.cache_struct(arch, 2, 16)
+        got, _ = tcache.cache_struct(arch, 2, 16)
         want, _ = jcache.cache_struct(jarch, 2, 16)
         assert jax.tree.map(lambda s: tuple(s.shape), want) == \
             {k: tuple(s[0]) if isinstance(s[1], torch.dtype)
              else tuple(tuple(x[0]) for x in s) for k, s in got.items()}
         lo = tcache.make_layout(2, 16, page_size=4)
         jlo = jcache.make_layout(2, 16, page_size=4)
-        got = tcache.paged_struct(arch, lo)
+        got, _ = tcache.paged_struct(arch, lo)
         want, _ = jcache.paged_struct(jarch, jlo)
         assert jax.tree.map(lambda s: tuple(s.shape), want) == \
             {k: tuple(s[0]) if isinstance(s[1], torch.dtype)
@@ -247,8 +249,8 @@ def test_cache_layouts_match_reference():
 
 
 def test_plan_validation():
-    """The port's backends are ref / cuda; the spmd backend (not ported)
-    raises, replica fleets are checked as the JAX package checks them."""
+    """The port's backends are ref / cuda; spmd serve Plans and replica
+    fleets are checked as the JAX package checks them."""
     arch = get_preset("serve_tiny").arch
     for bad in ("interpret", "tpu"):
         with pytest.raises(ValueError, match="kernel_backend"):
@@ -264,10 +266,12 @@ def test_plan_validation():
              faults=FaultPlan(events=(ReplicaDown(replica=0, step=1),)))
     with pytest.raises(TypeError, match="ReplicaSpec"):
         Plan(arch=arch, serve=ServeSpec(replicas=(object(),)))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Plan(arch=arch, serve=ServeSpec(),
-             run=dataclasses.replace(get_preset("serve_tiny").run,
-                                     backend="spmd"))
+    # spmd serve keeps one replica on the mesh (test_serve.py:79-81)
+    spmd = dataclasses.replace(get_preset("serve_tiny").run, backend="spmd")
+    assert Plan(arch=arch, serve=ServeSpec(), run=spmd).run.backend == "spmd"
+    with pytest.raises(ValueError, match="data-parallel serve"):
+        Plan(arch=arch, serve=ServeSpec(), run=spmd,
+             partition=PartitionSpec(stages=2, tp=1, data=2, devices=4))
     with pytest.raises(ValueError, match="evict"):
         Plan(arch=arch, serve=ServeSpec(evict=True))
     # the full-width arch serves (its train-only microbatch rule is skipped)

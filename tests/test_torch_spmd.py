@@ -201,13 +201,43 @@ def test_tp_layer_equals_the_whole_layer(arch):
     if cfg.num_experts:
         assert float(aux_tp[0]) == pytest.approx(float(aux_whole[0]),
                                                  rel=1e-6)
-    # one shard is apply_layer itself; serve modes wait for item 9
+    # one shard is apply_layer itself
     one = blocks.apply_layer_tp(cfg, [whole], x, LayerCtx(mode="train"))
     assert torch.equal(one, blocks.apply_layer(
         cfg, whole, x, LayerCtx(mode="train"))[0])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        blocks.apply_layer_tp(cfg, [shards[0][t][0] for t in range(2)], x,
-                              LayerCtx(mode="prefill"))
+    # prefill, then a decode step, over the tp slots' caches: the whole
+    # layer's outputs on the whole cache, and the same cache
+    _tp_serve_equals_whole(cfg, [shards[0][t][0] for t in range(2)], whole,
+                           x)
+
+
+def _tp_serve_equals_whole(cfg, tp_layers, whole, x):
+    from repro_torch.serve import cache as cache_lib
+    kind = int(lm.layer_meta(cfg)["kind"][0, 0])
+    B, S = x.shape[:2]
+    whole_c = cache_lib.init_cache(cfg, B, S + 4, dtype=torch.float32)
+    slots = cache_lib.shard_cache(
+        cfg, cache_lib.init_cache(cfg, B, S + 4, dtype=torch.float32),
+        mesh_lib.make_test_mesh(1, 2, 2, devices="cpu"),
+        cache_lib.cache_struct(cfg, B, S + 4)[1])[0][0]
+    for mode, xin, pos in (("prefill", x, None),
+                           ("decode", x[:, -1:] * 0.5,
+                            torch.full((B,), S, dtype=torch.int64))):
+        ctx = LayerCtx(mode=mode, kind=kind, pos=pos)
+        got = blocks.apply_layer_tp(cfg, tp_layers, xin, ctx, slots)
+        want, _ = blocks.apply_layer(cfg, whole, xin, ctx, whole_c)
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max()), mode
+    split = cfg.num_kv_heads % 2 == 0
+    for key, want in whole_c.items():
+        for i, w in enumerate(want if isinstance(want, tuple) else (want,)):
+            parts = [s[key][i] if isinstance(s[key], tuple) else s[key]
+                     for s in slots]
+            got = torch.cat(parts, dim=3) if split and key.startswith(
+                "kv") else parts[0]
+            w = w[:got.shape[0]]                          # stage 0's groups
+            assert float((got - w).abs().max()) <= \
+                1e-5 * max(float(w.abs().max()), 1e-30), key
 
 
 def test_kv_whole_groups_as_the_jax_device_does():
@@ -320,11 +350,11 @@ def test_pipeline_runs_each_microbatch_once_per_stage(overlap, monkeypatch):
     calls = []
     real = lm.stage_apply
 
-    def spy(cfg_, stage_layers, x, meta, ctx):
+    def spy(cfg_, stage_layers, x, meta, ctx, caches=None):
         s = next(i for i in range(cfg.stages)
                  if stage_layers[0] is shards[i][0])
         calls.append((s, float(x.sum())))
-        return real(cfg_, stage_layers, x, meta, ctx)
+        return real(cfg_, stage_layers, x, meta, ctx, caches)
 
     monkeypatch.setattr(lm, "stage_apply", spy)
     x = torch.randn(8, 16, cfg.d_model)
@@ -342,9 +372,19 @@ def test_pipeline_runs_each_microbatch_once_per_stage(overlap, monkeypatch):
                      {k: v[s] for k, v in wave._meta_tree(cfg).items()},
                      LayerCtx(mode="train"))
         assert torch.equal(y[2 * j:2 * j + 2], h)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        wave.pipeline_wave(cfg, shards, x, wave._meta_tree(cfg),
-                           mode="decode", nm=4)
+    # prefill runs the same schedule (its cache riding along) to the same
+    # hidden states, and drops the aux
+    from repro_torch.serve import cache as cache_lib
+    caches = cache_lib.shard_cache(
+        cfg, cache_lib.init_cache(cfg, 8, 16, dtype=torch.float32), m,
+        cache_lib.cache_struct(cfg, 8, 16)[1])[0]
+    calls.clear()
+    monkeypatch.setattr(lm, "stage_apply", spy)
+    yp, auxp = wave.pipeline_wave(cfg, shards, x, wave._meta_tree(cfg),
+                                  mode="prefill", nm=4, cache=caches,
+                                  overlap=overlap)
+    assert [s for s, _ in calls] == [s for _, s in live]
+    assert auxp is None and torch.equal(yp, y)
 
 
 def test_aux_is_summed_over_stages_then_averaged_over_data_and_nm():

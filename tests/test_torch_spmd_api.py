@@ -80,15 +80,20 @@ def test_plan_rejects_knobs_the_spmd_backend_would_drop():
 
 
 def test_spmd_refuses_faults_and_serving():
-    """test_faults.py:87's refusal (no fault seams on spmd) and the serve
-    half, which is still ROADMAP Queue 1 item 9."""
+    """test_faults.py:87's refusal (no fault seams on spmd), and serving on
+    spmd: one replica on the mesh (JAX's refusal of data-parallel serve),
+    whose greedy tokens come back from generate()."""
     crash = FaultPlan(events=(WorkerCrash(vw=0, wave=1),))
     with pytest.raises(ValueError, match="spmd"):
         Plan(arch=CFG, run=RunSpec(backend="spmd"), faults=crash,
              partition=MESH2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Plan(arch=CFG, run=RunSpec(backend="spmd"),
-             serve=ServeSpec(prompt_len=8, gen=4, max_batch=2))
+    sv = ServeSpec(prompt_len=8, gen=4, max_batch=2)
+    with pytest.raises(ValueError, match="data-parallel serve"):
+        Plan(arch=CFG, run=RunSpec(backend="spmd"), serve=sv,
+             partition=PartitionSpec(stages=2, tp=1, data=2, devices=4))
+    plan = Plan(arch=CFG, run=RunSpec(backend="spmd"), serve=sv)
+    rep = Engine(plan, device="cpu").generate()
+    assert rep.backend == "spmd" and rep.tokens.shape == (2, 4)
     # a policy alone is fine (the spmd backend reads none of it)
     Plan(arch=CFG, run=RunSpec(backend="spmd"), partition=MESH2,
          fault_policy=FaultPolicy(evict_lag=1))

@@ -84,15 +84,18 @@ def test_plan_rejects_knobs_the_backend_would_drop():
         Plan(sync=BSP(), cluster=ClusterSpec(num_vw=2, fail_at={0: 1}))
     with pytest.raises(ValueError, match="spmd mesh"):
         Plan(arch=CFG, partition=PartitionSpec(stages=4, data=2))
-    # the spmd backend trains (its mesh validated as JAX's); serving on it
-    # is the serve half of item 9
+    # the spmd backend trains and serves (its mesh validated as JAX's);
+    # the host-level knobs are refused on both
     plan = Plan(arch=CFG, run=RunSpec(backend="spmd"))
     assert (plan.stages, plan.tp, plan.devices_needed) == (CFG.stages, 1, 2)
     with pytest.raises(ValueError, match="reduces in-graph"):
         Plan(arch=CFG, run=RunSpec(backend="spmd", codec="int8"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Plan(arch=CFG, run=RunSpec(backend="spmd"),
-             serve=ServeSpec(prompt_len=8, gen=4, max_batch=2))
+    sv = ServeSpec(prompt_len=8, gen=4, max_batch=2)
+    assert "backend=spmd" in Plan(arch=CFG, run=RunSpec(backend="spmd"),
+                                  serve=sv).describe()
+    with pytest.raises(ValueError, match="reduces in-graph"):
+        Plan(arch=CFG, run=RunSpec(backend="spmd"), serve=sv,
+             cluster=ClusterSpec(topology="2node"))
     # a FaultPlan is accepted (validated against the Plan), a stand-in is
     # refused by type, and the serving-only ReplicaDown needs a fleet with
     # a survivor (and is refused on a train Plan)
