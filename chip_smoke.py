@@ -106,8 +106,8 @@ Phases (each prints a line; any failure exits nonzero):
  16. train-parity: one wave of reduced qwen3-0.6b on the card against the
      same wave on the CPU in this process: loss, grads and adamw deltas;
  17. fleet: Engine.fit() at full width — single_node (2 VWs, WSP D 1) and
-     bsp_baseline (2 VWs) on FLEET_LAYERS = 8 layers, 4 waves each of
-     batch 16 x seq 256 in 4-row microbatches (Nm 4), and
+     bsp_baseline (2 VWs), 4 waves each of batch 16 x seq 256 in 4-row
+     microbatches (Nm 4), and
      paper_hetero (4 VWs, D 2, async push, pull_every 2) at qwen3's widths
      on 4 layers: per-VW wave ms, gate waits, overlap seconds, peak
      memory; the staleness audit (max distance <= D) holds and every loss
@@ -194,7 +194,8 @@ Phases (each prints a line; any failure exits nonzero):
      LOGIT_TOL, printed); then granite-moe-1b-a400m (grouped_matmul over
      tp shards), rwkv6-3b (rwkv6_chunked) and hymba-1.5b (ssd_chunked
      beside the attention kernels) reduced on a (1, 2, 2) mesh, their
-     launches exact and on their fast routes;
+     launches exact and on their fast routes, and every launch held
+     against its plain version on the inputs the pass handed it;
  26. one JSON line of per-kernel numbers.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script fails before printing any
@@ -296,10 +297,6 @@ WEIGHT_SCALE = 10.0
 # the full depth.
 SPMD_LAYERS = 4
 SPMD_SERVE_LAYERS = 4
-# phase 17's depth for single_node and bsp_baseline (full width; the
-# host-side PS and ring all-reduce copy every layer's deltas each wave):
-# at all 28 layers the two took 112 s on a slow host (PERF.md, fleet)
-FLEET_LAYERS = 8
 DENSE_MATS = ("wq", "wk", "wv", "wo", "mlp_wi", "mlp_wo")
 # bf16 greedy picks whose top-2 logit margin is under this (the kernels'
 # bf16 tolerance) count as near-ties in the chaos-serve comparison
@@ -568,11 +565,10 @@ def train_phases(dev):
     run = RunSpec(max_waves=4, batch=16, seq=256, optimizer="adamw",
                   lr=1e-3)
     part = PartitionSpec(num_microbatches=4)
-    qf = dataclasses.replace(q, num_layers=FLEET_LAYERS)
     fleet = [("single_node", get_preset("single_node").replace(
-                 arch=qf, run=run, partition=part)),
+                 arch=q, run=run, partition=part)),
              ("bsp_baseline", get_preset("bsp_baseline").replace(
-                 arch=qf, run=run, partition=part)),
+                 arch=q, run=run, partition=part)),
              ("paper_hetero", get_preset("paper_hetero").replace(
                  arch=dataclasses.replace(q, num_layers=4), run=run,
                  partition=part))]
@@ -1009,6 +1005,7 @@ def spmd_serve_phase(dev, arch=None, layers=SPMD_SERVE_LAYERS, card="",
     from repro_torch.api.serving import Request, Scheduler
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
+    from repro_torch.kernels import ops as kernel_ops
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.flash_decode import (flash_decode,
@@ -1197,10 +1194,11 @@ def spmd_serve_phase(dev, arch=None, layers=SPMD_SERVE_LAYERS, card="",
                                    kref.decode_ref(q1, kc, vc, lens))
     qa = torch.randn((1, 128, hq, hd), generator=g,
                      device=dev).to(torch.bfloat16).transpose(1, 2)
-    ka = torch.randn((1, 128, hkv, hd), generator=g,
-                     device=dev).to(torch.bfloat16).transpose(1, 2)
+    ka, va = (torch.randn((1, 128, hkv, hd), generator=g,
+                          device=dev).to(torch.bfloat16).transpose(1, 2)
+              for _ in range(2))
     errs["flash_attention_fwd"] = err_max(
-        flash_attention_fwd(qa, ka, ka), kref.attention_ref(qa, ka, ka))
+        flash_attention_fwd(qa, ka, va), kref.attention_ref(qa, ka, va))
     if max(errs.values()) > TOL["bfloat16"]:
         raise AssertionError(f"serve-spmd: kernels vs plain at the shard "
                              f"shapes {errs}")
@@ -1246,6 +1244,64 @@ def spmd_serve_phase(dev, arch=None, layers=SPMD_SERVE_LAYERS, card="",
     torch.cuda.empty_cache()
 
     # ---- 25e. the other kernels, reduced, on a (1, 2, 2) mesh -------------
+    # Every launch of these passes is held against its plain version on the
+    # very inputs the pass hands the kernel (grouped_matmul at a tp shard's
+    # f = G ff / tp, the scans on a microbatch's rows, the attention
+    # kernels at a shard's heads): ops' kernel names are wrapped for the
+    # passes, each wrapper launching once (the count the pass reads) and
+    # running the plain version beside it, which launches nothing. The
+    # recurrences (f32 inputs) within atol = rtol = RWKV_TOL / SSD_TOL
+    # everywhere, as phase 2 holds them; the bf16 kernels within
+    # TOL["bfloat16"] of an O(1) output, scaled by max(1, max |plain|).
+    plain = {"grouped_matmul": kref.gmm_ref, "rwkv6_chunked": kref.rwkv6_ref,
+             "ssd_chunked": kref.ssd_ref,
+             "flash_attention_fwd": kref.attention_ref,
+             "flash_decode": kref.decode_ref,
+             "flash_decode_paged": kref.decode_paged_ref}
+    rec_tol = {"rwkv6_chunked": RWKV_TOL, "ssd_chunked": SSD_TOL}
+    path_err: dict = {}
+    idle: dict = {}
+    bad: list = []
+
+    def held(name, kernel):
+        def call(*args, **kw):
+            out = kernel(*args, **kw)
+            want = plain[name](*args, **kw)
+            rows = slice(None)
+            if name == "flash_decode_paged":
+                # the rows whose live positions all lie on mapped pages: on
+                # an unmapped (-1) page the plain version reads the trash
+                # page where the kernel, as the TPU kernel, reads nothing;
+                # the others are the Scheduler's idle slots (position 0, no
+                # pages), whose outputs it discards
+                tab = args[3]
+                lens = kref._row_lengths(args[4], tab.shape[0], tab.device)
+                first = torch.arange(tab.shape[1], device=tab.device)
+                rows = ~((tab < 0) & (first[None] * args[1].shape[2]
+                                      < lens[:, None])).any(dim=1)
+                idle[name] = idle.get(name, 0) + int((~rows).sum())
+            pairs = [(a[rows].float(), b[rows].float()) for a, b in (
+                zip(out, want) if isinstance(out, tuple) else [(out, want)])]
+            e = max((err_max(a, b) for a, b in pairs if a.numel()),
+                    default=0.0)
+            if name in rec_tol:
+                tol = rec_tol[name]
+                ok = all(bool(((a - b).abs() <= tol + tol * b.abs()).all())
+                         for a, b in pairs)
+            else:
+                tol = TOL[str(out.dtype).split(".")[-1]]
+                ok = e <= tol * max(1.0, pairs[0][1].abs().max().item()
+                                    if pairs[0][1].numel() else 0.0)
+            shape = " ".join("x".join(map(str, t.shape)) for t in args[:2])
+            if not (ok and all(bool(torch.isfinite(a).all())
+                               for a, _ in pairs)):
+                bad.append(f"{name} ({shape}): max |kernel - plain| "
+                           f"{e:.3e} (tolerance {tol})")
+            by_shape = path_err.setdefault(name, {})
+            by_shape[shape] = max(by_shape.get(shape, 0.0), e)
+            return out
+        return call
+
     # widths the scan kernels take (WKV heads of 64; SSD heads of 64,
     # state 16); need(L layers, Lf full-attention layers, Nm, report): the
     # exact launches (tp 2; the RWKV6 layers and the SSD branch run once)
@@ -1274,20 +1330,42 @@ def spmd_serve_phase(dev, arch=None, layers=SPMD_SERVE_LAYERS, card="",
         ea = Engine(Plan(arch=a, run=spmd, serve=sv, partition=PartitionSpec(
             stages=2, tp=2, data=1)), params=pa, device=dev)
         Scheduler(ea).run([Request(50, rq[0].prompt, max_new_tokens=2)])
-        reset_launches()
-        ra = Scheduler(ea).run(rq)
-        torch.cuda.synchronize()
-        got = measured()
+        kernels = {k: getattr(kernel_ops, k) for k in plain}
+        path_err.clear()
+        idle.clear()
+        bad.clear()
+        try:
+            for k, fn in kernels.items():
+                setattr(kernel_ops, k, held(k, fn))
+            reset_launches()
+            ra = Scheduler(ea).run(rq)
+            torch.cuda.synchronize()
+            got = measured()
+        finally:
+            for k, fn in kernels.items():
+                setattr(kernel_ops, k, fn)
         full = sum(1 for k in a.layer_kinds() if k == 0) \
             if a.attn_type != "none" else 0
         want = need(a.num_layers, full, 2, ra)
         expect(name, got, want)
+        if bad:
+            raise AssertionError(f"serve-spmd {name}: kernels against their "
+                                 f"plain versions on the path's inputs: "
+                                 + "; ".join(bad))
+        if set(path_err) != {k for k, n in want.items() if n}:
+            raise AssertionError(f"serve-spmd {name}: held {sorted(path_err)}"
+                                 f" against the launched {sorted(want)}")
         out[f"{name} serve-spmd (reduced, 1 x 2 x 2)"] = got
         log("serve-spmd", f"{name} reduced ({a.num_layers} layers, d "
             f"{a.d_model}) on mesh (1, 2, 2), bf16 through the kernels: "
             f"{ra.tokens_out} tokens, {ra.prefill_calls} prefill groups, "
             f"{ra.decode_steps} decode steps; launches "
-            f"{ {k: got[k] for k in want} } (exact, fast routes)")
+            f"{ {k: got[k] for k in want} } (exact, fast routes); every "
+            f"launch against its plain version on the same inputs (idle "
+            f"Scheduler slots' rows left out: {idle or 'none'}), max "
+            f"|kernel - plain| by the first two inputs' shapes "
+            + json.dumps({k: {sh: float(f"{e:.3e}") for sh, e in v.items()}
+                          for k, v in sorted(path_err.items())}))
         del ea, pa
     log("serve-spmd", f"phase {time.monotonic() - t_phase:.1f} s")
     return out

@@ -480,12 +480,7 @@ class Plan:
                     "tp) mesh; data-parallel serve replicas are threads-"
                     "backend only for now — set partition.data=1 (and drop "
                     "ServeSpec.replicas) or use backend='threads'")
-            if cl.topology is not None:
-                raise ValueError(
-                    "cluster.topology prices the Router's dispatch over "
-                    "threads-backend serve replicas; the spmd mesh is a "
-                    "single replica — unset it")
-            return
+            return          # cluster.topology: refused by _validate_spmd
         if p.data < 1:
             raise ValueError(
                 f"partition.data counts the Router's serve replicas and "

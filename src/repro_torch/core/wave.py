@@ -101,10 +101,12 @@ def pipeline_wave(cfg: ArchConfig, shards, x_local, meta, *, mode: str,
     the JAX package): backward recomputes the stage from its saved input.
 
     Prefill and decode (no autograd): cache[s][t] is the (stage, tp)
-    slot's cache (serve.cache.shard_cache), written in place: a live tick
-    computes on slice_mb's views of the microbatch's rows and update_mb
-    writes back what was not a view; a bubble tick skips the slice, the
-    stage call and the write alike (as the JAX package's cond does). pos
+    slot's cache (serve.cache.shard_cache): a live tick computes on
+    slice_mb's views of the microbatch's rows, and every stage write lands
+    in place through them (a layer that replaced a leaf would lose its
+    write: the JAX package's update_mb step has nothing to do here); a
+    bubble tick skips the slice and the stage call alike (as the JAX
+    package's cond does). pos
     (decode, [Bl]) and lens (prefill, [Bl] or None) are sliced with the
     microbatch. merge (decode over a sequence-sharded cache): the other
     data slots' shard offsets, their kv_full groups in each slot's
@@ -140,13 +142,9 @@ def pipeline_wave(cfg: ArchConfig, shards, x_local, meta, *, mode: str,
                 mode=mode, kernel_backend=kernel_backend, merge=merge,
                 pos=None if pos is None else pos[rows].to(dev),
                 lens=None if lens is None else lens[rows].to(dev))
-            slots = cache[s][:tp_live]
-            views = [cache_lib.slice_mb(c, j, mb) for c in slots]
-            y = lm.stage_apply(cfg, shards[s][:tp_live], x_in, metas, ctx,
-                               views)
-            for c, v in zip(slots, views):
-                cache_lib.update_mb(c, v, j, mb, True)
-            return y, None
+            views = [cache_lib.slice_mb(c, j, mb) for c in cache[s][:tp_live]]
+            return lm.stage_apply(cfg, shards[s][:tp_live], x_in, metas, ctx,
+                                  views), None
 
         if mode != "train":
             return serve_call

@@ -197,7 +197,13 @@ def flash_decode_paged(q1, k_pool, v_pool, block_tab, lengths, *, layer=0,
     """q1 [B, H, hd]; pools [groups, num_pages + 1, page_size, KV, hd]
     (last page = trash); block_tab [B, pages_per_slot] int32, -1 =
     unmapped; lengths scalar or [B] int32; layer the group to read (an
-    int). Returns [B, H, hd]. `route` as in flash_decode."""
+    int). Returns [B, H, hd]. `route` as in flash_decode.
+
+    A -1 page inside a row's length is read by nothing here (as in the
+    TPU kernel), where the plain version reads the trash page: the two
+    agree on rows whose live positions all lie on mapped pages. The
+    Scheduler's idle slots (position 0, no pages) are the other rows, and
+    their outputs are discarded."""
     name = "flash_decode_paged"
     B = q1.shape[0]
     H, KV, hd = _check_common(q1, k_pool, v_pool, name)

@@ -59,7 +59,6 @@ class LayerCtx:
                                     # (windowed layers run none)
     aux: Optional[list] = None      # training: each MoE layer appends its
                                     # load-balancing loss here (None: drop)
-    seq_offset: int = 0             # the contiguous kv_full's first position
     merge: Optional[tuple] = None   # decode over sequence shards: the first
                                     # positions of the other data slots'
                                     # shards (their groups in
@@ -238,11 +237,11 @@ def _attn_decode(cfg: ArchConfig, p, xn, ctx: LayerCtx, cache):
             v_view, _ = cache_lib.page_view(vf, i, tab)
             o = attn_lib.decode_attend(q, k_view, v_view, gpos, pos_b)
     else:
-        # this slot's group from ctx.seq_offset, and (ctx.merge) the other
+        # this slot's group (from position 0) and (ctx.merge) the other
         # data slots' sequence shards: the token lands in the shard holding
         # its position
         groups = (cache["kv_full"],) + cache.get("kv_merge", ())
-        offs = (ctx.seq_offset,) + (ctx.merge or ())
+        offs = (0,) + (ctx.merge or ())
         parts = []
         for (kf, vf), off in zip(groups, offs):
             Sc = kf.shape[2]

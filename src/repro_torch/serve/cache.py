@@ -396,9 +396,10 @@ def slice_mb(cache, j, mb):
 
 
 def update_mb(cache, new_rows, j, mb, valid):
-    """Write a stage's per-microbatch cache back into `cache`. The stage
-    wrote slice_mb's views in place, so only a leaf that is not such a view
-    is copied in: per-slot rows when the tick is `valid`, a replaced page
+    """Write a stage's per-microbatch cache back into `cache`, as the JAX
+    package's step does. The port's pipeline_wave never needs it (its
+    stages write slice_mb's views in place); for a caller whose stage hands
+    back new tensors, only a leaf that is not such a view is copied in: per-slot rows when the tick is `valid`, a replaced page
     pool whole (its scatters routed dead rows to the trash page, as in the
     JAX package); the block table is read-only in a step. Returns
     `cache`."""
