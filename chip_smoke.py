@@ -196,7 +196,21 @@ Phases (each prints a line; any failure exits nonzero):
      beside the attention kernels) reduced on a (1, 2, 2) mesh, their
      launches exact and on their fast routes, and every launch held
      against its plain version on the inputs the pass handed it;
- 26. one JSON line of per-kernel numbers.
+ 26. the dry run (repro_torch.launch.dryrun's counter on meta tensors)
+     against the card: phase 25's Plan (qwen3-0.6b's width, 4 layers,
+     mesh 1 x 4 x 4, bf16, kernels "cuda") through Engine.prefill and one
+     Engine.decode, on the card and on meta: kernel launches and routes
+     exactly equal, aten ops equal (the same counter on the card's
+     steps), the dry run's peak live bytes within 10% or 8 MiB of the
+     growth of max_memory_allocated over each step, the counted dot FLOPs
+     beside the two steps' profiled device busy ms; phase 24's train step
+     at 1 layer dry-run, its argument bytes within 1% of the built
+     Engine's params + moments; then moe_mlp_ep at granite-moe-1b-a400m's
+     width (E 32 top-8, d 1024, ff 512, swiglu) over 4 slots, 4 shards x
+     8 x 128 tokens: every grouped_matmul launch at [8, 4 cap, ...] held
+     against its plain version, each shard's output against the plain
+     moe_mlp on its tokens;
+ 27. one JSON line of per-kernel numbers.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the repository beside it, the script fails before printing any
 result. It imports neither jax nor the JAX package.
@@ -212,8 +226,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM (NVIDIA data sheet)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 # chunked WKV6 and SSD against their sequential recurrences (atol and
 # rtol), as tests/test_kernels.py holds the Pallas kernels
@@ -312,7 +324,8 @@ def profile_run(label, run, cpu=True):
     else for a training wave; cpu=False records the device's activity
     only, for runs of many thousands of ops): wall time,
     device busy time (the sum of CUDA kernel and copy durations), the
-    device's idle share and the top kernels."""
+    device's idle share and the top kernels. Returns (wall s, busy s; None
+    when the profiler saw no device event)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -333,7 +346,7 @@ def profile_run(label, run, cpu=True):
     if not by_name:
         log("profile", f"wall {wall * 1e3:.1f} ms; the profiler recorded no "
             f"device events: device busy share not measured")
-        return
+        return wall, None
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     # the port's kernels on the path, whether or not they make the top
     mine = {n: v for n, v in by_name.items() if any(
@@ -354,6 +367,7 @@ def profile_run(label, run, cpu=True):
             f"{n.replace('(anonymous namespace)::', '')[:70]} "
             f"{t / 1e3:.3f} ms x{c}" for n, (t, c) in sorted(mine.items()))
             or "none"))
+    return wall, busy
 
 
 def ptxas_entries(lib_name, tag):
@@ -1371,6 +1385,256 @@ def spmd_serve_phase(dev, arch=None, layers=SPMD_SERVE_LAYERS, card="",
     return out
 
 
+def dryrun_phase(dev, arch=None, layers=SPMD_SERVE_LAYERS, card=""):
+    """Phase 26: the dry run held against the card, and moe_mlp_ep on the
+    card (see the module docstring). `arch` replaces qwen3-0.6b and
+    granite-moe-1b-a400m (a CPU rehearsal passes reduced ones, `dev` the
+    CPU); `layers` cuts the serve depth; `card` is the card's name and
+    power limit. Returns {path: launches} of the expert-parallel run."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (Engine, PartitionSpec, Plan, RunSpec,
+                                 ServeSpec)
+    from repro_torch.configs import ARCHS, RunConfig, ShapeConfig
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.costs import CostCounter
+    from repro_torch.models import lm, moe
+
+    t_phase = time.monotonic()
+    q = (arch or {}).get("qwen3") or ARCHS["qwen3-0.6b"]
+    q = dataclasses.replace(q, num_layers=layers)
+    S_, T_ = q.stages, q.tp
+
+    def routes():
+        return {n: {r: c for r, c in rs.items() if c}
+                for n, rs in ROUTES.items() if LAUNCHES[n]}
+
+    def counted(fn):
+        """fn() under a cost counter: (result, its counter)."""
+        with CostCounter() as c:
+            out = fn()
+        c.close()
+        return out, c
+
+    def dry_routes(c):
+        return {n: {r: v for r, v in k.items() if r not in ("flops",
+                                                             "bytes")}
+                for n, k in c.total().kernels.items()}
+
+    # ---- 26a. phase 25's Plan: the card's steps against the dry run -------
+    plan = Plan(arch=q, run=RunSpec(backend="spmd", compute_dtype="bfloat16"),
+                partition=PartitionSpec(stages=S_, tp=T_, data=1),
+                serve=ServeSpec(prompt_len=128, gen=32, max_batch=8,
+                                kernel_backend="cuda"))
+    rng = np.random.default_rng(26)
+    prompts = rng.integers(0, q.vocab_size, (8, 128), dtype=np.int64)
+    nxt = rng.integers(0, q.vocab_size, (8, 1), dtype=np.int64)
+    # each row's position, as the Scheduler hands them over: a Python int
+    # would take a device branch inside torch.as_tensor (built on meta
+    # directly, on the CPU and copied to CUDA: one aten op more on the card)
+    pos = np.full(8, 128, dtype=np.int64)
+    p16 = lm.init_params(q, torch.Generator(device=dev).manual_seed(26),
+                         dtype=torch.bfloat16, device=dev)
+    eng = Engine(plan, params=p16, device=dev)
+    steps = {"prefill": lambda e, c: e.prefill(prompts),
+             "decode": lambda e, c: e.decode(nxt, c, pos)}
+    _, warm = eng.prefill(prompts)                       # warm-up
+    eng.decode(nxt, warm, pos)
+    card_rec = {}
+    cache = None
+    for name, fn in steps.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out, cache_new = fn(eng, cache)
+        torch.cuda.synchronize()
+        grow = torch.cuda.max_memory_allocated(dev) - base
+        launches, rts = dict(LAUNCHES), routes()
+        (_, _), c = counted(lambda: fn(eng, cache))      # the card's ops
+        torch.cuda.synchronize()
+        card_rec[name] = dict(grow=grow, launches=launches, routes=rts,
+                              ops=c.total().ops)
+        if name == "prefill":
+            cache = cache_new
+        del out, c
+    wall, busy = profile_run("dry run vs card: one prefill group and one "
+                             "decode step", lambda: (
+                                 steps["decode"](eng, steps["prefill"](
+                                     eng, None)[1])), cpu=False) or (0, None)
+    del eng, cache, warm, p16
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    meta = Engine(plan, params=lm.param_shapes(q, torch.bfloat16),
+                  device=torch.device("meta"))
+    t0 = time.monotonic()
+    meta.prefill(prompts)               # builds the shard views, as above
+    dry = {}
+    mcache = None
+    for name, fn in steps.items():
+        (out, cache_new), c = counted(lambda: fn(meta, mcache))
+        dry[name] = dict(ops=c.total().ops, peak=c.peak_bytes,
+                         routes=dry_routes(c),
+                         dot_flops=c.total().dot_flops,
+                         kflops=sum(k["flops"] for k in
+                                    c.total().kernels.values()))
+        if name == "prefill":
+            mcache = cache_new
+    dry_s = time.monotonic() - t0
+    del meta, mcache
+    bad = []
+    for name in steps:
+        cr, dr = card_rec[name], dry[name]
+        if cr["routes"] != dr["routes"] or any(
+                cr["launches"][n] != sum(dr["routes"].get(n, {}).values())
+                for n in LAUNCHES):
+            bad.append(f"{name}: launches on the card {cr['routes']}, "
+                       f"dry run {dr['routes']}")
+        if cr["ops"] != dr["ops"]:
+            bad.append(f"{name}: aten ops on the card {cr['ops']}, dry run "
+                       f"{dr['ops']}")
+        tol = max(0.1 * cr["grow"], 8 * 2**20)
+        if abs(dr["peak"] - cr["grow"]) > tol:
+            bad.append(f"{name}: peak live bytes, dry run {dr['peak']}, the "
+                       f"card's growth {cr['grow']} (tolerance {tol:.0f})")
+    if bad:
+        raise AssertionError("dry run vs card: " + "; ".join(bad))
+    log("dryrun", f"qwen3-0.6b full width ({q.num_layers} layers) on mesh "
+        f"(1, {S_}, {T_}), bf16, kernels \"cuda\" ({card}): the dry run "
+        f"(meta, {dry_s:.1f} s) against the card, one prefill group of 8 x "
+        f"128 and one decode step: " + "; ".join(
+            f"{n}: launches {dry[n]['routes']} (exact), aten ops "
+            f"{dry[n]['ops']} (the card's: {card_rec[n]['ops']}), peak live "
+            f"{dry[n]['peak'] / 2**20:.2f} MiB against the card's growth "
+            f"{card_rec[n]['grow'] / 2**20:.2f} MiB, dot FLOPs "
+            f"{dry[n]['dot_flops']:.4e} ({dry[n]['kflops']:.4e} in kernels)"
+            for n in steps) + f"; both steps under the profiler: device "
+        f"busy {'not measured' if busy is None else f'{busy * 1e3:.2f} ms'}"
+        f", wall {wall * 1e3:.1f} ms")
+
+    # phase 24's train step at 1 layer: argument bytes against the built
+    # Engine's params + moments
+    q1 = dataclasses.replace(ARCHS["qwen3-0.6b"] if not arch else
+                             arch["qwen3"], num_layers=1)
+    TB, TS = 16, 512
+    tplan = Plan(arch=q1, partition=PartitionSpec(stages=q1.stages,
+                                                  tp=q1.tp, data=1),
+                 run=RunSpec(backend="spmd", max_waves=1, batch=TB, seq=TS,
+                             optimizer="adamw", lr=1e-3))
+    held = torch.cuda.memory_allocated(dev)
+    teng = Engine(tplan, device=dev)
+    teng._ensure_spmd()
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated(dev) - held
+    st = teng._spmd
+    want = sum(t.numel() * t.element_size() for t in tree_lib.leaves(
+        (st["params"], st["opt_state"])) if isinstance(t, torch.Tensor))
+    del teng, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    from repro_torch.launch.mesh import make_mesh_auto
+    run = RunConfig(arch=q1, shape=ShapeConfig("plan", TS, TB, "train"),
+                    optimizer="adamw", lr=1e-3, compute_dtype="float32",
+                    loss_chunk=min(512, TS))
+    mmesh = make_mesh_auto((1, q1.stages, q1.tp), ("data", "stage", "tp"),
+                           devices="meta")
+    step, _ = dryrun.build_step(run, mmesh)
+    rec = dryrun.count_step(step, dryrun.meta_args(run, mmesh, None), mmesh,
+                            run)
+    args = rec["memory"]["argument_bytes"]
+    if abs(args - built) > 0.01 * built:
+        raise AssertionError(f"dry run: train step arguments {args} B, the "
+                             f"built Engine holds {built} B")
+    log("dryrun", f"phase 24's train step at 1 layer (adamw, {TB} x {TS}): "
+        f"the dry run's argument bytes {args / 2**30:.4f} GiB against the "
+        f"built Engine's {built / 2**30:.4f} GiB (params + moments "
+        f"{want / 2**30:.4f} GiB; within 1%); the dry run's wave: "
+        f"{rec['ops']} aten ops, dot FLOPs {rec['dot_flops']:.4e}, peak "
+        f"live {rec['memory']['peak_bytes'] / 2**30:.3f} GiB, "
+        f"{time.monotonic() - t0:.1f} s on meta")
+
+    # ---- 26b. moe_mlp_ep at granite-moe-1b-a400m's width ------------------
+    g = (arch or {}).get("granite") or ARCHS["granite-moe-1b-a400m"]
+    n, E, d, ff = 4, g.num_experts, g.d_model, g.d_ff
+    gen = torch.Generator(device=dev).manual_seed(27)
+
+    def draw(*shape, scale=0.02):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            torch.bfloat16)
+
+    router = draw(d, E, scale=1.0)
+    w_in, w_out = draw(E, d, 2, ff), draw(E, ff, d)
+    ps = [{"router": router, "w_in": w_in[i * E // n:(i + 1) * E // n],
+           "w_out": w_out[i * E // n:(i + 1) * E // n]} for i in range(n)]
+    xs = [draw(8, 128, d, scale=1.0) for _ in range(n)]
+    cap = moe.capacity(8 * 128, E, g.top_k, g.capacity_factor)
+    errs, shapes = [], set()
+    real = kernel_ops.grouped_matmul
+
+    def held(x, w):
+        out = real(x, w)
+        want = kref.gmm_ref(x, w)
+        e = (out.float() - want.float()).abs().max().item()
+        if e > TOL["bfloat16"] * max(1.0, want.float().abs().max().item()):
+            raise AssertionError(f"moe_mlp_ep: grouped_matmul {tuple(x.shape)}"
+                                 f" x {tuple(w.shape)}: max |kernel - plain| "
+                                 f"{e:.3e}")
+        errs.append(e)
+        shapes.add((tuple(x.shape), tuple(w.shape)))
+        return out
+
+    reset_launches()
+    kernel_ops.grouped_matmul = held
+    try:
+        ys, auxs = moe.moe_mlp_ep(ps, xs, num_experts=E, top_k=g.top_k,
+                                  mlp_type=g.mlp_type,
+                                  capacity_factor=g.capacity_factor,
+                                  backend="cuda")
+        torch.cuda.synchronize()
+    finally:
+        kernel_ops.grouped_matmul = real
+    got = dict(LAUNCHES, routes={k: dict(r) for k, r in ROUTES.items()})
+    rows = {x[0][1] for x in shapes}
+    if got["grouped_matmul"] != 2 * n or rows != {n * cap} or any(
+            v for k, v in LAUNCHES.items() if k != "grouped_matmul"):
+        raise AssertionError(f"moe_mlp_ep: launches {dict(LAUNCHES)}, "
+                             f"shapes {sorted(shapes)}")
+    full = {"router": router, "w_in": w_in, "w_out": w_out}
+    worst = 0.0
+    for x, y in zip(xs, ys):
+        want, _ = moe.moe_mlp(full, x, num_experts=E, top_k=g.top_k,
+                              mlp_type=g.mlp_type,
+                              capacity_factor=g.capacity_factor)
+        e = (y.float() - want.float()).abs().max().item()
+        worst = max(worst, e)
+        if e > TOL["bfloat16"] * max(1.0, want.float().abs().max().item()) \
+                or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"moe_mlp_ep: a shard's output {e:.3e} off "
+                                 f"the plain moe_mlp on its tokens")
+    log("dryrun", f"moe_mlp_ep at granite-moe-1b-a400m's width (E {E} "
+        f"top-{g.top_k}, d {d}, ff {ff}, {g.mlp_type}) over {n} slots of "
+        f"{dev.type}, 4 shards x 8 x 128 tokens, bf16, kernels \"cuda\": "
+        f"{got['grouped_matmul']} grouped_matmul launches at "
+        f"{sorted(shapes)} (routes "
+        f"{ {r: c for r, c in got['routes']['grouped_matmul'].items() if c} }"
+        f"), each within {max(errs):.3e} of its plain version (tolerance "
+        f"{TOL['bfloat16']} x max(1, |plain|)); each shard's output within "
+        f"{worst:.3e} of the plain moe_mlp on its tokens with every expert; "
+        f"aux {', '.join(f'{float(a):.4f}' for a in auxs)}; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return {f"granite-moe-1b-a400m moe_mlp_ep ({n} shards)": got}
+
+
 def cluster_phase(dev, arch=None):
     """Phase 23: qwen3-0.6b served by three replicas behind the Router (see
     the module docstring). `arch` (default: qwen3-0.6b at full width) is a
@@ -1683,14 +1947,19 @@ def main() -> int:
     from repro_torch.kernels import (LAUNCHES, ROUTES, _build, build_all,
                                      reset_launches)
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import _route as fa_route
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_paged)
+    from repro_torch.kernels.mamba_ssd import cost as ssd_cost
     from repro_torch.kernels.mamba_ssd import ssd_chunked
+    from repro_torch.kernels.moe_gmm import cost as gmm_cost
     from repro_torch.kernels.moe_gmm import grouped_matmul
+    from repro_torch.kernels.rwkv6_scan import cost as rwkv6_cost
     from repro_torch.kernels.rwkv6_scan import rwkv6_chunked
+    from repro_torch.launch import costs
     from repro_torch.models import blocks, lm, moe, ssm
     from repro_torch.core.tree import leaves as tree_leaves
     from repro_torch.models.layers import rms_norm
@@ -2107,9 +2376,12 @@ def main() -> int:
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / (reps * len(argsets))
 
-    def bound(nbytes, flops, dtype="bfloat16"):
-        tb, tf = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-        return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+    def bound(cost, *args, **kw):
+        """The least time one call could take (PERF.md §6's bound column):
+        the kernel's cost() (the bytes and FLOPs the call needs: inputs
+        read once, outputs written once) at one H100's HBM rate and its
+        peak for the operands' dtype."""
+        return costs.bound_ms(*cost(*args, **kw), args[0].dtype)
 
     import torch.nn.functional as F
     bf, f32 = torch.bfloat16, torch.float32
@@ -2133,8 +2405,6 @@ def main() -> int:
                            for n in (Hq, KVq, KVq))
                      for _ in range(N_LAYERS if S <= 128 else 3)]
                 for dt in (bf, f32)}
-        nbytes = B * S * (2 * Hq + 2 * KVq) * hdq
-        flops = 4 * B * Hq * hdq * (S * (S + 1) // 2)
         t = att_times[what] = dict(
             routes={"tc": time_ms(flash_attention_fwd, sets[bf]),
                     "simt_bf16": time_ms(lambda q, k, v: flash_attention_fwd(
@@ -2145,8 +2415,8 @@ def main() -> int:
             library_ms=time_ms(sdpa, sets[bf]),
             library_eager_ms=time_ms(sdpa, sets[bf], graph=False),
             shape=f"B{B} S{S} H{Hq} KV{KVq} hd{hdq} bf16",
-            bound=bound(2 * nbytes, flops),
-            bound_f32=bound(4 * nbytes, flops, "float32"))
+            bound=bound(fa.cost, *sets[bf][0]),
+            bound_f32=bound(fa.cost, *sets[f32][0]))
         t["ms"] = t["routes"]["tc"]
         del sets
     timing["flash_attention_fwd"] = dict(
@@ -2190,14 +2460,11 @@ def main() -> int:
             fd.SPAN["tc"] = keep
         return out
 
-    def decode_times(fn, plain, library, sets, elems, int32s, flops, shape,
-                     pairs, cap):
+    def decode_times(fn, plain, library, sets, cost, shape, pairs, cap):
         """A decode kernel's routes, eager, plain and library times over
         `sets` (per dtype), and the tc route's split sweep over `pairs`
-        (row, kv head) pairs of `cap` positions; its bound from one call's
-        `elems` elements of q, the output and the live K/V (2 bytes each in
-        bf16, 4 in f32), its `int32s` lengths and table entries and its
-        `flops`."""
+        (row, kv head) pairs of `cap` positions; its bound from `cost` of
+        one call's arguments."""
         routes = {"tc": time_ms(fn, sets[bf]),
                   "simt_bf16": time_ms(lambda *a: fn(*a, route="simt_bf16"),
                                        sets[bf]),
@@ -2209,8 +2476,8 @@ def main() -> int:
             plain_ms=time_ms(plain, sets[bf], graph=False),
             library_ms=time_ms(library, sets[bf]),
             library_eager_ms=time_ms(library, sets[bf], graph=False),
-            shape=shape + " bf16", bound=bound(2 * elems + 4 * int32s, flops),
-            bound_f32=bound(4 * elems + 4 * int32s, flops, "float32"))
+            shape=shape + " bf16", bound=bound(cost, *sets[bf][0]),
+            bound_f32=bound(cost, *sets[f32][0]))
 
     paged_times = {}
     for what, (Hq, KVq, hdq, layers) in {
@@ -2244,8 +2511,8 @@ def main() -> int:
         # block table and lengths (int32); 4 G hd flops a live position
         paged_times[what] = decode_times(
             paged, paged_plain, gathered_sdpa, sets,
-            2 * B * Hq * hdq + 2 * live * KVq * hdq, B * npg + B,
-            4 * Hq * hdq * live,
+            lambda q1, kp, vp, tab, lens, layer: fd.cost_paged(
+                q1, kp, vp, tab, lens),
             f"B{B} pool[{n},{P1},{ps},{KVq},{hdq}] live {live} positions",
             B * KVq, npg * ps)
         del sets, kp, vp
@@ -2277,9 +2544,7 @@ def main() -> int:
                 q[:, :, None], k, v, attn_mask=cmask, enable_gqa=True)
 
         cont_times[what] = decode_times(
-            flash_decode, kref.decode_ref, masked_sdpa, sets,
-            2 * Bc * Hq * hdq + 2 * int(glens.sum()) * KVq * hdq, Bc,
-            4 * Hq * hdq * int(glens.sum()),
+            flash_decode, kref.decode_ref, masked_sdpa, sets, fd.cost,
             f"B{Bc} cache[{n},{Bc},{Sc},{KVq},{hdq}] strided, lengths "
             f"{min(lens)}..{max(lens)}", Bc * KVq, Sc)
         del sets, ck, cv
@@ -2312,36 +2577,16 @@ def main() -> int:
     # width), 40 heads of 64, f32; 32 layers' inputs (1.3 GB) cycled. The
     # plain version is the sequential recurrence the kernel is held against;
     # the plain scan is the chunked torch scan kernel_backend="ref" serves.
-    B, S, C = 8, 128, 16
+    B, S = 8, 128
     wkv_sets = [(*wkv_inputs(B, S), u_r) for _ in range(N_RWKV_LAYERS)]
-    elems = B * Hr * S * hdr
-    # r, k, v, w read, y written, u read, the final state written; per
-    # chunk: scores and y's intra-chunk term (2 x 2C^2 hd), the inter-chunk
-    # term and the state update (2 x 2C hd^2)
     timing["rwkv6_chunked"] = dict(scan_times(
         rwkv6_chunked, kref.rwkv6_ref,
         lambda r, k, v, w, u: ssm.wkv6_chunked_scan(
             *(a.transpose(1, 2) for a in (r, k, v, w)), u), wkv_sets,
-        f"B{B} S{S} H{Hr} hd{hdr} f32",
-        bound(4 * (5 * elems + Hr * hdr + B * Hr * hdr * hdr),
-              B * Hr * -(-S // C) * (4 * C * C * hdr + 4 * C * hdr * hdr),
-              "float32")),
+        f"B{B} S{S} H{Hr} hd{hdr} f32", bound(rwkv6_cost, *wkv_sets[0])),
         library="none (no single PyTorch call computes WKV6)",
         dtype="float32", tolerance={"float32": RWKV_TOL})
     del wkv_sets
-
-    def ssd_bound(B, S):
-        """x, dt, B, C, a read, y and the final state written; per (row,
-        chunk of n rows) C B^T over the causal triangle (2 tri N), and per
-        (row, head, chunk) y's intra-chunk term over the triangle (2 tri
-        P), the inter-chunk term and the state update (2 x 2 n N P)."""
-        flops = 0
-        for t0 in range(0, S, 64):
-            n = min(64, S - t0)
-            tri = n * (n + 1) // 2
-            flops += B * 2 * tri * Ns + B * Hs * (2 * tri * Ps + 4 * n * Ns * Ps)
-        return bound(4 * (2 * B * Hs * S * Ps + B * Hs * S + 2 * B * S * Ns
-                          + Hs + B * Hs * Ns * Ps), flops, "float32")
 
     # the SSD prefill at the hymba-1.5b serve shape (B 8, S 128: the prompt
     # width; 32 layers' inputs, 0.42 GB, cycled) and at its generate shape
@@ -2360,7 +2605,7 @@ def main() -> int:
             lambda x, dt, Bm, Cm, a: ssm.ssd_chunked_scan(
                 x.transpose(1, 2), dt.transpose(1, 2), Bm, Cm, a), ssd_sets,
             f"B{B} S{S} H{Hs} P{Ps} N{Ns} f32",
-            ssd_bound(B, S))
+            bound(ssd_cost, *ssd_sets[0]))
         del ssd_sets
     timing["ssd_chunked"] = dict(
         ssd_times["hymba serve [8,50,128,64]"],
@@ -2377,7 +2622,6 @@ def main() -> int:
                 for dt in (bf, f32)}
         f = G * ff
         tc = "tc_decode" if C <= 16 else "tc_prefill"
-        nbytes = E * C * d + E * d * f + E * C * f
         t = gmm_times[what] = dict(
             routes={tc: time_ms(grouped_matmul, sets[bf]),
                     "simt_bf16": time_ms(lambda x, w: grouped_matmul(
@@ -2388,9 +2632,8 @@ def main() -> int:
             library_ms=time_ms(torch.bmm, sets[bf]),
             library_eager_ms=time_ms(torch.bmm, sets[bf], graph=False),
             shape=f"E{E} C{C} d{d} f{f} bf16",
-            # x and w read once, out written once; 2 E C d f flops
-            bound=bound(2 * nbytes, 2 * E * C * d * f),
-            bound_f32=bound(4 * nbytes, 2 * E * C * d * f, "float32"))
+            bound=bound(gmm_cost, *sets[bf][0]),
+            bound_f32=bound(gmm_cost, *sets[f32][0]))
         t["ms"] = t["routes"][tc]
         del sets
     timing["grouped_matmul"] = dict(
@@ -2456,9 +2699,6 @@ def main() -> int:
         def banded_sdpa(q, k, v, band=band):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
                                                   enable_gqa=True)
-        keys = sum(min(i + 1, window or S) for i in range(S))
-        nbytes = B * S * (2 * Hg + 2 * KVg) * hdg
-        flops = 4 * B * Hg * hdg * keys
         t = gemma_times[f"flash_attention_fwd {what}"] = dict(
             routes={"simt_bf16": time_ms(attn, sets[bf]),
                     "simt_f32": time_ms(attn, sets[f32])},
@@ -2467,8 +2707,8 @@ def main() -> int:
             library_ms=time_ms(banded_sdpa, sets[bf]),
             library_eager_ms=time_ms(banded_sdpa, sets[bf], graph=False),
             shape=f"B{B} S{S} H{Hg} KV{KVg} hd{hdg} window {window} bf16",
-            bound=bound(2 * nbytes, flops),
-            bound_f32=bound(4 * nbytes, flops, "float32"))
+            bound=bound(fa.cost, *sets[bf][0], window=window),
+            bound_f32=bound(fa.cost, *sets[f32][0], window=window))
         t["ms"] = t["routes"]["simt_bf16"]
         att_times[what] = t
         del sets
@@ -2502,11 +2742,8 @@ def main() -> int:
         library_eager_ms=time_ms(gathered_g, sets[bf], graph=False),
         shape=f"B{B} pool[{n},{P1},{ps},{KVg},{hdg}] live {live} positions "
               f"bf16",
-        bound=bound(2 * (2 * B * Hg * hdg + 2 * live * KVg * hdg)
-                    + 4 * (B * npg + B), 4 * Hg * hdg * live),
-        bound_f32=bound(4 * (2 * B * Hg * hdg + 2 * live * KVg * hdg)
-                        + 4 * (B * npg + B), 4 * Hg * hdg * live,
-                        "float32"))
+        bound=bound(fd.cost_paged, *sets[bf][0][:5]),
+        bound_f32=bound(fd.cost_paged, *sets[f32][0][:5]))
     t["ms"] = t["routes"]["simt_bf16"]
     paged_times["gemma3 4/1x256"] = t
     del sets, kp, vp
@@ -2525,7 +2762,6 @@ def main() -> int:
     def masked_g(q, k, v, n, gmask=gmask):
         return F.scaled_dot_product_attention(
             q[:, :, None], k, v, attn_mask=gmask, enable_gqa=True)
-    live_c = int(glens.sum())
     t = gemma_times["flash_decode gemma3 4/1x256 [8,160]"] = dict(
         routes={"simt_bf16": time_ms(flash_decode, sets[bf]),
                 "simt_f32": time_ms(flash_decode, sets[f32])},
@@ -2534,10 +2770,8 @@ def main() -> int:
         library_ms=time_ms(masked_g, sets[bf]),
         library_eager_ms=time_ms(masked_g, sets[bf], graph=False),
         shape=f"B8 cache[{n},8,160,{KVg},{hdg}] strided, length 140 bf16",
-        bound=bound(2 * (2 * 8 * Hg * hdg + 2 * live_c * KVg * hdg) + 4 * 8,
-                    4 * Hg * hdg * live_c),
-        bound_f32=bound(4 * (2 * 8 * Hg * hdg + 2 * live_c * KVg * hdg)
-                        + 4 * 8, 4 * Hg * hdg * live_c, "float32"))
+        bound=bound(fd.cost, *sets[bf][0]),
+        bound_f32=bound(fd.cost, *sets[f32][0]))
     t["ms"] = t["routes"]["simt_bf16"]
     cont_times["gemma3 4/1x256 [8,160]"] = t
     del sets, ck, cv
@@ -3334,7 +3568,11 @@ def main() -> int:
     free_device()
     sp_launches = spmd_serve_phase(dev, card=smi)
 
-    # ---- 26. the kernels line ------------------------------------------
+    # ---- 26. the dry run against the card; moe_mlp_ep ----------------------
+    free_device()
+    ep_launches = dryrun_phase(dev, card=smi)
+
+    # ---- 27. the kernels line ------------------------------------------
     src = {"flash_attention_fwd": ("src/repro_torch/kernels/csrc/"
                                    "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:94"),
@@ -3363,7 +3601,7 @@ def main() -> int:
              "minitron-8b serve": mt_launches,
              "musicgen-medium generate": mg_launches,
              "qwen3-0.6b serve-cluster (3 replicas)": cl_launches,
-             **sp_launches}
+             **sp_launches, **ep_launches}
     power = smi.split(",")[-1].strip()
     kernels = []
     for name in ("flash_decode_paged", "flash_attention_fwd",

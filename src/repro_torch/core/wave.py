@@ -18,12 +18,16 @@ once per wave (WSP at D = 0). The JAX package runs it as one shard_map
 program per device; here one controller issues every slot's work onto the
 slot's device (launch.mesh), in a Python loop over the ticks, and one
 backward runs through the whole wave as JAX's value_and_grad does. The
-collectives are tensor ops: the psum over tp sums the shards' partials
-(blocks.apply_layer_tp), the ppermute over stage moves a stage's output to
-the next stage's device, the masked psum from the last stage is taking the
-last stage's output, and the mean over data slots is a Python mean (on one
-device every data slot reads the same leaves, so autograd's accumulation
-is the gradient all-reduce; across devices the .to() copies' backward is).
+collectives are launch.mesh's named tensor ops: the psum over tp sums the
+shards' partials (blocks.apply_layer_tp), the ppermute over stage moves a
+stage's output to the next stage's device, the masked psum from the last
+stage is taking the last stage's output, and the aux pmean over data
+slots is a sum over them (on one device every data slot reads the same
+leaves, so autograd's accumulation is the gradient all-reduce, which
+therefore is no call: the dry run reckons it from the grads' bytes;
+across devices the .to() copies' backward is). Each data slot's, stage's
+and tp shard's work runs in its launch.mesh.slot scope, which a cost
+counter reads (and which costs nothing without one).
 
 Bubble ticks and padded layer slots are skipped in Python; JAX computes
 masked garbage there and discards it with a `where`, so the results are
@@ -42,6 +46,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.tree import tree_map
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import lm
 from repro_torch.models.blocks import LayerCtx
 from repro_torch.models.layers import chunked_cross_entropy
@@ -166,7 +171,8 @@ def pipeline_wave(cfg: ArchConfig, shards, x_local, meta, *, mode: str,
             j = t - skew * s
             if not 0 <= j < nm:
                 continue                                  # bubble tick
-            y, a = fns[s](x_mbs[j] if s == 0 else buf[s], j)
+            with mesh_lib.slot(stage=s):
+                y, a = fns[s](x_mbs[j] if s == 0 else buf[s], j)
             ys[s] = y
             if a is not None:
                 aux.append(a)
@@ -175,14 +181,19 @@ def pipeline_wave(cfg: ArchConfig, shards, x_local, meta, *, mode: str,
         # the ppermute s -> s + 1: of this tick's outputs, or (overlap) of
         # the previous tick's
         send, sent = (sent, ys) if overlap else (ys, sent)
-        buf = [None] + [None if y is None else y.to(stage_dev[s + 1])
-                        for s, y in enumerate(send[:-1])]
+        buf = [None]
+        for s, y in enumerate(send[:-1]):
+            if y is None:
+                buf.append(None)
+                continue
+            with mesh_lib.slot(stage=s):
+                buf.append(mesh_lib.ppermute(y, stage_dev[s + 1],
+                                             axis=S_AX, n=stages))
     if not aux:
         return torch.cat(out), None
-    aux_t = aux[0].to(stage_dev[-1])
-    for a in aux[1:]:
-        aux_t = aux_t + a.to(stage_dev[-1])
-    return torch.cat(out), aux_t
+    # the psum of the stages' aux over stage (one partial a stage call)
+    return torch.cat(out), mesh_lib.psum(aux, stage_dev[-1], axis=S_AX,
+                                         n=stages)
 
 
 def _meta_tree(cfg: ArchConfig):
@@ -204,11 +215,13 @@ def _loss_over_wave(cfg: ArchConfig, run: RunConfig, params, hid, labels):
                                  chunk=min(run.loss_chunk, h.shape[-2]))
 
 
-def _bcast_from_last(y, device):
+def _bcast_from_last(y, device, stages: int):
     """The JAX package's masked psum over stages hands every stage the last
     stage's y for the vocab-sharded loss; here the loss runs whole on the
-    params' device, so the last stage's y moves there."""
-    return y.to(device)
+    params' device, so the last stage's y moves there: a psum of the one
+    nonzero partial."""
+    with mesh_lib.slot(stage=stages - 1):
+        return mesh_lib.psum([y], device, axis=S_AX, n=stages)
 
 
 # ----------------------------------------------------------------------------
@@ -239,19 +252,23 @@ def build_train_step(run: RunConfig, mesh):
         blocks = _cast_tree(params["blocks"], cdt)
         Bl = x.shape[0] // ndp
         ys, auxs = [], []
+        issued = mesh_lib.issued_data_slots(ndp)
         for d in range(ndp):
-            y, aux = pipeline_wave(
-                cfg, lm.shard_blocks(cfg, blocks, mesh, d),
-                x[d * Bl:(d + 1) * Bl].to(grid[d, 0, 0]), meta,
-                mode="train", nm=nm, remat=cfg.remat, overlap=run.overlap)
-            ys.append(_bcast_from_last(y, x.device))
-            auxs.append(aux.to(x.device))
+            if d >= issued:               # the dry run reckons it
+                ys.append(mesh_lib.stand_in(ys[0]))
+                auxs.append(mesh_lib.stand_in(auxs[0]))
+                continue
+            with mesh_lib.slot(data=d):
+                y, aux = pipeline_wave(
+                    cfg, lm.shard_blocks(cfg, blocks, mesh, d),
+                    x[d * Bl:(d + 1) * Bl].to(grid[d, 0, 0]), meta,
+                    mode="train", nm=nm, remat=cfg.remat,
+                    overlap=run.overlap)
+                ys.append(_bcast_from_last(y, x.device, cfg.stages))
+                auxs.append(aux.to(x.device))
         # JAX's psum over stages (done in pipeline_wave), pmean over the
         # data slots, then / nm: the mean microbatch aux (trap Y4)
-        aux = auxs[0]
-        for a in auxs[1:]:
-            aux = aux + a
-        aux = aux / ndp / nm
+        aux = mesh_lib.pmean(auxs, x.device, axis=D_AX) / nm
         loss = _loss_over_wave(cfg, run, params, torch.cat(ys), labels)
         return loss + 0.01 * aux / max(cfg.num_layers, 1), aux
 
@@ -372,19 +389,30 @@ def build_decode_step(run: RunConfig, mesh, *, pos_per_row: bool = False,
                     for s, row in enumerate(caches[0])]
             else:
                 cache0 = caches[0]
-            y, _ = pipeline_wave(cfg, shards[0], x.to(_slot0(mesh, 0)),
-                                 meta, mode="decode", nm=nm, cache=cache0,
-                                 pos=pos, merge=offs, overlap=run.overlap,
-                                 kernel_backend=run.kernel_backend)
-            hid = _bcast_from_last(y, dev)
+            with mesh_lib.slot(data=0):
+                y, _ = pipeline_wave(cfg, shards[0], x.to(_slot0(mesh, 0)),
+                                     meta, mode="decode", nm=nm,
+                                     cache=cache0, pos=pos, merge=offs,
+                                     overlap=run.overlap,
+                                     kernel_backend=run.kernel_backend)
+                hid = _bcast_from_last(y, dev, cfg.stages)
         else:
             Bl = B // ndp
-            hid = torch.cat([_bcast_from_last(pipeline_wave(
-                cfg, shards[d], x[d * Bl:(d + 1) * Bl].to(_slot0(mesh, d)),
-                meta, mode="decode", nm=nm, cache=caches[d],
-                pos=pos[d * Bl:(d + 1) * Bl], overlap=run.overlap,
-                kernel_backend=run.kernel_backend)[0], dev)
-                for d in range(ndp)])
+            outs = []
+            issued = mesh_lib.issued_data_slots(ndp)
+            for d in range(ndp):
+                if d >= issued:           # the dry run reckons it
+                    outs.append(mesh_lib.stand_in(outs[0]))
+                    continue
+                with mesh_lib.slot(data=d):
+                    outs.append(_bcast_from_last(pipeline_wave(
+                        cfg, shards[d],
+                        x[d * Bl:(d + 1) * Bl].to(_slot0(mesh, d)), meta,
+                        mode="decode", nm=nm, cache=caches[d],
+                        pos=pos[d * Bl:(d + 1) * Bl], overlap=run.overlap,
+                        kernel_backend=run.kernel_backend)[0], dev,
+                        cfg.stages))
+            hid = torch.cat(outs)
         return lm.logits_ref(cfg, params, hid), caches
 
     return decode_step, pspecs, cspecs
@@ -432,23 +460,28 @@ def build_prefill_step(run: RunConfig, mesh, *, cache_len: int = 0,
                                    device=dev)
         Bl = x.shape[0] // ndp
         outs = []
+        issued = mesh_lib.issued_data_slots(ndp)
         for d in range(ndp):
-            rows = slice(d * Bl, (d + 1) * Bl)
-            cache_d = caches[d] if split or d == 0 else [
-                [cache_lib.slice_mb(c, d, Bl) for c in row]
-                for row in caches[0]]
-            y, _ = pipeline_wave(
-                cfg, shards[d], x[rows].to(_slot0(mesh, d)), meta,
-                mode="prefill", nm=nm, cache=cache_d,
-                lens=None if lens is None else lens[rows],
-                overlap=run.overlap, kernel_backend=run.kernel_backend)
-            if lens is None:
-                last = y[:, -1:]
-            else:
-                idx = (lens[rows] - 1).clamp_min(0).to(y.device)
-                last = y[torch.arange(y.shape[0], device=y.device), idx][:,
-                                                                         None]
-            outs.append(_bcast_from_last(last, dev))
+            if d >= issued:               # the dry run reckons it
+                outs.append(mesh_lib.stand_in(outs[0]))
+                continue
+            with mesh_lib.slot(data=d):
+                rows = slice(d * Bl, (d + 1) * Bl)
+                cache_d = caches[d] if split or d == 0 else [
+                    [cache_lib.slice_mb(c, d, Bl) for c in row]
+                    for row in caches[0]]
+                y, _ = pipeline_wave(
+                    cfg, shards[d], x[rows].to(_slot0(mesh, d)), meta,
+                    mode="prefill", nm=nm, cache=cache_d,
+                    lens=None if lens is None else lens[rows],
+                    overlap=run.overlap, kernel_backend=run.kernel_backend)
+                if lens is None:
+                    last = y[:, -1:]
+                else:
+                    idx = (lens[rows] - 1).clamp_min(0).to(y.device)
+                    last = y[torch.arange(y.shape[0], device=y.device),
+                             idx][:, None]
+                outs.append(_bcast_from_last(last, dev, cfg.stages))
         return lm.logits_ref(cfg, params, torch.cat(outs)), caches
 
     return prefill_step, pspecs, cspecs

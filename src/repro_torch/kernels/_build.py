@@ -14,7 +14,10 @@ plain version: without nvcc or a CUDA device, loading raises.
 
 `LAUNCHES[name]` counts the launches each wrapper makes (only where it
 launches its kernel), so a run can show that its path went through the
-kernels. The Router's replicas launch from host threads at once (each
+kernels. On a meta tensor (the dry run, launch/dryrun.py) a wrapper runs
+its checks and allocations, picks its route, reports the launch with its
+`cost()` to the active cost counter (launch/costs.py) and returns the
+empty output: LAUNCHES and ROUTES stay the card's exact counts. The Router's replicas launch from host threads at once (each
 ctypes call releases the GIL), so the counts and the first build of a
 library are taken under locks. Every kernel has more than one route
 (grouped_matmul, flash_attention_fwd, flash_decode, flash_decode_paged:
@@ -89,7 +92,11 @@ def vec16_ok(t) -> bool:
     every other stride (of a dim longer than 1) whole multiples of 16
     bytes. The tensor-core routes' cp.async and TMA copies need it."""
     per = 16 // t.element_size()
-    return t.data_ptr() % 16 == 0 and t.shape[-1] % per == 0 and all(
+    # a meta tensor has no address: its base is taken as allocated (the
+    # caching allocator aligns every block to 512 bytes) plus its offset
+    base = t.storage_offset() * t.element_size() if t.device.type == "meta" \
+        else t.data_ptr()
+    return base % 16 == 0 and t.shape[-1] % per == 0 and all(
         n == 1 or s % per == 0 for n, s in zip(t.shape[:-1], t.stride()[:-1]))
 
 

@@ -18,6 +18,8 @@ head dim, strides and alignment:
   simt_f32   float32: the same f32-FMA tiles, so f32 stays true f32
 
 `_build.ROUTES["flash_attention_fwd"]` counts the launches of each route.
+On a meta tensor the wrapper reports the launch and `cost()` to the
+active cost counter and returns the empty output.
 See csrc/flash_attention.cu for what bounds each route on the H100 and
 what its design does about it.
 """
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
+from repro_torch.launch import costs
 
 NAME = "flash_attention_fwd"
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -45,6 +48,22 @@ def _route(q, k, v) -> str:
                                           for t in (q, k, v)):
         return "tc"
     return "simt_bf16"
+
+
+def cost(q, k, v, *, causal=True, window=0) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call: q, k, v read once and the output written
+    once; 4 hd FLOPs (QK^T and PV) a (query, key) pair the mask keeps, for
+    every query head."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if causal:
+        w = window if window > 0 else Sq
+        pairs = sum(min(i + 1, w) for i in range(Sq))
+    else:
+        pairs = Sq * Sk
+    nbytes = q.element_size() * 2 * B * H * Sq * hd + \
+        k.element_size() * 2 * B * KV * Sk * hd
+    return 4.0 * B * H * hd * pairs, float(nbytes)
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, route=None):
@@ -88,6 +107,10 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, route=None):
     elif route not in (picked, _build.simt_route(q.dtype)):
         raise ValueError(f"flash_attention_fwd: route {route!r} cannot take "
                          f"these operands (their route is {picked!r})")
+    if q.device.type == "meta":
+        costs.kernel(NAME, route, *cost(q, k, v, causal=causal,
+                                        window=window))
+        return out
     fn = _build.entry("flash_attention", "flash_attention_fwd_launch",
                       _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

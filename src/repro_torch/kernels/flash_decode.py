@@ -28,7 +28,9 @@ route from dtype, head dim, strides and alignment:
 Every route may split each row's positions across blocks (`_splits`, from
 static shapes and the route only) and then merges the splits' partial
 softmax states inside the same launch. `_build.ROUTES[name]` counts the
-launches of each route.
+launches of each route. On a meta tensor a wrapper reports the launch and
+its `cost()` (every row at its full capacity: a meta length has no value)
+to the active cost counter and returns the empty output.
 See csrc/flash_decode.cu for what bounds the kernel on the H100 and what
 its design does about it.
 """
@@ -38,6 +40,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
+from repro_torch.launch import costs
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 TC_HEAD_DIMS = (16, 32, 64, 128)
@@ -70,6 +73,42 @@ def _splits(B: int, KV: int, cap: int, route: str) -> tuple[int, int]:
                                   (cap + TILE * want // 2) // (TILE * want),
                                   -(-cap // (TILE * MAX_SPLITS))))
     return -(-tiles * TILE // chunk), chunk
+
+
+def _live(lens, B: int, cap: int, window: int = 0) -> int:
+    """Positions a call reads: each row's length (a scalar or [B]), cut to
+    `cap` and to the window; every row at `cap` when the lengths have no
+    value (meta)."""
+    if isinstance(lens, torch.Tensor) and lens.device.type == "meta":
+        n = [cap] * B
+    else:
+        n = [min(max(int(x), 0), cap)
+             for x in kref._row_lengths(lens, B, "cpu").tolist()]
+    return sum(min(x, window) if window > 0 else x for x in n)
+
+
+def cost(q1, k, v, length, *, window=0) -> tuple[float, float]:
+    """(FLOPs, bytes) of one flash_decode call: q1 read and the output
+    written once, each row's live K/V positions read once, the lengths
+    (int32); 4 hd FLOPs a live position for every query head."""
+    B, H, hd = q1.shape
+    KV, S = k.shape[1], k.shape[2]
+    live = _live(length, B, S, window)
+    nbytes = q1.element_size() * 2 * B * H * hd + \
+        k.element_size() * 2 * live * KV * hd + 4 * B
+    return 4.0 * H * hd * live, float(nbytes)
+
+
+def cost_paged(q1, k_pool, v_pool, block_tab, lengths) -> tuple[float, float]:
+    """(FLOPs, bytes) of one flash_decode_paged call: as cost(), plus the
+    block table (int32)."""
+    B, H, hd = q1.shape
+    KV, ps = k_pool.shape[-2], k_pool.shape[2]
+    npg = block_tab.shape[1]
+    live = _live(lengths, B, npg * ps)
+    nbytes = q1.element_size() * 2 * B * H * hd + \
+        k_pool.element_size() * 2 * live * KV * hd + 4 * (B * npg + B)
+    return 4.0 * H * hd * live, float(nbytes)
 
 
 def _route(q1, k, v) -> str:
@@ -129,8 +168,9 @@ def _pick(q1, k, v, route, name):
     return route
 
 
-def _launch(name, q1, k, v, B, KV, cap, route, lens, extra, tail):
-    """Allocate the output and the split scratch, launch, count."""
+def _launch(name, q1, k, v, B, KV, cap, route, lens, extra, tail, work):
+    """Allocate the output and the split scratch, launch, count (on meta:
+    report `work()`, the call's (FLOPs, bytes), instead)."""
     H, hd = q1.shape[1], q1.shape[2]
     out = torch.empty_like(q1)
     if out.numel() == 0:
@@ -140,9 +180,14 @@ def _launch(name, q1, k, v, B, KV, cap, route, lens, extra, tail):
     if nsplit > 1:
         part = torch.empty(B * KV * nsplit * (H // KV) * (hd + 2),
                            dtype=torch.float32, device=q1.device)
+    if q1.device.type == "meta":
+        costs.kernel(name, route, *work())
+        return out
+    if nsplit > 1:
         tickets = _tickets(B * KV, q1.device)
     fn = _build.entry("flash_decode", f"{name}_launch", _ARGS[name])
-    err = fn(q1.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *extra,
+    err = fn(q1.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             *(t.data_ptr() for t in extra),
              lens.data_ptr(), None if part is None else part.data_ptr(),
              None if tickets is None else tickets.data_ptr(), B, H, KV, hd,
              *tail, nsplit, chunk, _build.dtype_code(q1.dtype),
@@ -189,7 +234,8 @@ def flash_decode(q1, k, v, length, *, window=0, route=None):
     route = _pick(q1, k, v, route, name)
     lens = kref._row_lengths(length, B, q1.device).contiguous()
     return _launch(name, q1, k, v, B, KV, S, route, lens, (),
-                   (S, *k.stride()[:3], int(window)))
+                   (S, *k.stride()[:3], int(window)),
+                   lambda: cost(q1, k, v, lens, window=window))
 
 
 def flash_decode_paged(q1, k_pool, v_pool, block_tab, lengths, *, layer=0,
@@ -229,4 +275,5 @@ def flash_decode_paged(q1, k_pool, v_pool, block_tab, lengths, *, layer=0,
     lens = kref._row_lengths(lengths, B, q1.device).contiguous()
     npg = tab.shape[1]
     return _launch(name, q1, k_pool, v_pool, B, KV, npg * ps, route, lens,
-                   (tab.data_ptr(),), (P1, ps, npg, int(layer)))
+                   (tab,), (P1, ps, npg, int(layer)),
+                   lambda: cost_paged(q1, k_pool, v_pool, tab, lens))

@@ -20,7 +20,9 @@ route or raises. `_route` picks the route from strides and alignment:
   simt  any other strides with the last dims contiguous: a block per
         (row, head)
 
-`_build.ROUTES["ssd_chunked"]` counts the launches of each. The kernel
+`_build.ROUTES["ssd_chunked"]` counts the launches of each. On a meta
+tensor the wrapper reports the launch and `cost()` to the active cost
+counter and returns the empty outputs. The kernel
 takes float32 only, as the model hands it over.
 """
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
+from repro_torch.launch import costs
 
 SHAPES = ((64, 16),)      # (P, N) built: hymba-1.5b, 50 heads of 64, state 16
 _ARGS = [_build.PTR] * 7 + [_build.INT] * 5 + [_build.I64] * 13 + \
@@ -41,6 +44,27 @@ def _route(x, B_, C_) -> str:
     4 bytes at a time, any strides)."""
     return "tile" if all(_build.vec16_ok(t) for t in (x, B_, C_)) \
         else "simt"
+
+
+CHUNK = 64               # csrc/mamba_ssd.cu's chunk
+
+
+def cost(x, dt, B_, C_, a) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call: x, dt, B_, C_ and a read once, y and the
+    final state written once (f32); per (row, chunk of n rows) C B^T over
+    the causal triangle (2 tri N), and per (row, head, chunk) y's
+    intra-chunk term over the triangle (2 tri P), the inter-chunk term and
+    the state update (2 x 2 n N P)."""
+    B, H, S, P = x.shape
+    N = B_.shape[-1]
+    flops = 0
+    for t0 in range(0, S, CHUNK):
+        n = min(CHUNK, S - t0)
+        tri = n * (n + 1) // 2
+        flops += B * 2 * tri * N + B * H * (2 * tri * P + 4 * n * N * P)
+    nbytes = 4 * (2 * B * H * S * P + B * H * S + 2 * B * S * N + H
+                  + B * H * N * P)
+    return float(flops), float(nbytes)
 
 
 def ssd_chunked(x, dt, B_, C_, a, *, route=None):
@@ -80,6 +104,9 @@ def ssd_chunked(x, dt, B_, C_, a, *, route=None):
                     device=x.device).transpose(1, 2)
     state = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
     if state.numel() == 0:
+        return y, state
+    if x.device.type == "meta":
+        costs.kernel("ssd_chunked", route, *cost(x, dt, B_, C_, a))
         return y, state
     fn = _build.entry("mamba_ssd", "ssd_chunked_launch", _ARGS)
     err = fn(x.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(),

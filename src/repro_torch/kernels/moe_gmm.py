@@ -22,6 +22,8 @@ raises. `_route` picks the route from dtype, shape, strides and alignment:
   simt_f32    float32: the same f32-FMA tiles, so f32 stays true f32
 
 `_build.ROUTES["grouped_matmul"]` counts the launches of each route.
+On a meta tensor the wrapper reports the launch and `cost()` to the
+active cost counter and returns the empty output.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
+from repro_torch.launch import costs
 
 NAME = "grouped_matmul"
 DECODE_C = 16          # C at or under this takes the decode tiling
@@ -46,6 +49,15 @@ def _route(x, w) -> str:
     if not (_build.vec16_ok(x) and _build.vec16_ok(w)):
         return "simt_bf16"
     return "tc_decode" if x.shape[1] <= DECODE_C else "tc_prefill"
+
+
+def cost(x, w) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call: x and w read once, the output written
+    once; 2 E C d f FLOPs."""
+    E, C, d = x.shape
+    f = w.shape[2]
+    nbytes = x.element_size() * (E * C * d + E * d * f + E * C * f)
+    return 2.0 * E * C * d * f, float(nbytes)
 
 
 def grouped_matmul(x, w, *, route=None):
@@ -78,6 +90,9 @@ def grouped_matmul(x, w, *, route=None):
     elif route not in (picked, _build.simt_route(x.dtype)):
         raise ValueError(f"grouped_matmul: route {route!r} cannot take these "
                          f"operands (their route is {picked!r})")
+    if x.device.type == "meta":
+        costs.kernel(NAME, route, *cost(x, w))
+        return out
     fn = _build.entry("moe_gmm", "grouped_matmul_launch", _ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, d, f,
              *x.stride()[:2], *w.stride()[:2], *out.stride()[:2],

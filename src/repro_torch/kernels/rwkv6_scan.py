@@ -17,7 +17,9 @@ route or raises. `_route` picks the route from strides and alignment:
         register tiles, cp.async double buffering
   simt  any other strides with hd contiguous: a block per (row, head)
 
-`_build.ROUTES["rwkv6_chunked"]` counts the launches of each. The kernel
+`_build.ROUTES["rwkv6_chunked"]` counts the launches of each. On a meta
+tensor the wrapper reports the launch and `cost()` to the active cost
+counter and returns the empty outputs. The kernel
 takes float32 only: its chunked form scales k by up to e^64 (see
 csrc/rwkv6_scan.cu), which bf16 or TF32 products would not survive.
 """
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
+from repro_torch.launch import costs
 
 HEAD_DIMS = (64,)         # rwkv6-3b: 40 heads of 64
 _ARGS = [_build.PTR] * 7 + [_build.INT] * 4 + [_build.I64] * 6 + \
@@ -38,6 +41,22 @@ def _route(r, k, v, w) -> str:
     strides and alignment (the CPU tests call it on CPU tensors)."""
     return "tile" if all(_build.vec16_ok(t) for t in (r, k, v, w)) \
         else "simt"
+
+
+CHUNK = 16               # csrc/rwkv6_scan.cu's chunk
+
+
+def cost(r, k, v, w, u) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call: r, k, v, w and u read once, y and the
+    final state written once (f32); per chunk of 16 the scores and y's
+    intra-chunk term (2 x 2 C^2 hd) and the inter-chunk term and state
+    update (2 x 2 C hd^2), for every (row, head)."""
+    B, H, S, hd = r.shape
+    elems = B * H * S * hd
+    nbytes = 4 * (5 * elems + H * hd + B * H * hd * hd)
+    flops = B * H * -(-S // CHUNK) * (4 * CHUNK * CHUNK * hd
+                                      + 4 * CHUNK * hd * hd)
+    return float(flops), float(nbytes)
 
 
 def rwkv6_chunked(r, k, v, w, u, *, route=None):
@@ -77,6 +96,9 @@ def rwkv6_chunked(r, k, v, w, u, *, route=None):
                     device=r.device).transpose(1, 2)
     state = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     if state.numel() == 0:
+        return y, state
+    if r.device.type == "meta":
+        costs.kernel("rwkv6_chunked", route, *cost(r, k, v, w, u))
         return y, state
     fn = _build.entry("rwkv6_scan", "rwkv6_chunked_launch", _ARGS)
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),

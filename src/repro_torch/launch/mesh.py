@@ -4,9 +4,14 @@ A Mesh names a torch device for every slot of a (data, stage, tp) grid, or
 (pod, data, stage, tp), or the production (data, model) grid. The spmd
 backend (core.wave) runs it from one process: every slot's work is issued
 by this controller onto the slot's device, and the JAX package's
-collectives become tensor ops over the slots' tensors (a psum over tp is a
-sum of the shards' partials on the stage's device, a ppermute over stage
-is a move to the next stage's device).
+collectives become tensor ops over the slots' tensors, named here: `psum`
+(a psum over tp is a sum of the shards' partials on the stage's device),
+`pmax`, `pmean`, `ppermute` (over stage: a move to the next stage's
+device) and `all_to_all` (the expert-parallel exchange). Each does exactly
+those tensor ops and, when a cost counter is active (launch.costs), also
+reports its kind, axis, axis size and payload bytes. `slot(...)` scopes
+the work issued for one (data, stage, tp) slot for the counter; with no
+counter both cost one global read.
 
 Slots are laid out row-major with tp innermost, JAX's device order. When
 there are fewer devices than slots, the devices wrap round-robin over the
@@ -21,6 +26,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.launch import costs
+from repro_torch.launch.costs import slot  # noqa: F401  (re-exported)
 
 
 class Mesh:
@@ -109,3 +117,81 @@ def make_test_mesh(data: int = 2, stages: int = 2, tp: int = 2,
     slots then share the one CPU device)."""
     return make_mesh_auto((data, stages, tp), ("data", "stage", "tp"),
                           devices)
+
+
+# ----------------------------------------------------------------------------
+# the dry run's symmetry shortcut
+# ----------------------------------------------------------------------------
+def issued_data_slots(n: int) -> int:
+    """How many of a step's n data slots it issues: all of them, unless the
+    active cost counter reckons the others by symmetry (launch.dryrun)."""
+    c = costs._ACTIVE
+    if c is None or c.data_slots is None or n <= c.data_slots:
+        return n
+    c.reckoned_from = n               # the counter reckons the rest
+    return c.data_slots
+
+
+def stand_in(t):
+    """An empty tensor like `t`, neither counted nor charged: the output of
+    a data slot the active counter reckons by symmetry."""
+    with costs._ACTIVE.uncounted():
+        return torch.empty_like(t, requires_grad=False)
+
+
+# ----------------------------------------------------------------------------
+# collectives over the slots' tensors
+# ----------------------------------------------------------------------------
+def _report(kind, axis, n, t):
+    if costs._ACTIVE is not None:
+        costs.collective(kind, axis, n, t.numel() * t.element_size())
+
+
+def psum(parts, device, *, axis: str, n: Optional[int] = None):
+    """The psum over `axis`: the partials added on `device`, in order
+    (parts[0] moved there, then each next one moved and added). `n` is
+    the axis size when the parts are not one per member (default: their
+    count); the payload reported is one partial's bytes."""
+    out = parts[0].to(device)
+    for part in parts[1:]:
+        out = out + part.to(device)
+    _report("psum", axis, len(parts) if n is None else n, parts[0])
+    return out
+
+
+def pmean(parts, device, *, axis: str):
+    """The pmean over `axis`: psum's sum, divided by the member count."""
+    out = parts[0].to(device)
+    for part in parts[1:]:
+        out = out + part.to(device)
+    _report("pmean", axis, len(parts), parts[0])
+    return out / len(parts)
+
+
+def pmax(parts, *, axis: str):
+    """The pmax over `axis`: the elementwise maximum of the parts, in
+    order, where they lie."""
+    out = parts[0]
+    for part in parts[1:]:
+        out = torch.maximum(out, part)
+    _report("pmax", axis, len(parts), parts[0])
+    return out
+
+
+def ppermute(x, device, *, axis: str, n: int):
+    """One member's send of a ppermute over `axis` (size `n`): x moved to
+    the receiver's device."""
+    _report("ppermute", axis, n, x)
+    return x.to(device)
+
+
+def all_to_all(xs, devices, *, axis: str, split_axis: int,
+               concat_axis: int):
+    """jax.lax.all_to_all over a list of members: member j receives chunk j
+    of every member's x along `split_axis`, concatenated along
+    `concat_axis` in the senders' order, on devices[j]."""
+    n = len(xs)
+    chunks = [x.chunk(n, dim=split_axis) for x in xs]
+    _report("all_to_all", axis, n, xs[0])
+    return [torch.cat([chunks[i][j].to(devices[j]) for i in range(n)],
+                      dim=concat_axis) for j in range(n)]

@@ -144,17 +144,19 @@ def decode_partial(q1, k_cache, v_cache, gpos, pos, *, window: int = 0):
 
 def merge_decode_partials(parts, q1):
     """Flash-decoding's logsumexp merge of decode_partial states over
-    sequence shards (the JAX package's pmax / psum over its merge axis):
-    each shard's o and l rescaled by exp(m - max m), summed, normalised.
+    sequence shards (the JAX package's pmax / psum over its merge axis,
+    launch.mesh's pmax / psum over data): each shard's o and l rescaled by
+    exp(m - max m), summed, normalised.
     Returns [B, 1, H, hd] in q1's dtype; one part is decode_attend."""
-    m_g = parts[0][1]
-    for _, m, _ in parts[1:]:
-        m_g = torch.maximum(m_g, m)
-    o = l = 0.0
-    for o_d, m_d, l_d in parts:
-        corr = torch.exp(m_d - m_g)
-        l = l + l_d * corr
-        o = o + o_d * corr[..., None]
+    from repro_torch.launch import mesh as mesh_lib
+    m_g = mesh_lib.pmax([m for _, m, _ in parts], axis="data")
+    corr = [torch.exp(m_d - m_g) for _, m_d, _ in parts]
+    dev = parts[0][0].device
+    l = mesh_lib.psum([l_d * c for (_, _, l_d), c in zip(parts, corr)],
+                      dev, axis="data")
+    o = mesh_lib.psum([o_d * c[..., None]
+                       for (o_d, _, _), c in zip(parts, corr)], dev,
+                      axis="data")
     out = o / l.clamp_min(1e-30)[..., None]
     return out.reshape(q1.shape).to(q1.dtype)
 

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -364,23 +365,15 @@ def _finish_layer(cfg: ArchConfig, p, x, xn, att, ctx: LayerCtx, cache,
     return x + m, cache
 
 
-def _tp_sum(parts, device):
-    """The psum over tp: the shards' partials added on `device` (the
-    stage's), in shard order."""
-    out = parts[0].to(device)
-    for part in parts[1:]:
-        out = out + part.to(device)
-    return out
-
-
 def apply_layer_tp(cfg: ArchConfig, ps, x, ctx: LayerCtx, caches=None):
     """One layer over tp shards: ps[t] holds shard t's per-layer leaves
     (lm.shard_blocks), each on its slot's device; caches[t] (prefill and
     decode) shard t's cache (serve.cache.shard_cache's slot, sliced to the
     microbatch); x lives on the stage's device. As the JAX package's layer
     on each tp device: norm the (replicated) x once, take each shard's
-    attention partial over its own cache shard and sum them (the psum), add
-    the residual; then the same for the dense or MoE MLP partials. Leaves
+    attention partial over its own cache shard and sum them (the psum,
+    launch.mesh.psum; each shard's work in its slot's scope), add the
+    residual; then the same for the dense or MoE MLP partials. Leaves
     the spec keeps whole (norms, router, the SSD branch, wk/wv when KV % tp
     != 0) are read from shard 0, and the SSD branch runs once, on shard 0's
     cache (its state is whole over tp).
@@ -400,13 +393,20 @@ def apply_layer_tp(cfg: ArchConfig, ps, x, ctx: LayerCtx, caches=None):
     attn = _attn_decode if ctx.mode == "decode" else _attn_train
     reader = dataclasses.replace(
         ctx, write_kv=cfg.num_kv_heads % len(ps) == 0)
-    att = _tp_sum([attn(cfg, p, xn.to(d), ctx if t == 0 else reader,
-                        caches[t] if caches else None)[0]
-                   for t, (p, d) in enumerate(zip(ps, devs))], x.device)
+    parts = []
+    for t, (p, d) in enumerate(zip(ps, devs)):
+        with mesh_lib.slot(tp=t):
+            parts.append(attn(cfg, p, xn.to(d), ctx if t == 0 else reader,
+                              caches[t] if caches else None)[0])
+    att = mesh_lib.psum(parts, x.device, axis="tp")
     quiet = dataclasses.replace(ctx, aux=None)
 
     def mlp(xn2):
-        return _tp_sum([_mlp(cfg, p, xn2.to(d), ctx if t == 0 else quiet)
-                        for t, (p, d) in enumerate(zip(ps, devs))], x.device)
+        parts = []
+        for t, (p, d) in enumerate(zip(ps, devs)):
+            with mesh_lib.slot(tp=t):
+                parts.append(_mlp(cfg, p, xn2.to(d),
+                                  ctx if t == 0 else quiet))
+        return mesh_lib.psum(parts, x.device, axis="tp")
 
     return _finish_layer(cfg, ps[0], x, xn, att, ctx, c0, mlp)[0]

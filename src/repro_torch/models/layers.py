@@ -70,6 +70,38 @@ def gated_act(h, mlp_type: str):
     return r * r
 
 
+def mlp_act(h, mlp_type: str, d_ff: int):
+    """The JAX package's activation over a fused wi: h [..., G ff] = x @ wi
+    with [gate | up] side by side on the last dim for the gated types (the
+    port's blocks keep G as its own dim and call gated_act instead)."""
+    if mlp_type == "swiglu":
+        g, u = h.chunk(2, dim=-1)
+        return F.silu(g) * u
+    if mlp_type == "geglu":
+        g, u = h.chunk(2, dim=-1)
+        return F.gelu(g, approximate="tanh") * u
+    if mlp_type == "gelu":
+        return F.gelu(h, approximate="tanh")
+    if mlp_type == "relu2":
+        r = F.relu(h)
+        return r * r
+    raise ValueError(mlp_type)
+
+
+def mlp_fused_width(mlp_type: str, d_ff: int) -> int:
+    """The fused wi's width: 2 d_ff for the gated types, else d_ff."""
+    return (2 if mlp_type in ("swiglu", "geglu") else 1) * d_ff
+
+
+def init_dense(gen: torch.Generator, shape, scale=0.02,
+               dtype=torch.float32):
+    """scale x N(0, 1) of `shape`, drawn in f32 from `gen` on its device,
+    cast to `dtype`."""
+    x = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (scale * x).to(dtype)
+
+
 # ----------------------------------------------------------------------------
 # Loss: seq-chunked cross entropy against the vocab head
 # ----------------------------------------------------------------------------

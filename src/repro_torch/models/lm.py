@@ -22,6 +22,9 @@ from repro_torch.models.blocks import (LayerCtx, apply_layer,
                                        apply_layer_tp)
 from repro_torch.models.layers import (chunked_cross_entropy, layer_norm,
                                        rms_norm)
+# the cache's layout lives in serve.cache; the JAX package's lm names stay
+from repro_torch.serve.cache import (cache_struct, init_cache,  # noqa: F401
+                                     serve_dtypes)
 
 
 def padded_vocab(cfg: ArchConfig, mult: int = 16) -> int:
@@ -170,6 +173,27 @@ def param_specs(cfg: ArchConfig) -> dict:
     if not cfg.tie_embeddings:
         specs["head"] = (None, ("stage", "tp"))
     return specs
+
+
+def param_shapes(cfg: ArchConfig, dtype=torch.float32):
+    """Meta tensors matching init_params leaf for leaf (names, the
+    [padded_layers, ...] stacking, dtypes): the dry run's stand-ins, no
+    allocation."""
+    def meta(shape):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    Lp = cfg.padded_layers
+    out = {"blocks": {n: meta((Lp,) + shp) for n, (shp, _) in
+                      sorted(_block_shapes(cfg).items())},
+           "final_norm": meta((cfg.d_model,))}
+    if cfg.norm_style == "ln_pre":
+        out["final_norm_b"] = meta((cfg.d_model,))
+    Vp = padded_vocab(cfg)
+    if cfg.frontend == "none":
+        out["embed"] = meta((Vp, cfg.d_model))
+    if not cfg.tie_embeddings:
+        out["head"] = meta((cfg.d_model, Vp))
+    return out
 
 
 def _init_leaf(gen, shape, init, cfg: ArchConfig, dtype, device):
@@ -388,3 +412,37 @@ def logits_ref(cfg: ArchConfig, params, hidden):
     h = final_hidden_norm(cfg, params, hidden)
     logits = h.float() @ head_matrix(cfg, params).float()
     return logits[..., : cfg.vocab_size]
+
+
+# ----------------------------------------------------------------------------
+# Input specs (meta stand-ins; no allocation)
+# ----------------------------------------------------------------------------
+def input_specs(run) -> dict:
+    """Meta tensors for the step of this (arch, shape) cell, by the JAX
+    package's rules: token ids [B, S] int32 (the stub frontends: [B, S, d]
+    embeddings in the compute dtype); prefill adds cache_struct's cache of
+    seq_len; decode takes one token against a seq_len cache, sequence-
+    sharded 16 ways under 16 rows, and a scalar int32 pos."""
+    cfg, shp = run.arch, run.shape
+    B, S = shp.global_batch, shp.seq_len
+    dt, cache_dt = serve_dtypes(run.compute_dtype, run.cache_dtype)
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def inputs(seq):
+        return meta((B, seq, cfg.d_model), dt) if cfg.frontend != "none" \
+            else meta((B, seq), torch.int32)
+
+    def cache(seq_shards=1):
+        shapes, _ = cache_struct(cfg, B, S, seq_shards=seq_shards,
+                                 dtype=cache_dt)
+        return {k: (tuple(meta(*x) for x in v) if isinstance(v[1], tuple)
+                    else meta(*v)) for k, v in shapes.items()}
+
+    if shp.kind == "train":
+        return {"inputs": inputs(S), "labels": meta((B, S), torch.int32)}
+    if shp.kind == "prefill":
+        return {"inputs": inputs(S), "cache": cache()}
+    return {"inputs": inputs(1), "cache": cache(16 if B < 16 else 1),
+            "pos": meta((), torch.int32)}

@@ -1,5 +1,5 @@
 """Mixture-of-Experts: top-k routing with static capacity dispatch (the port
-of repro.models.moe, without its expert-parallel all_to_all).
+of repro.models.moe; its expert-parallel all_to_all is moe_mlp_ep).
 
 Every position of x [B, S, d] is routed, padding included: prefill runs at
 [max_batch, prompt_len] with short prompts and dead rows padded with token
@@ -23,7 +23,6 @@ from __future__ import annotations
 import contextlib
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import gated_act
@@ -59,7 +58,11 @@ def route_topk(logits, top_k: int):
     # load-balancing aux loss (Switch-style): E * sum_e f_e * p_e
     E = logits.shape[-1]
     me = probs.mean(dim=0)
-    fe = F.one_hot(idx, E).float().sum(dim=1).mean(dim=0)
+    # the one-hot of the choices by a scatter into zeros: F.one_hot checks
+    # the index range on the host (a sync) on the CPU, and issues other
+    # ops on each device type; this issues the same ops everywhere
+    hot = probs.new_zeros((*idx.shape, E)).scatter_(-1, idx[..., None], 1.0)
+    fe = hot.sum(dim=1).mean(dim=0)
     return w, idx, E * (me * fe).sum()
 
 
@@ -85,10 +88,10 @@ def capacity(T: int, num_experts: int, top_k: int,
     return max(4, (cap + 3) // 4 * 4)
 
 
-def moe_mlp(p, x, *, num_experts: int, top_k: int, mlp_type: str,
-            capacity_factor: float = 1.25, backend: str = "ref"):
-    """x [B, S, d] -> ([B, S, d], aux loss). p: router [d, E], w_in
-    [E, d, G, ff], w_out [E, ff, d]."""
+def _dispatch(p, x, *, num_experts: int, top_k: int,
+              capacity_factor: float):
+    """Route x [B, S, d]'s tokens and lay them out by expert: (expert_in
+    [E, cap, d], dest [T K], w [T, K], keep [T K], aux, cap)."""
     B, S, d = x.shape
     T, E, K = B * S, num_experts, top_k
     xf = x.reshape(T, d)
@@ -117,11 +120,82 @@ def moe_mlp(p, x, *, num_experts: int, top_k: int, mlp_type: str,
     # discarded) may be written twice
     buf = xf.new_zeros((E * cap + 1, d))
     buf.index_copy_(0, dest, xf.repeat_interleave(K, dim=0))
-    out = _expert_ffn(buf[:-1].view(E, cap, d), p["w_in"], p["w_out"],
-                      mlp_type, backend)
+    return buf[:-1].view(E, cap, d), dest, w, keep, aux, cap
 
+
+def _combine(out, x, dest, w, keep, top_k: int):
+    """Each token's kept expert outputs [E, cap, d], weighted and summed,
+    in x's shape and dtype."""
+    B, S, d = x.shape
+    T, K = B * S, top_k
+    E, cap = out.shape[:2]
     flat_out = torch.cat([out.reshape(E * cap, d), out.new_zeros((1, d))])
     gathered = flat_out[dest].view(T, K, d)
     combined = torch.einsum("tkd,tk->td", gathered.float(),
                             w * keep.view(T, K))
-    return combined.view(B, S, d).to(x.dtype), aux
+    return combined.view(B, S, d).to(x.dtype)
+
+
+def moe_mlp(p, x, *, num_experts: int, top_k: int, mlp_type: str,
+            capacity_factor: float = 1.25, backend: str = "ref"):
+    """x [B, S, d] -> ([B, S, d], aux loss). p: router [d, E], w_in
+    [E, d, G, ff], w_out [E, ff, d]."""
+    expert_in, dest, w, keep, aux, _ = _dispatch(
+        p, x, num_experts=num_experts, top_k=top_k,
+        capacity_factor=capacity_factor)
+    out = _expert_ffn(expert_in, p["w_in"], p["w_out"], mlp_type, backend)
+    return _combine(out, x, dest, w, keep, top_k), aux
+
+
+def moe_mlp_ep(ps, xs, *, num_experts: int, top_k: int, mlp_type: str,
+               capacity_factor: float = 1.25, mesh_axis: str = "data",
+               backend=None):
+    """The expert-parallel exchange over n shards (the JAX package's
+    moe_mlp(..., ep_axis=) under shard_map, as a function over lists: one
+    controller holds every shard). ps[i]: shard i's whole router [d, E] and
+    its E/n experts' w_in [E/n, d, G, ff] / w_out [E/n, ff, d]; xs[i]:
+    shard i's tokens [B, S, d] on its slot's device. Returns (per-shard
+    outputs [B, S, d], per-shard aux losses), JAX's per-device values.
+
+    Each shard routes its own tokens with a capacity from its own T; the
+    all_to_all (launch.mesh.all_to_all over `mesh_axis`) sends expert
+    group j to shard j, rows ordered by the shard they came from ([E/n,
+    n cap, d]); each shard runs its experts' FFN (kernels.ops.gmm on
+    backend "cuda"); the all_to_all sends the outputs back and each shard
+    combines its own tokens. No Plan or Engine path calls it, as in the
+    JAX package.
+
+    Both legs keep rows by source shard, then slot: the order JAX's
+    return leg reshapes by. JAX's forward leg (jax.lax.all_to_all with
+    tiled=False puts the source axis at concat_axis) lays them out slot-
+    major instead, so its tokens read other tokens' outputs once n > 1;
+    here shard i's output is moe_mlp on its tokens with every expert
+    (tests/test_torch_moe_ep.py)."""
+    from repro_torch.launch import mesh as mesh_lib
+    n, E = len(xs), num_experts
+    if len(ps) != n or E % n:
+        raise ValueError(f"moe_mlp_ep: {len(ps)} param shards, {n} token "
+                         f"shards, {E} experts (must split evenly)")
+    devs = [x.device for x in xs]
+    sent = [_dispatch(p, x, num_experts=E, top_k=top_k,
+                      capacity_factor=capacity_factor)
+            for p, x in zip(ps, xs)]
+    caps = {c for *_, c in sent}
+    if len(caps) != 1:
+        raise ValueError(f"moe_mlp_ep: shards with unequal capacities "
+                         f"{sorted(caps)} (their token counts differ)")
+    cap = caps.pop()
+    d = xs[0].shape[-1]
+    got = mesh_lib.all_to_all(
+        [s[0].reshape(n, E // n, cap, d) for s in sent], devs,
+        axis=mesh_axis, split_axis=0, concat_axis=2)
+    outs = [_expert_ffn(g.reshape(E // n, n * cap, d), p["w_in"],
+                        p["w_out"], mlp_type, kernel_ops.check_backend(
+                            backend))
+            for g, p in zip(got, ps)]
+    back = mesh_lib.all_to_all(
+        [o.reshape(E // n, n, cap, d).transpose(0, 1) for o in outs], devs,
+        axis=mesh_axis, split_axis=0, concat_axis=0)
+    ys = [_combine(b.reshape(E, cap, d), x, dest, w, keep, top_k)
+          for b, x, (_, dest, w, keep, _, _) in zip(back, xs, sent)]
+    return ys, [s[4] for s in sent]

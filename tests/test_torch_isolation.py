@@ -57,13 +57,48 @@ def test_default_device_is_cuda_and_kernels_do_not_fall_back():
     for call in (_build.build_all, lambda: _build.load("flash_decode")):
         with pytest.raises(RuntimeError, match="repro_torch Hopper kernels"):
             call()
-    # a wrapper handed a tensor on a device it cannot serve raises too
+    # a wrapper handed a CUDA tensor without a card raises too (a fake
+    # tensor stands in for one); on meta it launches nothing and hands back
+    # an empty output (the dry run's branch), never the plain version
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_decode import flash_decode_paged
+    with FakeTensorMode():
+        q1 = torch.zeros(1, 2, 32, device="cuda")
+        pool = torch.zeros(1, 3, 4, 2, 32, device="cuda")
+        tab = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
+        with pytest.raises((RuntimeError, NotImplementedError)):
+            flash_decode_paged(q1, pool, pool, tab, 1)
+    before = dict(LAUNCHES)
     q1 = torch.zeros(1, 2, 32, device="meta")
     pool = torch.zeros(1, 3, 4, 2, 32, device="meta")
     tab = torch.zeros(1, 2, dtype=torch.int32, device="meta")
-    with pytest.raises((RuntimeError, NotImplementedError)):
-        flash_decode_paged(q1, pool, pool, tab, 1)
+    out = flash_decode_paged(q1, pool, pool, tab, 1)
+    assert out.device.type == "meta" and out.shape == q1.shape
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.launch.costs", "repro_torch.launch.dryrun",
+    "repro_torch.models.moe", "repro_torch.kernels.ops"])
+def test_new_modules_import_no_benchmarks(module):
+    """The dry run, its counter and the expert-parallel exchange import
+    neither jax, repro nor benchmarks (the JAX package's analysers, which
+    import jax): the port counts with its own counter."""
+    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'repro', 'benchmarks')))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+    path = os.path.join(ROOT, "src", *module.split(".")) + ".py"
+    with open(path) as fh:
+        src = fh.read()
+    assert BANNED.search(src) is None, path
+    assert re.search(r"^\s*(import|from)\s+benchmarks\b", src,
+                     re.M) is None, path
 
 
 @pytest.mark.parametrize("module", [

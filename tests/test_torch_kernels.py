@@ -234,3 +234,50 @@ def test_backends_and_dispatch():
         ops.decode_attention(q1, kT, kT, lens, backend="cuda"),
         ops.decode_attention(q1, kT, kT, lens, backend="ref"))
     assert LAUNCHES == before
+
+
+def test_backend_registry():
+    """tests/test_kernels.py's registry test with the port's names:
+    set_backend validates eagerly (ValueError, not a strippable assert);
+    use_backend scopes and restores the process global."""
+    assert ops.check_backend("ref") == "ref"
+    assert ops.KERNEL_BACKEND == "ref"            # the JAX package's default
+    with pytest.raises(ValueError, match="unknown kernel backend"):
+        ops.set_backend("interpret")
+    before = ops.KERNEL_BACKEND
+    with ops.use_backend("cuda"):
+        assert ops.KERNEL_BACKEND == "cuda"
+        assert ops.check_backend(None) == "cuda"
+        with ops.use_backend("ref"):
+            assert ops.KERNEL_BACKEND == "ref"
+        assert ops.KERNEL_BACKEND == "cuda"
+    assert ops.KERNEL_BACKEND == before
+    with pytest.raises(ValueError):
+        with ops.use_backend("mosaic"):
+            pass
+    assert ops.KERNEL_BACKEND == before
+
+
+def test_ops_dispatch_uses_ambient_backend():
+    """ops.decode_attention honors use_backend when no explicit backend is
+    passed, and both routes agree (on CPU tensors the "cuda" wrapper runs
+    its plain version: no launch)."""
+    rng = np.random.default_rng(3)
+    B, H, KV, S, hd = 2, 4, 2, 32, 16
+    q1, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                for s in ((B, H, hd), (B, KV, S, hd), (B, KV, S, hd)))
+    lens = torch.tensor([32, 7], dtype=torch.int32)
+    ref = ops.decode_attention(q1, k, v, lens)            # default "ref"
+    before = dict(LAUNCHES)
+    with ops.use_backend("cuda"):
+        out = ops.decode_attention(q1, k, v, lens)
+        # the ambient backend reaches the wrapper: on meta it reports the
+        # launch to a cost counter instead of running the plain version
+        from repro_torch.launch.costs import CostCounter
+        with CostCounter() as c:
+            ops.decode_attention(*(t.to("meta") for t in (q1, k, v)),
+                                 lens.to("meta"))
+        c.close()
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    assert c.total().kernels["flash_decode"]["simt_f32"] == 1
+    assert LAUNCHES == before

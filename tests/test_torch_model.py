@@ -225,3 +225,34 @@ def test_unported_families_raise():
         np.testing.assert_array_equal(again.generate().tokens, rep.tokens)
         with pytest.raises(ValueError, match="stub-frontend architecture"):
             Scheduler(eng)
+
+
+@pytest.mark.parametrize("mlp_type", ["swiglu", "geglu", "gelu", "relu2"])
+def test_mlp_act_and_fused_width_equal_jax(mlp_type):
+    """layers.mlp_act over a fused [gate | up] width, and mlp_fused_width,
+    against the JAX package's on the same numpy input (f32)."""
+    ff = 24
+    width = tlayers.mlp_fused_width(mlp_type, ff)
+    assert width == jlayers.mlp_fused_width(mlp_type, ff)
+    h = np.random.default_rng(5).standard_normal((3, 7, width)).astype(
+        np.float32)
+    got = tlayers.mlp_act(torch.from_numpy(h), mlp_type, ff).numpy()
+    want = np.asarray(jlayers.mlp_act(jnp.asarray(h), mlp_type, ff))
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError):
+        tlayers.mlp_act(torch.from_numpy(h), "tanh", ff)
+
+
+def test_init_dense_draws_from_its_generator():
+    """init_dense: scale x N(0, 1) from the explicit generator, cast to the
+    dtype; the same seed gives the same draw (jax.random's differ, so the
+    shape, dtype and spread are what is held to JAX's)."""
+    a = tlayers.init_dense(torch.Generator().manual_seed(3), (64, 32))
+    b = tlayers.init_dense(torch.Generator().manual_seed(3), (64, 32))
+    c = tlayers.init_dense(torch.Generator().manual_seed(3), (64, 32),
+                           scale=1.0, dtype=torch.bfloat16)
+    want = jlayers.init_dense(jax.random.PRNGKey(3), (64, 32))
+    assert torch.equal(a, b) and tuple(a.shape) == want.shape
+    assert a.dtype == torch.float32 and c.dtype == torch.bfloat16
+    torch.testing.assert_close(a, 0.02 * c.float(), atol=1e-4, rtol=1e-2)
+    assert abs(float(a.std()) - float(np.std(np.asarray(want)))) < 3e-3
