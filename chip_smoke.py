@@ -40,11 +40,13 @@ Phases (each prints a line; any failure exits nonzero):
      attention at qwen3's, granite's and hymba's heads and at hymba's S 1100
      prefill, paged decode at the same three head shapes, contiguous decode
      at qwen3's [8, 160] and hymba's [4, 1132] generate caches; and at
-     gemma3-1b's heads (4 / 1 of 256: no tensor-core route at hd 256, every
-     launch asserted on the SIMT route `_route` gives) prefill attention
-     with window 0 and 512 and both decode kernels at its global layers'
-     shapes, held against their plain versions in bf16 and f32 and timed
-     beside their bounds and SDPA;
+     gemma3-1b's heads (4 / 1 of 256, and 1 / 1 as on a tp shard; every
+     bf16 launch asserted on the tensor-core route, held beside a forced
+     simt_bf16 launch) prefill attention with window 0 and 512 and both
+     decode kernels at its global layers' shapes (a bf16 and an fp8
+     pool), held against their plain versions in bf16 and f32 and timed
+     route by route in turns (tc, simt_bf16, simt_f32, then back) beside
+     their bounds and SDPA;
   3. qwen3-0.6b at full width (28 layers, random weights from a seeded
      generator, bf16) served through the continuous-batching Scheduler over
      a 48-page pool, with the kernel launch counts of that run asserted
@@ -115,10 +117,9 @@ Phases (each prints a line; any failure exits nonzero):
  18. gemma3-1b at full width (26 layers, 4 of them global, window 512,
      4/1 heads of 256, vocab 262144, tied; random weights, bf16) served
      through the Scheduler over a 48-page pool: flash_attention_fwd and
-     flash_decode_paged by every global layer, the counts exact, the route
-     check's one exception (those two kernels at hd 256 on simt_bf16, as
-     `_route` gives) printed; then the same requests in f32, kernel and
-     plain streams identical;
+     flash_decode_paged by every global layer, the counts exact and every
+     launch on tc, as in every family; then the same requests in f32,
+     kernel and plain streams identical;
  19. minitron-8b at full width (32 layers, d 4096, 32/8 heads of 128,
      relu^2 d_ff 16384, vocab 256000, untied; ~8.7 B params drawn in bf16,
      the init's peak memory printed): each layer alone on one input in f32
@@ -219,6 +220,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -250,14 +252,15 @@ DESIGN = {
                           "mma.sync.m16n8k16 (positions / hd on M, the G "
                           "<= 8 query rows on N), P^T from S^T by "
                           "movmatrix, the block table read in the kernel, "
-                          "fp8 widened in shared memory; f32, hd 256 or "
-                          "unaligned rows (simt): the same splits with "
-                          "f32-FMA",
+                          "fp8 widened in shared memory, 6 warps at hd "
+                          "256; f32 or unaligned rows (simt): the same "
+                          "splits with f32-FMA",
     "flash_attention_fwd": "bf16 (route tc): flash-attention-2 on "
-                           "mma.sync.m16n8k16, Q fragments and P (bf16) in "
+                           "mma.sync.m16n8k16, Q fragments (re-read from "
+                           "shared memory at hd 256) and P (bf16) in "
                            "registers, K/V double-buffered by cp.async; "
-                           "f32, hd 256 or unaligned rows (simt): f32-FMA "
-                           "tiles through shared memory",
+                           "f32 or unaligned rows (simt): f32-FMA tiles "
+                           "through shared memory",
     "flash_decode": "the flash_decode_paged body (splits, tc / simt "
                     "routes) over a strided contiguous cache, with the "
                     "optional window",
@@ -1990,6 +1993,18 @@ def main() -> int:
     for lib_name in ("moe_gmm", "flash_attention", "flash_decode"):
         for kern, regs, spill in ptxas_entries(lib_name, "_tc_"):
             log("build", f"{lib_name}: {kern}: {regs}; {spill}")
+    # hd 256 holds 128 (attention) or 64 (decode) f32 accumulators a lane:
+    # its tensor-core instantiations must not spill
+    hd256 = [(kern, spill) for lib_name in ("flash_attention", "flash_decode")
+             for kern, _, spill in ptxas_entries(lib_name, "_tc_")
+             if re.search(r"[<, ]256[,>]|Li256E", kern)]
+    spilled = [k for k, sp in hd256
+               if "0 bytes spill stores, 0 bytes spill loads" not in sp]
+    if len(hd256) != 5 or spilled:   # 1 attention, 4 decode
+        raise AssertionError(f"hd-256 tensor-core instantiations: "
+                             f"{len(hd256)} of 5, spilling: {spilled}")
+    log("build", f"hd 256: {len(hd256)} tensor-core instantiations, none "
+        f"spills")
     simt = ptxas_entries("flash_decode", "decode_simt")
     used = [int(r.split("Used ")[1].split()[0]) for _, r, _ in simt]
     log("build", f"flash_decode: {len(simt)} simt instantiations, "
@@ -2007,10 +2022,14 @@ def main() -> int:
         f"tc (1 / 2 query heads a block) and simt at hd 64 "
         f"{att_smem(64, 1, 1)} / {att_smem(64, 2, 1)} and "
         f"{att_smem(64, 1, 0)} B, at hd 128 {att_smem(128, 1, 1)} / "
-        f"{att_smem(128, 2, 1)} and {att_smem(128, 1, 0)} B; flash_decode "
+        f"{att_smem(128, 2, 1)} and {att_smem(128, 1, 0)} B, at hd 256 "
+        f"(one query head a block) {att_smem(256, 1, 1)} and "
+        f"{att_smem(256, 1, 0)} B; flash_decode "
         f"tc (bf16 / fp8 pool) a warp at hd 64 {dec_smem(64, 0, 1)} / "
         f"{dec_smem(64, 1, 1)} B, at hd 128 {dec_smem(128, 0, 1)} / "
-        f"{dec_smem(128, 1, 1)} B (up to 8 warps a block)")
+        f"{dec_smem(128, 1, 1)} B (up to 8 warps a block), at hd 256 "
+        f"{dec_smem(256, 0, 1)} / {dec_smem(256, 1, 1)} B (up to "
+        f"{fd.SPAN_HD256['tc'] // 32} warps a block)")
     # the tensor-core instructions in the decode kernels' machine code
     for kern, ops in sass_counts("flash_decode", "decode_tc_kernel",
                                  ("HMMA", "LDSM", "MOVM", "LDGSTS")):
@@ -2174,71 +2193,87 @@ def main() -> int:
     attention_parity_long(25, 5, 64, 4, 1100, 32)
 
     def gemma3_parity():
-        """gemma3-1b's heads (4 query / 1 kv of 256, G 4): hd 256 has no
-        tensor-core route, so every launch must take the SIMT route of its
-        dtype, the one `_route` gives. Prefill attention with window 0 and
-        512 over rows of 128 (the serve prompts) and 600 (past the window);
-        both decode kernels at the global layers' shapes (B 8, a [8, 160]
-        cache at lengths across the SIMT splits, a pool of 16-position
-        pages). Returns {kernel: route} as launched."""
-        H, KV, hd = 4, 1, 256
-        heads = f"{H}/{KV}x{hd}"
+        """gemma3-1b's heads (4 query / 1 kv of 256, G 4; and 1 / 1, G 1,
+        as one tp shard of the spmd backend holds them): every bf16 launch
+        must take the tensor-core route, `_route`'s pick, and is held
+        against the plain version beside a forced simt_bf16 launch; f32
+        takes simt_f32. Prefill attention with window 0 and 512 over rows
+        of 128 (the serve prompts) and 600 (past the window); both decode
+        kernels at the global layers' shapes (B 8, a [8, 160] cache at
+        lengths across the tiles, a pool of 16-position pages in the dtype
+        and in fp8). Returns {kernel: routes launched}."""
+        hd = 256
         seen = {}
 
-        def routed(name, dt, fn):
+        def routed(name, dt, route, fn):
             before = dict(ROUTES[name])
             out = fn()
             torch.cuda.synchronize()
             ran = {r for r, n in ROUTES[name].items() if n != before.get(r, 0)}
-            want = "simt_bf16" if dt == torch.bfloat16 else "simt_f32"
+            want = route or ("tc" if dt == torch.bfloat16 else "simt_f32")
             if ran != {want}:
                 raise AssertionError(f"{name} at hd 256 {dt}: routes {ran}, "
-                                     f"_route gives {want}")
+                                     f"wanted {want}")
             seen.setdefault(name, set()).add(want)
             return out
-        for dt in (torch.bfloat16, torch.float32):
-            for B, S in ((8, 128), (2, 600)):
-                q = randn(B, S, H, hd, dtype=dt).transpose(1, 2)
-                k = randn(B, S, KV, hd, dtype=dt).transpose(1, 2)
-                v = randn(B, S, KV, hd, dtype=dt).transpose(1, 2)
-                if fa_route(q, k, v) != ("simt_bf16" if dt == torch.bfloat16
-                                         else "simt_f32"):
-                    raise AssertionError("hd 256 has a tensor-core route?")
-                for window in (0, 512):
-                    ref = kref.attention_ref(q, k, v, causal=True,
-                                             window=window)
-                    hold("flash_attention_fwd", routed(
-                        "flash_attention_fwd", dt,
-                        lambda: flash_attention_fwd(q, k, v, causal=True,
-                                                    window=window)),
-                         ref, dt, heads)
-            B, S = 8, 160
-            q1 = randn(B, H, hd, dtype=dt)
-            cache = randn(2, B, S, KV, hd, dtype=dt)
-            kv = (cache[0].transpose(1, 2), cache[1].transpose(1, 2))
-            lens = torch.tensor([0, 1, 15, 16, 17, 77, 140, 160],
-                                device=dev, dtype=torch.int32)
-            hold("flash_decode", routed("flash_decode", dt, lambda: flash_decode(
-                q1, *kv, lens)), kref.decode_ref(q1, *kv, lens), dt, heads,
-                 zero_row=0)
-            ps, npg = 16, 10
-            tab = torch.randperm(B * npg, generator=gen, device=dev).to(
-                torch.int32).reshape(B, npg)
-            live_pg = torch.arange(npg, device=dev)[None] * ps < lens[:, None]
-            tab = torch.where(live_pg, tab, -1).to(torch.int32)
-            kp = randn(4, B * npg + 1, ps, KV, hd, dtype=dt)
-            vp = randn(4, B * npg + 1, ps, KV, hd, dtype=dt)
-            hold("flash_decode_paged", routed(
-                "flash_decode_paged", dt, lambda: flash_decode_paged(
-                    q1, kp, vp, tab, lens, layer=3)),
-                 kref.decode_paged_ref(q1, kp, vp, tab, lens, layer=3), dt,
-                 heads, zero_row=0)
+        for H in (4, 1):
+            heads = f"{H}/1x{hd}"
+            for dt in (torch.bfloat16, torch.float32):
+                pick = "tc" if dt == torch.bfloat16 else "simt_f32"
+                for B, S in ((8, 128), (2, 600)):
+                    q = randn(B, S, H, hd, dtype=dt).transpose(1, 2)
+                    k = randn(B, S, 1, hd, dtype=dt).transpose(1, 2)
+                    v = randn(B, S, 1, hd, dtype=dt).transpose(1, 2)
+                    if fa_route(q, k, v) != pick:
+                        raise AssertionError(f"hd 256 {dt}: _route gives "
+                                             f"{fa_route(q, k, v)}")
+                    for window in (0, 512):
+                        ref = kref.attention_ref(q, k, v, causal=True,
+                                                 window=window)
+                        for route in ROUTE_CHECKS[dt]:
+                            hold("flash_attention_fwd", routed(
+                                "flash_attention_fwd", dt, route,
+                                lambda: flash_attention_fwd(
+                                    q, k, v, causal=True, window=window,
+                                    route=route)),
+                                 ref, dt, heads, route=route)
+                B, S = 8, 160
+                q1 = randn(B, H, hd, dtype=dt)
+                cache = randn(2, B, S, 1, hd, dtype=dt)
+                kv = (cache[0].transpose(1, 2), cache[1].transpose(1, 2))
+                lens = torch.tensor([0, 1, 15, 16, 17, 77, 140, 160],
+                                    device=dev, dtype=torch.int32)
+                ref = kref.decode_ref(q1, *kv, lens)
+                for route in ROUTE_CHECKS[dt]:
+                    hold("flash_decode", routed(
+                        "flash_decode", dt, route, lambda: flash_decode(
+                            q1, *kv, lens, route=route)),
+                         ref, dt, heads, zero_row=0, route=route)
+                ps, npg = 16, 10
+                tab = torch.randperm(B * npg, generator=gen, device=dev).to(
+                    torch.int32).reshape(B, npg)
+                live_pg = torch.arange(npg, device=dev)[None] * ps < \
+                    lens[:, None]
+                tab = torch.where(live_pg, tab, -1).to(torch.int32)
+                for pool_dt in (dt, torch.float8_e4m3fn):
+                    kp = randn(4, B * npg + 1, ps, 1, hd, dtype=pool_dt)
+                    vp = randn(4, B * npg + 1, ps, 1, hd, dtype=pool_dt)
+                    ref = kref.decode_paged_ref(q1, kp, vp, tab, lens,
+                                                layer=3)
+                    for route in ROUTE_CHECKS[dt]:
+                        hold("flash_decode_paged", routed(
+                            "flash_decode_paged", dt, route,
+                            lambda: flash_decode_paged(
+                                q1, kp, vp, tab, lens, layer=3,
+                                route=route)),
+                             ref, dt, heads, zero_row=0, route=route)
         return {k: sorted(v) for k, v in seen.items()}
 
     gemma_parity_routes = gemma3_parity()
-    log("parity", f"gemma3-1b 4/1 x 256 (no tensor-core route at hd 256): "
-        f"routes {gemma_parity_routes}; max |kernel - plain| "
-        f"{by_heads['4/1x256']}")
+    log("parity", f"gemma3-1b 4/1 x 256 and a tp shard's 1/1 x 256 (bf16 "
+        f"on tc, held beside a forced simt_bf16; f32 on simt_f32; bf16 and "
+        f"fp8 pools): routes {gemma_parity_routes}; max |kernel - plain| "
+        f"{by_heads['4/1x256']}, {by_heads['1/1x256']}")
     H, KV, hd = 16, 8, 128
 
     def hold_recurrence(name, tol, S, got, want, route=None):
@@ -2423,7 +2458,7 @@ def main() -> int:
         att_times["qwen3 16/8x128"],
         library="scaled_dot_product_attention(is_causal, enable_gqa)",
         dtype="bfloat16", tolerance=TOL, by_shape=att_times)
-    # decode at the serve shapes, each route (tc, simt_bf16, simt_f32)
+    # decode at the serve shapes, each route in turns (tc, simt_bf16, simt_f32)
     # beside the library call: paged over a pool of 16-token pages (B 8, the
     # same lengths 17..160 and block table at every head shape, pages past
     # each length unmapped) at qwen3's, granite's and hymba's heads;
@@ -2446,32 +2481,44 @@ def main() -> int:
     def n_sets(layers, live_pos, KVq, hdq):
         return max(layers, -(-2 * 50_000_000 // (4 * live_pos * KVq * hdq)))
 
-    def split_sweep(fn, sets, pairs, cap):
-        """The tc route's device time as its span (the floor of a chunk,
-        fd.SPAN["tc"]) moves: {span: [splits, chunk, ms]}; the span is put
-        back after."""
-        keep, out = fd.SPAN["tc"], {}
+    def split_sweep(fn, sets, pairs, cap, hd):
+        """The tc route's device time as its span at head dim hd (the
+        floor of a chunk, fd.SPAN["tc"], fd.SPAN_HD256["tc"] at hd 256)
+        moves: {span: [splits, chunk, ms]}; the span is put back after."""
+        spans = fd.SPAN_HD256 if hd == 256 else fd.SPAN
+        keep, out = spans["tc"], {}
         try:
-            for span in (16, 64, 128, 256, 512):
-                fd.SPAN["tc"] = span
-                out[span] = [*fd._splits(pairs, 1, cap, "tc"),
+            for span in (16, 64, 128, 192, 256, 512):
+                spans["tc"] = span
+                out[span] = [*fd._splits(pairs, 1, cap, "tc", hd),
                              time_ms(fn, sets)]
         finally:
-            fd.SPAN["tc"] = keep
+            spans["tc"] = keep
         return out
 
-    def decode_times(fn, plain, library, sets, cost, shape, pairs, cap):
-        """A decode kernel's routes, eager, plain and library times over
-        `sets` (per dtype), and the tc route's split sweep over `pairs`
-        (row, kv head) pairs of `cap` positions; its bound from `cost` of
-        one call's arguments."""
-        routes = {"tc": time_ms(fn, sets[bf]),
-                  "simt_bf16": time_ms(lambda *a: fn(*a, route="simt_bf16"),
-                                       sets[bf]),
-                  "simt_f32": time_ms(fn, sets[f32])}
+    def routes_in_turns(timers):
+        """{route: ms} from {route: a call of time_ms}: each timed in the
+        order given, then again in reverse, averaged (drift between the
+        passes falls on every route alike)."""
+        ms = {r: [t()] for r, t in timers.items()}
+        for r, t in reversed(list(timers.items())):
+            ms[r].append(t())
+        return {r: sum(v) / len(v) for r, v in ms.items()}
+
+    def decode_times(fn, plain, library, sets, cost, shape, pairs, cap,
+                     hd=128):
+        """A decode kernel's routes (in turns), eager, plain and library
+        times over `sets` (per dtype), and the tc route's split sweep over
+        `pairs` (row, kv head) pairs of `cap` positions at head dim hd; its
+        bound from `cost` of one call's arguments."""
+        routes = routes_in_turns({
+            "tc": lambda: time_ms(fn, sets[bf]),
+            "simt_bf16": lambda: time_ms(
+                lambda *a: fn(*a, route="simt_bf16"), sets[bf]),
+            "simt_f32": lambda: time_ms(fn, sets[f32])})
         return dict(
             ms=routes["tc"], routes=routes,
-            split_sweep=split_sweep(fn, sets[bf], pairs, cap),
+            split_sweep=split_sweep(fn, sets[bf], pairs, cap, hd),
             eager_ms=time_ms(fn, sets[bf], graph=False),
             plain_ms=time_ms(plain, sets[bf], graph=False),
             library_ms=time_ms(library, sets[bf]),
@@ -2668,15 +2715,15 @@ def main() -> int:
                 f"ms, plain chunked scan {t['plain_scan_ms']:.4f} ms; library "
                 f"none; bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
 
-    # gemma3-1b's hd-256 shapes, on the route _route gives (simt_bf16; the
-    # f32 route beside it): prefill attention at the serve shape (B 8, S
+    # gemma3-1b's hd-256 shapes, each route in turns (tc, simt_bf16,
+    # simt_f32, then back): prefill attention at the serve shape (B 8, S
     # 128, window 0: the global layers' call) over 26 layers' inputs and at
     # B 2 x S 600 with window 512 (the band inside the rows), beside SDPA
     # (with the band as a mask); paged decode over the serve pool of phase
     # 2's decode timing (the same block table and lengths 17..160) and
     # contiguous decode over a [8, 160] cache at length 140, beside the
-    # gathered / masked SDPA. Bounds as above; flops counted inside the
-    # band.
+    # gathered / masked SDPA, with the tc route's split sweep. Bounds as
+    # above; flops counted inside the band.
     Hg, KVg, hdg = 4, 1, 256
     gemma_times = {}
     for what, (B, S, window, layers) in {
@@ -2690,8 +2737,9 @@ def main() -> int:
         if window:
             band = band & (pos_[:, None] - pos_[None] < window)
 
-        def attn(q, k, v, window=window):
-            return flash_attention_fwd(q, k, v, causal=True, window=window)
+        def attn(q, k, v, window=window, route=None):
+            return flash_attention_fwd(q, k, v, causal=True, window=window,
+                                       route=route)
 
         def attn_plain(q, k, v, window=window):
             return kref.attention_ref(q, k, v, causal=True, window=window)
@@ -2700,8 +2748,12 @@ def main() -> int:
             return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
                                                   enable_gqa=True)
         t = gemma_times[f"flash_attention_fwd {what}"] = dict(
-            routes={"simt_bf16": time_ms(attn, sets[bf]),
-                    "simt_f32": time_ms(attn, sets[f32])},
+            routes=routes_in_turns({
+                "tc": lambda: time_ms(attn, sets[bf]),
+                "simt_bf16": lambda: time_ms(
+                    lambda q, k, v: attn(q, k, v, route="simt_bf16"),
+                    sets[bf]),
+                "simt_f32": lambda: time_ms(attn, sets[f32])}),
             eager_ms=time_ms(attn, sets[bf], graph=False),
             plain_ms=time_ms(attn_plain, sets[bf], graph=False),
             library_ms=time_ms(banded_sdpa, sets[bf]),
@@ -2709,7 +2761,7 @@ def main() -> int:
             shape=f"B{B} S{S} H{Hg} KV{KVg} hd{hdg} window {window} bf16",
             bound=bound(fa.cost, *sets[bf][0], window=window),
             bound_f32=bound(fa.cost, *sets[f32][0], window=window))
-        t["ms"] = t["routes"]["simt_bf16"]
+        t["ms"] = t["routes"]["tc"]
         att_times[what] = t
         del sets
     B = 8
@@ -2721,8 +2773,9 @@ def main() -> int:
         q1 = randn(B, Hg, hdg, dtype=dt)
         sets[dt] = [(q1, kp, vp, tab, dlens, layer) for layer in range(n)]
 
-    def paged_g(q1, kp, vp, tab, lens, layer):
-        return flash_decode_paged(q1, kp, vp, tab, lens, layer=layer)
+    def paged_g(q1, kp, vp, tab, lens, layer, route=None):
+        return flash_decode_paged(q1, kp, vp, tab, lens, layer=layer,
+                                  route=route)
 
     def paged_g_plain(q1, kp, vp, tab, lens, layer):
         return kref.decode_paged_ref(q1, kp, vp, tab, lens, layer=layer)
@@ -2733,18 +2786,12 @@ def main() -> int:
         vv = vp[layer][phys].reshape(B, -1, *vp.shape[-2:]).transpose(1, 2)
         return F.scaled_dot_product_attention(
             q1[:, :, None], kk, vv, attn_mask=pmask, enable_gqa=True)
-    t = gemma_times["flash_decode_paged gemma3 4/1x256"] = dict(
-        routes={"simt_bf16": time_ms(paged_g, sets[bf]),
-                "simt_f32": time_ms(paged_g, sets[f32])},
-        eager_ms=time_ms(paged_g, sets[bf], graph=False),
-        plain_ms=time_ms(paged_g_plain, sets[bf], graph=False),
-        library_ms=time_ms(gathered_g, sets[bf]),
-        library_eager_ms=time_ms(gathered_g, sets[bf], graph=False),
-        shape=f"B{B} pool[{n},{P1},{ps},{KVg},{hdg}] live {live} positions "
-              f"bf16",
-        bound=bound(fd.cost_paged, *sets[bf][0][:5]),
-        bound_f32=bound(fd.cost_paged, *sets[f32][0][:5]))
-    t["ms"] = t["routes"]["simt_bf16"]
+    t = gemma_times["flash_decode_paged gemma3 4/1x256"] = decode_times(
+        paged_g, paged_g_plain, gathered_g, sets,
+        lambda q1, kp, vp, tab, lens, layer: fd.cost_paged(
+            q1, kp, vp, tab, lens),
+        f"B{B} pool[{n},{P1},{ps},{KVg},{hdg}] live {live} positions",
+        B * KVg, npg * ps, hd=hdg)
     paged_times["gemma3 4/1x256"] = t
     del sets, kp, vp
     glens = torch.full((8,), 140, device=dev, dtype=torch.int32)
@@ -2762,28 +2809,24 @@ def main() -> int:
     def masked_g(q, k, v, n, gmask=gmask):
         return F.scaled_dot_product_attention(
             q[:, :, None], k, v, attn_mask=gmask, enable_gqa=True)
-    t = gemma_times["flash_decode gemma3 4/1x256 [8,160]"] = dict(
-        routes={"simt_bf16": time_ms(flash_decode, sets[bf]),
-                "simt_f32": time_ms(flash_decode, sets[f32])},
-        eager_ms=time_ms(flash_decode, sets[bf], graph=False),
-        plain_ms=time_ms(kref.decode_ref, sets[bf], graph=False),
-        library_ms=time_ms(masked_g, sets[bf]),
-        library_eager_ms=time_ms(masked_g, sets[bf], graph=False),
-        shape=f"B8 cache[{n},8,160,{KVg},{hdg}] strided, length 140 bf16",
-        bound=bound(fd.cost, *sets[bf][0]),
-        bound_f32=bound(fd.cost, *sets[f32][0]))
-    t["ms"] = t["routes"]["simt_bf16"]
+    t = gemma_times["flash_decode gemma3 4/1x256 [8,160]"] = decode_times(
+        flash_decode, kref.decode_ref, masked_g, sets, fd.cost,
+        f"B8 cache[{n},8,160,{KVg},{hdg}] strided, length 140", 8 * KVg,
+        160, hd=hdg)
     cont_times["gemma3 4/1x256 [8,160]"] = t
     del sets, ck, cv
     for what, t in gemma_times.items():
-        log("timing", f"{what} [{t['shape']}]: routes " + ", ".join(
+        log("timing", f"{what} [{t['shape']}]: routes in turns " + ", ".join(
             f"{r} {ms:.4f} ms" for r, ms in t["routes"].items()) +
-            f" (device time, CUDA graph; hd 256: no tensor-core route); "
+            f" (device time, CUDA graph); "
             f"eager {t['eager_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
             f"library {t['library_ms']:.4f} ms (eager "
             f"{t['library_eager_ms']:.4f}); bound {t['bound'][0]:.4f} ms "
             f"({t['bound'][1]}), in f32 {t['bound_f32'][0]:.4f} ms "
-            f"({t['bound_f32'][1]})")
+            f"({t['bound_f32'][1]})" + ("; tc by span (splits x chunk: ms): "
+                                        + ", ".join(
+                f"{sp} ({n} x {c}: {ms:.4f})" for sp, (n, c, ms) in
+                t["split_sweep"].items()) if "split_sweep" in t else ""))
 
     def check_launches(tag, launches, rep, need):
         """`need` maps each kernel of the path to ("prefill" | "decode" |
@@ -2805,37 +2848,27 @@ def main() -> int:
         grouped matmul in bf16) or register tiles (WKV6, SSD)."""
         return route.startswith("tc") or route == "tile"
 
-    def check_routes(tag, launches, expect=None):
-        """Every launch of every kernel on the path took its fast route —
-        except a kernel named in `expect`, every launch of which took the
-        route given there (the one its `_route` gives at the model's
-        shapes: gemma3's hd 256 has no tensor-core route)."""
-        expect = expect or {}
+    def check_routes(tag, launches):
+        """Every launch of every kernel on the path took its fast route."""
         for name, routes in launches["routes"].items():
-            if name in expect:
-                n_ok = routes.get(expect[name], 0)
-            else:
-                n_ok = sum(n for r, n in routes.items() if fast(r))
+            n_ok = sum(n for r, n in routes.items() if fast(r))
             if n_ok != launches[name]:
                 raise AssertionError(
                     f"{tag}: {name} launched {launches[name]} times, {n_ok} "
-                    f"of them on its expected route "
-                    f"({expect.get(name, 'tc* or tile')}): {routes}")
+                    f"of them on its fast route (tc* or tile): {routes}")
 
     def measured_launches():
         """LAUNCHES, with ROUTES beside them under "routes"."""
         return dict(LAUNCHES, routes={n: dict(r) for n, r in ROUTES.items()})
 
-    def serve_phase(tag, eng, reqs, need, pool, routing=None, expect=None):
+    def serve_phase(tag, eng, reqs, need, pool, routing=None):
         """`reqs` through the Scheduler once to warm up (cuBLAS, the
         allocator) and once with the launch counts at 0: every kernel of
         `need` launched, every request's tokens out and in the vocabulary,
         a page pool only if `pool`; then a profiled short run. Returns the
         launch counts of the measured run. With `routing` (a callable of the
         MoE routing records and the report), the measured run records the
-        routing of every MoE layer and hands it over. `expect` names the
-        kernels whose launches take another route than their fast one
-        (check_routes)."""
+        routing of every MoE layer and hands it over."""
         arch, sv = eng.plan.arch, eng.plan.serve
         t0 = time.monotonic()
         Scheduler(eng).run(reqs[:2])
@@ -2848,7 +2881,7 @@ def main() -> int:
             torch.cuda.synchronize()
         launches = measured_launches()
         check_launches(tag, launches, rep, need)
-        check_routes(tag, launches, expect)
+        check_routes(tag, launches)
         toks = [t for r in rep.requests for t in r.tokens]
         if rep.tokens_out != len(reqs) * sv.gen or \
                 bool(rep.pages_total) != pool or \
@@ -2870,8 +2903,7 @@ def main() -> int:
             f"warm-up {warm_s:.1f} s")
         log("serve", f"{tag} launches {launches} (needed per prefill group "
             f"/ decode step, exactly: {need}; every launch on its kernel's "
-            f"fast route: tc* or tile" + (f", except {expect}, as _route gives"
-                                          if expect else "") + ")")
+            f"fast route: tc* or tile)")
         if routing is not None:
             routing(records, rep)
         del records
@@ -3470,30 +3502,13 @@ def main() -> int:
                   serve=ServeSpec(prompt_len=128, gen=32, max_batch=8,
                                   page_size=16, max_pages=48,
                                   kernel_backend="cuda"))
-    # the route each kernel takes at gemma3's heads: _route on tensors of
-    # the model's shapes (bf16, rows as the model lays them out)
-    qg = torch.zeros(8, 128, ga.num_heads, ga.head_dim, dtype=torch.bfloat16,
-                     device=dev).transpose(1, 2)
-    kg = torch.zeros(8, 128, ga.num_kv_heads, ga.head_dim,
-                     dtype=torch.bfloat16, device=dev).transpose(1, 2)
-    pg = torch.zeros(2, 49, 16, ga.num_kv_heads, ga.head_dim,
-                     dtype=torch.bfloat16, device=dev)
-    g3_expect = {"flash_attention_fwd": fa_route(qg, kg, kg),
-                 "flash_decode_paged": fd._route(qg[:, :, 0], pg, pg)}
-    del qg, kg, pg
-    log("serve", f"gemma3-1b: {n_glob} global layers of {ga.num_layers} "
-        f"(kinds {kinds}) launch the kernels; the route check's exception: "
-        f"at hd {ga.head_dim} (no tensor-core route) "
-        + ", ".join(f"{k} takes {r}" for k, r in g3_expect.items())
-        + "; every other family's launches stay held to tc* / tile")
     g3_launches = serve_phase(
         f"gemma3-1b full width ({ga.num_layers} layers, {n_glob} global, "
         f"window {ga.window_size}, d {ga.d_model}, {ga.num_heads}/"
         f"{ga.num_kv_heads} heads of {ga.head_dim}, d_ff {ga.d_ff}, vocab "
         f"{ga.vocab_size}, tied)", Engine(g3plan, params=g3bf), g3reqs,
         {"flash_attention_fwd": ("prefill", n_glob),
-         "flash_decode_paged": ("decode", n_glob)}, pool=True,
-        expect=g3_expect)
+         "flash_decode_paged": ("decode", n_glob)}, pool=True)
     f32_streams("gemma3-1b", g3plan.replace(run__compute_dtype="float32"),
                 g3p32, g3reqs, exact=True)
     del g3p32, g3bf

@@ -22,9 +22,10 @@
 // prompts (S ~ 1k and up) operations. Either way the products belong on the
 // tensor cores, and at these sizes the launch has to be short.
 //
-// tc (bf16, hd 16 / 32 / 64 / 128, 16-byte aligned rows): flash-attention-2
-// on mma.sync.m16n8k16. 4 warps a query head, each owning 16 query rows,
-// whose Q fragments are loaded once (ldmatrix) and held in registers. S = Q K^T
+// tc (bf16, hd 16 / 32 / 64 / 128 / 256, 16-byte aligned rows):
+// flash-attention-2 on mma.sync.m16n8k16. 4 warps a query head, each owning
+// 16 query rows, whose Q fragments are loaded once (ldmatrix) and held in
+// registers up to hd 128. S = Q K^T
 // comes from bf16 K tiles in shared memory (plain ldmatrix: K's rows are
 // the n side); the online softmax runs in f32 registers on log2(e)-scaled
 // scores with exp2f, its row max and sum reduced over the 4 lanes that
@@ -42,19 +43,32 @@
 // warp reuse each K/V fragment once; 32 rows a warp (BQ 128), Q re-read
 // from shared memory, is the next step.
 //
+// At hd 256 (gemma3-1b's global layers: 4 query heads over 1 kv head)
+// registers bound the design: a warp's 16 rows x 256 f32 output
+// accumulators are 128 registers a lane and S (16 x 64 f32) 32 more, so Q's
+// fragments (64 more) would pass the 255 limit. There Q stays in its
+// shared-memory tile and is re-read by ldmatrix on each k16 step of
+// Q K^T (a warp's own 16 rows, so its output can still go through them at
+// the end). Shared memory is the other bound: the 2-stage K/V ring and Q
+// take (64 GB + 256) x 264 x 2 bytes, 168,960 at GB 1 and 202,752 at GB 2,
+// one block an SM either way. A block takes TC_GB256 = 1 query head at hd
+// 256: two heads sharing each K/V tile halve the blocks (32 at gemma3's B 8
+// x S 128 on 132 SMs) and measured 1.25-1.4x slower (PERF.md;
+// kernels/hd256_variants.py times both).
+//
 // A numerical difference: the Pallas kernel multiplies P V in f32
 // (src/repro/kernels/flash_attention.py:63-66); here P is rounded to bf16
 // before P V (~2^-9 relative on each weight), inside the bf16 tolerance of
 // 5e-2 against the plain version.
 //
-// simt (f32; bf16 at hd 256 or with rows not 16-byte aligned): the first
+// simt (f32; bf16 with rows not 16-byte aligned): the first
 // design, kept: q / k / v tiles widened to f32 in shared memory, f32 FMAs
 // for Q K^T and P V (4 x 4 scores and 4 x hd/16 outputs a thread), P
 // through shared memory. f32 needs it: TF32 keeps three digits and would
 // break the f32 parity checks (2e-5).
 //
 // Deliberately not yet: wgmma / TMA, 32 query rows a warp, a block for all
-// G query heads at G 5.
+// G query heads at G 5 (or at G 4, hd 256: the K/V ring leaves no room).
 #include <cmath>
 
 #include "common.cuh"
@@ -243,6 +257,7 @@ using repro::pack_bf16;
 // rows a warp; K/V tiles through a KST-deep cp.async ring shared by the GB
 // heads. Q's tile doubles as the output tile at the end.
 constexpr int TC_KST = 2;   // K/V stages: 3 measured no faster (PERF.md)
+constexpr int TC_GB256 = 1;  // heads a block at hd 256 where G is even (1 or 2: PERF.md)
 
 constexpr int tc_smem_bytes(int hd, int gb, int kst) {
   return (gb * BQ + 2 * kst * BK) * (hd + 8) * 2;
@@ -250,7 +265,8 @@ constexpr int tc_smem_bytes(int hd, int gb, int kst) {
 
 template <int HD, int GB, int KST>
 __global__ void __launch_bounds__(128 * GB) attn_tc_kernel(AttnArgs a) {
-  static_assert(HD % 16 == 0 && HD <= 128 && BQ == 64 && BK == 64 && KST >= 2, "tiling");
+  static_assert(HD % 16 == 0 && HD <= 256 && BQ == 64 && BK == 64 && KST >= 2, "tiling");
+  constexpr bool QREG = HD <= 128;   // Q's fragments in registers (else re-read)
   constexpr int NTH = 128 * GB;
   constexpr int RS = HD + 8;     // shared-memory row stride (16 bytes of padding)
   constexpr int CH = HD / 8;     // 16-byte chunks a row
@@ -302,7 +318,7 @@ __global__ void __launch_bounds__(128 * GB) attn_tc_kernel(AttnArgs a) {
     repro::cp_async_commit();
   }
 
-  uint32_t qf[KD][4];
+  uint32_t qf[QREG ? KD : 1][4];
   float o[ND][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int n = 0; n < ND; ++n)
@@ -316,10 +332,12 @@ __global__ void __launch_bounds__(128 * GB) attn_tc_kernel(AttnArgs a) {
     __syncthreads();                   // ... for every thread; stage kt - 1 is free
     if (kt + KST - 1 < kt1) load_kv(kt + KST - 1, (kt - kt0 + KST - 1) % KST);
     repro::cp_async_commit();
-    if (kt == kt0) {
+    if constexpr (QREG) {
+      if (kt == kt0) {
 #pragma unroll
-      for (int d = 0; d < KD; ++d)
-        ldmatrix_x4(qf[d], Qs + (qr + lane % 16) * RS + d * 16 + lane / 16 * 8);
+        for (int d = 0; d < KD; ++d)
+          ldmatrix_x4(qf[d], Qs + (qr + lane % 16) * RS + d * 16 + lane / 16 * 8);
+      }
     }
     const int s = (kt - kt0) % KST;
     const bf16* Kt = Ks + s * BK * RS;
@@ -333,14 +351,22 @@ __global__ void __launch_bounds__(128 * GB) attn_tc_kernel(AttnArgs a) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) sc[j][q] = 0.f;
 #pragma unroll
-    for (int d = 0; d < KD; ++d)
+    for (int d = 0; d < KD; ++d) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) qa[x] = qf[d][x];
+      } else {
+        ldmatrix_x4(qa, Qs + (qr + lane % 16) * RS + d * 16 + lane / 16 * 8);
+      }
 #pragma unroll
       for (int j = 0; j < NS; j += 2) {
         uint32_t kf[4];
         ldmatrix_x4(kf, Kt + (j * 8 + li / 2 * 8 + lr) * RS + d * 16 + li % 2 * 8);
-        mma_bf16(sc[j], qf[d], kf[0], kf[1]);
-        mma_bf16(sc[j + 1], qf[d], kf[2], kf[3]);
+        mma_bf16(sc[j], qa, kf[0], kf[1]);
+        mma_bf16(sc[j + 1], qa, kf[2], kf[3]);
       }
+    }
 
     // mask (only where the tile crosses the band's or the sequence's edge)
     // and the online softmax; a row's 8 keys of a tile sit in lanes 4g..4g+3
@@ -409,8 +435,8 @@ __global__ void __launch_bounds__(128 * GB) attn_tc_kernel(AttnArgs a) {
   repro::cp_async_wait<0>();
   __syncthreads();   // every copy has landed before Q's tile takes the output
 
-  // the warp's 16 output rows into its own rows of Q's tile, then out in
-  // 16-byte stores along hd
+  // the warp's 16 output rows into its own rows of Q's tile (which only
+  // this warp reads), then out in 16-byte stores along hd
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const float inv = 1.f / fmaxf(l[hr], 1e-30f);
@@ -460,6 +486,7 @@ int launch_tc_hd(const AttnArgs& a, int B, int hd, cudaStream_t st) {
     case 32: return launch_tc<32, GB, KST>(a, B, st);
     case 64: return launch_tc<64, GB, KST>(a, B, st);
     case 128: return launch_tc<128, GB, KST>(a, B, st);
+    case 256: return launch_tc<256, GB == 1 ? 1 : TC_GB256, KST>(a, B, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -498,7 +525,7 @@ extern "C" int flash_attention_fwd_launch(
 // the tensor-core kernel with gb query heads a block (1 or 2), route 0 the
 // simt kernel.
 extern "C" int flash_attention_smem_bytes(int hd, int gb, int route) {
-  if (route) return hd % 16 == 0 && hd <= 128 ? tc_smem_bytes(hd, gb, TC_KST) : 0;
+  if (route) return hd % 16 == 0 && hd <= 256 ? tc_smem_bytes(hd, gb, TC_KST) : 0;
   switch (hd) {
     case 16: return smem_bytes<16>();
     case 32: return smem_bytes<32>();

@@ -39,8 +39,9 @@
 //   positions are masked). The table entries of a warp's first tiles are
 //   read together with the length and q, not after them.
 //
-// tc (bf16 q, bf16 or fp8 e4m3 K/V, hd 16 / 32 / 64 / 128, 16-byte aligned
-// rows): the GQA group on the tensor cores. A block has 8 warps; the
+// tc (bf16 q, bf16 or fp8 e4m3 K/V, hd 16 / 32 / 64 / 128 / 256, 16-byte
+// aligned rows): the GQA group on the tensor cores. A block has 8 warps
+// (tc_warps; fewer at hd 256, below); the
 // first min(8, chunk / 16) take the chunk's 16-position tiles round-robin,
 // each copying its tiles with 16-byte cp.async into its own 2-stage ring
 // in shared memory (a warp's first two tiles are in flight together, the
@@ -58,12 +59,21 @@
 // (exact for e4m3). The warps' (m, l, O) merge through shared memory, then
 // the split step above.
 //
+// At hd 256 (gemma3-1b's global layers, G 4; G 1 on a tp shard) shared
+// memory bounds the block: a warp's ring is 33,792 bytes (34,304 over an
+// fp8 pool), so 8 warps would need 270,336 of the 232,448 a block may
+// take. A block there has TC_WARPS_HD256 warps (PERF.md: 3, 4 and 6
+// measured in turns), and kernels/flash_decode.py's split span follows
+// (2 stages x 16 positions a warp). Registers do not bound it: O^T is 16
+// m16 tiles (64 f32 a lane) and q's B fragments 32 registers. The merge
+// (8 x 258 floats a warp) still fits in the rings.
+//
 // A numerical difference: the Pallas kernel multiplies P V in f32
 // (src/repro/kernels/flash_decode.py); the tc route rounds P to bf16 first
 // (~2^-9 relative on each weight), inside the bf16 tolerance of 5e-2
 // against the plain version, as attn_tc_kernel does.
 //
-// simt (f32, bf16 at hd 256 or with rows the tc route cannot copy): the
+// simt (f32, bf16 with rows the tc route cannot copy): the
 // first design's f32-FMA walk over the block's chunk (each lane owns
 // hd / 32 consecutive elements, four positions a warp per step, vector
 // loads where the rows are aligned and element loads where not), with the
@@ -85,7 +95,8 @@ constexpr int MAXG = 8;       // query rows per kv head (H / KV): N of the tc pr
 constexpr int NW = 4;         // simt: warps a block
 constexpr int U = 4;          // simt: positions a warp takes per step
 constexpr int TILE = 16;      // tc: positions a tile (M of S^T)
-constexpr int NWT = 8;        // tc: warps a block
+constexpr int NWT = 8;        // tc: warps a block ...
+constexpr int TC_WARPS_HD256 = 6;  // ... at hd 256, where a warp's ring is 33 KB
 constexpr int STAGES = 2;     // tc: a warp's K/V tiles in flight
 constexpr int MAX_SPLITS = 64;  // kernels/flash_decode.py:MAX_SPLITS
 constexpr unsigned FULL = 0xffffffffu;
@@ -378,9 +389,16 @@ __host__ __device__ constexpr int tc_warp_bytes() {
          (sizeof(TKV) == 1 ? 2 * TILE * (HD + 8) * 2 : 0);
 }
 
+template <int HD>
+__host__ __device__ constexpr int tc_warps() {
+  return HD > 128 ? TC_WARPS_HD256 : NWT;
+}
+
 template <typename TKV, int HD, bool PAGED>
-__global__ void __launch_bounds__(NWT * 32) decode_tc_kernel(DecodeArgs a) {
-  static_assert(HD % 16 == 0 && HD <= 128 && STAGES == 2, "tiling");
+__global__ void __launch_bounds__((HD > 128 ? TC_WARPS_HD256 : NWT) * 32)
+    decode_tc_kernel(DecodeArgs a) {
+  static_assert(HD % 16 == 0 && HD <= 256 && STAGES == 2, "tiling");
+  constexpr int NWB = tc_warps<HD>();
   constexpr bool F8 = sizeof(TKV) == 1;
   constexpr int SRB = HD * static_cast<int>(sizeof(TKV)) + 16;  // staged row bytes
   constexpr int RS = HD + 8;                                     // bf16 tile row stride
@@ -391,9 +409,9 @@ __global__ void __launch_bounds__(NWT * 32) decode_tc_kernel(DecodeArgs a) {
   static_assert(MAXG * (HD + 2) * 4 <= WB, "the merge fits in the rings");
   extern __shared__ __align__(16) unsigned char smem[];
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  // the block's NWT warps all merge and write; the first nw (a warp a tile
-  // of the chunk, at most NWT) walk tiles, each with its own ring
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = min(NWT, a.chunk / TILE);
+  // the block's NWB warps all merge and write; the first nw (a warp a tile
+  // of the chunk, at most NWB) walk tiles, each with its own ring
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = min(NWB, a.chunk / TILE);
   const int g = lane >> 2, t = lane & 3, r16 = lane & 15;
   const int G = a.G;
   unsigned char* ring = smem + warp * WB;
@@ -602,17 +620,17 @@ int launch_simt(const DecodeArgs& a, cudaStream_t st) {
 
 template <typename TKV, int HD, bool PAGED>
 int launch_tc(const DecodeArgs& a, cudaStream_t st) {
-  constexpr int WB = tc_warp_bytes<TKV, HD>();
+  constexpr int WB = tc_warp_bytes<TKV, HD>(), NWB = tc_warps<HD>();
   static bool attr = false;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_tc_kernel<TKV, HD, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, NWT * WB);
+        decode_tc_kernel<TKV, HD, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, NWB * WB);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr = true;
   }
-  const int nw = min(NWT, a.chunk / TILE);   // the tile walkers' rings
+  const int nw = min(NWB, a.chunk / TILE);   // the tile walkers' rings
   const dim3 grid(a.nsplit, a.KV, a.B);
-  decode_tc_kernel<TKV, HD, PAGED><<<grid, NWT * 32, nw * WB, st>>>(a);
+  decode_tc_kernel<TKV, HD, PAGED><<<grid, NWB * 32, nw * WB, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -635,6 +653,7 @@ int launch_tc_hd(const DecodeArgs& a, int hd, cudaStream_t st) {
     case 32: return launch_tc<TKV, 32, PAGED>(a, st);
     case 64: return launch_tc<TKV, 64, PAGED>(a, st);
     case 128: return launch_tc<TKV, 128, PAGED>(a, st);
+    case 256: return launch_tc<TKV, 256, PAGED>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -642,7 +661,7 @@ int launch_tc_hd(const DecodeArgs& a, int hd, cudaStream_t st) {
 bool aligned(const void* p, int bytes) { return reinterpret_cast<size_t>(p) % bytes == 0; }
 
 // q and the output share one dtype (f32 or bf16); K/V are that dtype or fp8.
-// route 1: tc (bf16 q, 16-byte aligned rows, hd <= 128); route 0: simt.
+// route 1: tc (bf16 q, 16-byte aligned rows); route 0: simt.
 template <bool PAGED>
 int dispatch(DecodeArgs& a, int hd, int q_dt, int kv_dt, int route, cudaStream_t st) {
   const int qb = q_dt == DType::F32 ? 4 : 2, kb = kv_dt == DType::FP8E4M3 ? 1 : qb;
@@ -713,13 +732,15 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* k_pool, cons
 }
 
 // The dynamic shared memory of a tc block (bytes) of nw warps at head dim hd
-// over a bf16 (fp8 = 0) or fp8 (fp8 = 1) pool; 0 where tc does not run.
+// over a bf16 (fp8 = 0) or fp8 (fp8 = 1) pool; 0 where tc does not run. A
+// block has at most 8 warps, TC_WARPS_HD256 at hd 256.
 extern "C" int flash_decode_tc_smem_bytes(int hd, int fp8, int nw) {
   switch (hd) {
     case 16: return nw * (fp8 ? tc_warp_bytes<__nv_fp8_e4m3, 16>() : tc_warp_bytes<bf16, 16>());
     case 32: return nw * (fp8 ? tc_warp_bytes<__nv_fp8_e4m3, 32>() : tc_warp_bytes<bf16, 32>());
     case 64: return nw * (fp8 ? tc_warp_bytes<__nv_fp8_e4m3, 64>() : tc_warp_bytes<bf16, 64>());
     case 128: return nw * (fp8 ? tc_warp_bytes<__nv_fp8_e4m3, 128>() : tc_warp_bytes<bf16, 128>());
+    case 256: return nw * (fp8 ? tc_warp_bytes<__nv_fp8_e4m3, 256>() : tc_warp_bytes<bf16, 256>());
     default: return 0;
   }
 }

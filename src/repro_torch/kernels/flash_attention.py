@@ -11,10 +11,10 @@ On a CPU tensor this runs the plain version; on a CUDA tensor it launches
 the kernel of one route or raises. `_route` picks the route from dtype,
 head dim, strides and alignment:
 
-  tc         bf16 at hd 16 / 32 / 64 / 128 with 16-byte aligned rows:
+  tc         bf16 with 16-byte aligned rows (every head dim):
              flash-attention-2 on mma.sync tensor-core tiles, P kept in
              registers as bf16
-  simt_bf16  other bf16 (hd 256, unaligned rows): f32-FMA tiles
+  simt_bf16  other bf16 (unaligned rows): f32-FMA tiles
   simt_f32   float32: the same f32-FMA tiles, so f32 stays true f32
 
 `_build.ROUTES["flash_attention_fwd"]` counts the launches of each route.
@@ -33,19 +33,17 @@ from repro_torch.launch import costs
 
 NAME = "flash_attention_fwd"
 HEAD_DIMS = (16, 32, 64, 128, 256)
-TC_HEAD_DIMS = (16, 32, 64, 128)
 _ARGTYPES = [_build.PTR] * 4 + [_build.INT] * 8 + [_build.I64] * 12 + \
     [_build.INT, _build.INT, _build.PTR]
 
 
 def _route(q, k, v) -> str:
     """The route a CUDA launch of flash_attention_fwd(q, k, v) takes: a pure
-    function of dtype, head dim, strides and alignment (the CPU tests call
-    it on CPU tensors)."""
+    function of dtype, strides and alignment (the CPU tests call it on CPU
+    tensors)."""
     if q.dtype == torch.float32:
         return _build.simt_route(q.dtype)
-    if q.shape[3] in TC_HEAD_DIMS and all(_build.vec16_ok(t)
-                                          for t in (q, k, v)):
+    if all(_build.vec16_ok(t) for t in (q, k, v)):
         return "tc"
     return "simt_bf16"
 

@@ -17,12 +17,12 @@ Two entry points share the kernel body (as `flash_decode` and
 Both return [B, H, hd] in q's dtype; a row with length 0 returns zeros.
 On a CPU tensor each runs its plain version (kernels/ref.py); on a CUDA
 tensor it launches the kernel of one route or raises. `_route` picks the
-route from dtype, head dim, strides and alignment:
+route from dtype, strides and alignment:
 
-  tc         bf16 q, a bf16 or fp8 cache at hd 16 / 32 / 64 / 128 with
-             16-byte aligned rows: the GQA group on mma.sync tensor-core
-             tiles, P kept in registers as bf16
-  simt_bf16  other bf16 (hd 256, unaligned rows): f32-FMA
+  tc         bf16 q, a bf16 or fp8 cache with 16-byte aligned rows (every
+             head dim): the GQA group on mma.sync tensor-core tiles, P
+             kept in registers as bf16
+  simt_bf16  other bf16 (unaligned rows): f32-FMA
   simt_f32   float32: f32-FMA, so f32 stays true f32
 
 Every route may split each row's positions across blocks (`_splits`, from
@@ -43,7 +43,6 @@ from repro_torch.kernels import ref as kref
 from repro_torch.launch import costs
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-TC_HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 8
 TILE = 16              # positions of a tensor-core tile; a chunk is a multiple
 MIN_BLOCKS = 2 * 132   # two blocks on each of the H100 SXM's 132 SMs
@@ -53,6 +52,9 @@ MAX_SPLITS = 64        # csrc/flash_decode.cu:MAX_SPLITS, the merge's bound
 # is never shorter, as a split costs its merge more than walking these
 # (chip_smoke.py phase 2's split sweep)
 SPAN = {"tc": 256, "simt_bf16": 16, "simt_f32": 16}
+# at hd 256 a tc block has 6 walking warps (csrc/flash_decode.cu:
+# TC_WARPS_HD256: a warp's ring takes 33 KB of shared memory)
+SPAN_HD256 = dict(SPAN, tc=2 * TILE * 6)
 _ARGS = {"flash_decode": [_build.PTR] * 7 + [_build.INT] * 5
          + [_build.I64] * 3 + [_build.INT] * 6 + [_build.PTR],
          "flash_decode_paged": [_build.PTR] * 8 + [_build.INT] * 13
@@ -60,16 +62,18 @@ _ARGS = {"flash_decode": [_build.PTR] * 7 + [_build.INT] * 5
 _TICKETS: dict = {}
 
 
-def _splits(B: int, KV: int, cap: int, route: str) -> tuple[int, int]:
+def _splits(B: int, KV: int, cap: int, route: str,
+            hd: int = 128) -> tuple[int, int]:
     """(splits, chunk): each (row, kv head) pair's positions [0, cap) go to
     `splits` blocks of `chunk` positions (a multiple of TILE, at least the
-    route's SPAN), enough that B * KV * splits reaches MIN_BLOCKS where the
-    capacity allows. A pure function of static shapes and the route: the
-    lengths live on the device, and reading them here would stall the
-    host-bound decode step and break CUDA-graph capture."""
+    route's span at head dim `hd`), enough that B * KV * splits reaches
+    MIN_BLOCKS where the capacity allows. A pure function of static shapes
+    and the route: the lengths live on the device, and reading them here
+    would stall the host-bound decode step and break CUDA-graph capture."""
+    span = (SPAN_HD256 if hd == 256 else SPAN)[route]
     want = min(MAX_SPLITS, -(-MIN_BLOCKS // max(1, B * KV)))
     tiles = max(1, -(-cap // TILE))
-    chunk = TILE * min(tiles, max(SPAN[route] // TILE,
+    chunk = TILE * min(tiles, max(span // TILE,
                                   (cap + TILE * want // 2) // (TILE * want),
                                   -(-cap // (TILE * MAX_SPLITS))))
     return -(-tiles * TILE // chunk), chunk
@@ -113,12 +117,11 @@ def cost_paged(q1, k_pool, v_pool, block_tab, lengths) -> tuple[float, float]:
 
 def _route(q1, k, v) -> str:
     """The route a CUDA launch over q1 and the cache (k, v: the view or the
-    pools) takes: a pure function of dtype, head dim, strides and alignment
-    (the CPU tests call it on CPU tensors)."""
+    pools) takes: a pure function of dtype, strides and alignment (the CPU
+    tests call it on CPU tensors)."""
     if q1.dtype == torch.float32:
         return _build.simt_route(q1.dtype)
-    if q1.shape[-1] in TC_HEAD_DIMS and all(_build.vec16_ok(t)
-                                            for t in (q1, k, v)):
+    if all(_build.vec16_ok(t) for t in (q1, k, v)):
         return "tc"
     return "simt_bf16"
 
@@ -175,7 +178,7 @@ def _launch(name, q1, k, v, B, KV, cap, route, lens, extra, tail, work):
     out = torch.empty_like(q1)
     if out.numel() == 0:
         return out
-    nsplit, chunk = _splits(B, KV, cap, route)
+    nsplit, chunk = _splits(B, KV, cap, route, hd)
     part = tickets = None
     if nsplit > 1:
         part = torch.empty(B * KV * nsplit * (H // KV) * (hd + 2),

@@ -59,7 +59,8 @@ def _ran(name):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd,H,KV", [(16, 2, 2), (128, 16, 8), (64, 25, 5)])
+@pytest.mark.parametrize("hd,H,KV", [(16, 2, 2), (128, 16, 8), (64, 25, 5),
+                                    (256, 4, 1)])
 def test_kernels_match_plain_versions(card, dtype, hd, H, KV):
     g = torch.Generator(device=card).manual_seed(hd)
 
@@ -114,10 +115,10 @@ def test_flash_decode_split_sweep(card, dtype, G, hd):
     and 32); window 0 and 40 (mid-chunk for the long rows); pages of 4,
     16 and 32 scattered out of order, those past each row's length
     unmapped, pools of q's dtype and fp8. bf16 runs on its
-    tensor-core route (hd <= 128; hd 256 on simt_bf16), again forced onto
-    simt_bf16, and with the cache at an odd element offset (simt_bf16,
-    element loads); f32 on simt_f32. Each launch's route is asserted, and
-    length-0 rows are exact zeros."""
+    tensor-core route (at hd 256 chunks of 192: 6 walking warps a block),
+    again forced onto simt_bf16, and with the cache at an odd element
+    offset (simt_bf16, element loads); f32 on simt_f32. Each launch's
+    route is asserted, and length-0 rows are exact zeros."""
     g = torch.Generator(device=card).manual_seed(hd * 10 + G)
     B, KV, S, cap = 12, 2, 700, 384
     H = KV * G
@@ -126,8 +127,7 @@ def test_flash_decode_split_sweep(card, dtype, G, hd):
         return torch.randn(s, generator=g, device=card).to(d)
 
     bf = dtype == torch.bfloat16
-    picked = ("tc" if hd in fd.TC_HEAD_DIMS else "simt_bf16") if bf \
-        else "simt_f32"
+    picked = "tc" if bf else "simt_f32"
     forced = (None, "simt_bf16") if bf else (None,)
     q1 = rnd(B, H, hd)
 
@@ -141,11 +141,13 @@ def test_flash_decode_split_sweep(card, dtype, G, hd):
         assert torch.all(out[zero_rows] == 0)
         return ran
 
-    assert fd._splits(B, KV, S, "tc") == (3, 256)
-    assert fd._splits(B, KV, S, "simt_f32") == (11, 64)
-    assert fd._splits(B, KV, cap, "tc") == (2, 256)
-    assert fd._splits(B, KV, cap, "simt_f32") == (12, 32)
-    lens = torch.tensor([0, 1, 15, 16, 17, 63, 64, 65, 255, 256, 257, S],
+    tc = fd._splits(B, KV, S, "tc", hd)
+    assert tc == ((4, 192) if hd == 256 else (3, 256))
+    assert fd._splits(B, KV, S, "simt_f32", hd) == (11, 64)
+    assert fd._splits(B, KV, cap, "tc", hd) == (2, 192 if hd == 256 else 256)
+    assert fd._splits(B, KV, cap, "simt_f32", hd) == (12, 32)
+    c = tc[1]
+    lens = torch.tensor([0, 1, 15, 16, 17, 63, 64, 65, c - 1, c, c + 1, S],
                         dtype=torch.int32, device=card)
     buf = rnd(1 + 2 * B * S * KV * hd)
     cache = buf[:-1].view(2, B, S, KV, hd)
@@ -159,8 +161,9 @@ def test_flash_decode_split_sweep(card, dtype, G, hd):
                     q1, k, v, lens, window=window, route=r), want, 0, route)
                 assert ran == (route or (picked if kv is cache
                                          else "simt_bf16"))
-    plens = torch.tensor([0, 1, 15, 16, 17, 31, 32, 33, 255, 256, 257, cap],
-                         dtype=torch.int32, device=card)
+    pc = fd._splits(B, KV, cap, "tc", hd)[1]
+    plens = torch.tensor([0, 1, 15, 16, 17, 31, 32, 33, pc - 1, pc, pc + 1,
+                          cap], dtype=torch.int32, device=card)
     for ps in (4, 16, 32):
         npg = cap // ps
         perm = torch.randperm(B * npg, generator=g, device=card)
@@ -443,7 +446,7 @@ def test_grouped_matmul_simt_bf16_route(card, C):
         grouped_matmul(x, w[..., :f], route="tc_prefill")
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 100, 1100])
 def test_flash_attention_tc_route_sweep(card, hd, S):
     """flash_attention_fwd in bf16 on its tensor-core route at lengths
@@ -508,64 +511,70 @@ def test_serve_kernels_on_card_match_cpu(card):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gemma3_hd256_kernels_match_plain_versions(card, dtype):
-    """gemma3-1b's shapes, hd 256 (no tensor-core route there): prefill
-    attention at 4/1 heads of 256 over rows of 128 and 600 with window 0
-    and 512, and both decode kernels at its global layers' shapes (G 4, a
-    [8, 160] cache, a pool of 16-position pages) — each against its plain
-    version on the route `_route` gives (simt_bf16 in bf16, simt_f32)."""
+    """gemma3-1b's shapes, hd 256: prefill attention at 4/1 heads of 256
+    over rows of 128 and 600 with window 0 and 512, and both decode kernels
+    at its global layers' shapes (G 4, a [8, 160] cache, pools of
+    16-position pages in the dtype and in fp8) — each against its plain
+    version on the route `_route` gives (tc in bf16, simt_f32) and, in
+    bf16, again forced onto simt_bf16."""
     g = torch.Generator(device=card).manual_seed(256)
-    want_route = "simt_bf16" if dtype == torch.bfloat16 else "simt_f32"
+    bf = dtype == torch.bfloat16
+    want_route = "tc" if bf else "simt_f32"
+    forced = (None, "simt_bf16") if bf else (None,)
 
     def rnd(*s, d=dtype):
         return torch.randn(s, generator=g, device=card).to(d)
+
+    def check(name, fn, want, route, zero_row=None):
+        reset_launches()
+        out = fn(route)
+        torch.cuda.synchronize()
+        assert _ran(name) == (route or want_route)
+        torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
+        if zero_row is not None:
+            assert torch.all(out[zero_row] == 0)
     for B, S in ((8, 128), (2, 600)):
         q = rnd(B, S, 4, 256).transpose(1, 2)
         k = rnd(B, S, 1, 256).transpose(1, 2)
         v = rnd(B, S, 1, 256).transpose(1, 2)
         assert fa._route(q, k, v) == want_route
         for window in (0, 512):
-            reset_launches()
-            out = flash_attention_fwd(q, k, v, window=window)
-            torch.cuda.synchronize()
-            assert _ran("flash_attention_fwd") == want_route
-            torch.testing.assert_close(
-                out.float(), tref.attention_ref(q, k, v,
-                                                window=window).float(),
-                **_tol(dtype))
+            want = tref.attention_ref(q, k, v, window=window)
+            for route in forced:
+                check("flash_attention_fwd", lambda r: flash_attention_fwd(
+                    q, k, v, window=window, route=r), want, route)
     B, S = 8, 160
     q1 = rnd(B, 4, 256)
     cache = rnd(2, B, S, 1, 256)
     kc, vc = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
-    lens = torch.tensor([0, 1, 16, 17, 77, 140, 159, 160], dtype=torch.int32,
+    lens = torch.tensor([0, 1, 15, 16, 17, 77, 140, 160], dtype=torch.int32,
                         device=card)
-    reset_launches()
-    out = flash_decode(q1, kc, vc, lens)
-    torch.cuda.synchronize()
-    assert _ran("flash_decode") == want_route == fd._route(q1, kc, vc)
-    torch.testing.assert_close(out.float(), tref.decode_ref(
-        q1, kc, vc, lens).float(), **_tol(dtype))
-    assert torch.all(out[0] == 0)
+    assert fd._route(q1, kc, vc) == want_route
+    want = tref.decode_ref(q1, kc, vc, lens)
+    for route in forced:
+        check("flash_decode", lambda r: flash_decode(q1, kc, vc, lens,
+                                                     route=r), want, route, 0)
     ps, npg = 16, 10
     tab = torch.randperm(B * npg, generator=g, device=card).to(
         torch.int32).reshape(B, npg)
     live = torch.arange(npg, device=card)[None] * ps < lens[:, None]
     tab = torch.where(live, tab, -1).to(torch.int32)
-    kp = rnd(4, B * npg + 1, ps, 1, 256)
-    vp = rnd(4, B * npg + 1, ps, 1, 256)
-    reset_launches()
-    out = flash_decode_paged(q1, kp, vp, tab, lens, layer=3)
-    torch.cuda.synchronize()
-    assert _ran("flash_decode_paged") == want_route == fd._route(q1, kp, vp)
-    torch.testing.assert_close(out.float(), tref.decode_paged_ref(
-        q1, kp, vp, tab, lens, layer=3).float(), **_tol(dtype))
-    assert torch.all(out[0] == 0)
+    for pool_dt in (dtype, torch.float8_e4m3fn):
+        kp = rnd(4, B * npg + 1, ps, 1, 256, d=pool_dt)
+        vp = rnd(4, B * npg + 1, ps, 1, 256, d=pool_dt)
+        assert fd._route(q1, kp, vp) == want_route
+        want = tref.decode_paged_ref(q1, kp, vp, tab, lens, layer=3)
+        for route in forced:
+            check("flash_decode_paged", lambda r: flash_decode_paged(
+                q1, kp, vp, tab, lens, layer=3, route=r), want, route, 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_at_one_tp_shards_shapes(card, dtype):
     """The attention kernels at the shapes one tp shard of qwen3-0.6b's
     (1, 4, 4) serve mesh hands them: 4 query / 2 KV heads of 128 and a
-    1-row microbatch — the paged decode over one (stage, tp) slot's own
+    1-row microbatch (and gemma3-1b's shard at the end: 1 query head over
+    1 kv head of 256) — the paged decode over one (stage, tp) slot's own
     pool (2 stage-local layer groups, 48 pages of 16 + the trash page),
     the contiguous decode over a row slice of one stage's group, and the
     prefill attention; each against its plain version, on the route
@@ -610,6 +619,33 @@ def test_kernels_at_one_tp_shards_shapes(card, dtype):
     with pytest.raises(ValueError, match="contiguous"):
         flash_decode_paged(q1, whole[:2, :, :, :2], whole[:2, :, :, :2],
                            tab, lens, layer=0)
+    # gemma3-1b's shard: 1 query head over 1 kv head of 256 (G 1)
+    q1 = rnd(1, 1, 256)
+    kp, vp = rnd(2, 49, 16, 1, 256), rnd(2, 49, 16, 1, 256)
+    for n in (1, 77, 80):
+        lens = torch.tensor([n], dtype=torch.int32, device=card)
+        reset_launches()
+        out = flash_decode_paged(q1, kp, vp, tab, lens, layer=1)
+        torch.cuda.synchronize()
+        assert _ran("flash_decode_paged") == tc
+        torch.testing.assert_close(out.float(), tref.decode_paged_ref(
+            q1, kp, vp, tab, lens, layer=1).float(), **_tol(dtype))
+    kc = rnd(2, 8, 160, 1, 256)[1, 5:6].transpose(1, 2)
+    lens = torch.tensor([133], dtype=torch.int32, device=card)
+    reset_launches()
+    out = flash_decode(q1, kc, kc, lens)
+    torch.cuda.synchronize()
+    assert _ran("flash_decode") == tc
+    torch.testing.assert_close(out.float(), tref.decode_ref(
+        q1, kc, kc, lens).float(), **_tol(dtype))
+    q = rnd(1, 128, 1, 256).transpose(1, 2)
+    k = rnd(1, 128, 1, 256).transpose(1, 2)
+    reset_launches()
+    out = flash_attention_fwd(q, k, k, window=512)
+    torch.cuda.synchronize()
+    assert _ran("flash_attention_fwd") == tc
+    torch.testing.assert_close(out.float(), tref.attention_ref(
+        q, k, k, window=512).float(), **_tol(dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -4,9 +4,9 @@ Every kernel picks a route before each CUDA launch (kernels/moe_gmm.py,
 flash_attention.py, flash_decode.py, rwkv6_scan.py, mamba_ssd.py: `_route`):
 a pure function of dtype, shape, strides and alignment, so these tests call
 it on CPU tensors. bf16 operands whose rows are 16-byte aligned take the
-tensor-core routes (the serve path's always are); d or f not a multiple of
-8, an odd element offset, a stride off the 16-byte grid, head dim 256 or
-float32 take the f32-FMA (SIMT) routes. The chunked WKV6 and SSD kernels
+tensor-core routes (the serve path's always are, at every head dim up to
+256); d or f not a multiple of 8, an odd element offset, a stride off the
+16-byte grid or float32 take the f32-FMA (SIMT) routes. The chunked WKV6 and SSD kernels
 (float32 only) take their register-tile route ("tile") where the rows are
 16-byte aligned, as the model's views are at every S, else "simt". The card
 tests (tests/test_torch_cuda.py) assert the same routes on the launches they
@@ -126,6 +126,10 @@ def _attn_operands(case):
         return model(2, 65, 4, 2, 32)
     if case == "hd 256":
         return model(1, 64, 2, 1, 256)
+    if case == "hd 256, odd offset":
+        q = _offset((1, 64, 4, 256), BF16).transpose(1, 2)
+        k, v = model(1, 64, 4, 1, 256)[1:]
+        return q, k, v
     if case == "odd offset":
         q = _offset((2, 100, 4, 64), BF16).transpose(1, 2)
         k, v = model(2, 100, 4, 2, 64)[1:]
@@ -138,8 +142,8 @@ def _attn_operands(case):
 @pytest.mark.parametrize("case,want", [
     ("qwen3 16/8 x 128", "tc"), ("granite 16/8 x 64", "tc"),
     ("hymba 25/5 x 64, S 1100", "tc"), ("hd 16", "tc"), ("hd 32", "tc"),
-    ("hd 256", "simt_bf16"), ("odd offset", "simt_bf16"),
-    ("float32", "simt_f32"),
+    ("hd 256", "tc"), ("hd 256, odd offset", "simt_bf16"),
+    ("odd offset", "simt_bf16"), ("float32", "simt_f32"),
 ])
 def test_flash_attention_route(case, want):
     q, k, v = _attn_operands(case)
@@ -353,6 +357,14 @@ def _decode_operands(case):
         return cache(2, 40, 4, 2, 256)
     if case == "hd 256 pool":
         return pool(2, 4, 2, 256)
+    if case == "hd 256 fp8 pool":
+        return pool(8, 4, 1, 256, pool_dtype=torch.float8_e4m3fn)
+    if case == "gemma3 tp shard 1/1 x 256 pool":
+        return pool(1, 1, 1, 256)
+    if case == "hd 256, odd offset of the cache":
+        q1 = torch.zeros(2, 4, 256, dtype=BF16)
+        k = _offset((2, 40, 1, 256), BF16).transpose(1, 2)
+        return q1, k, k
     if case == "odd offset of the cache":
         q1 = torch.zeros(2, 4, 64, dtype=BF16)
         k = _offset((2, 40, 2, 64), BF16).transpose(1, 2)
@@ -372,8 +384,11 @@ def _decode_operands(case):
     ("granite 16/8 x 64 cache", "tc"), ("granite 16/8 x 64 pool", "tc"),
     ("hymba 25/5 x 64 cache, S 1132", "tc"), ("hymba 25/5 x 64 pool", "tc"),
     ("fp8 pool", "tc"), ("hd 16 pool", "tc"), ("hd 32 cache", "tc"),
-    # tc takes hd 16 / 32 / 64 / 128 only: hd 256 takes the SIMT route
-    ("hd 256 cache", "simt_bf16"), ("hd 256 pool", "simt_bf16"),
+    # tc takes every head dim, hd 256 too (gemma3-1b: G 4, and G 1 on a
+    # tp shard), over a bf16 or an fp8 pool; unaligned rows go to SIMT
+    ("hd 256 cache", "tc"), ("hd 256 pool", "tc"), ("hd 256 fp8 pool", "tc"),
+    ("gemma3 tp shard 1/1 x 256 pool", "tc"),
+    ("hd 256, odd offset of the cache", "simt_bf16"),
     ("odd offset of the cache", "simt_bf16"),
     ("odd offset of q1", "simt_bf16"),
     ("float32 cache", "simt_f32"), ("float32 q1, fp8 pool", "simt_f32"),
@@ -414,6 +429,26 @@ def test_decode_splits(B, KV, cap, route, want):
                                         (splits - 1) * chunk < cap)
     if route != "tc" and cap >= 160:
         assert B * KV * splits >= fd.MIN_BLOCKS
+
+
+@pytest.mark.parametrize("B,KV,cap,route,want", [
+    (8, 1, 160, "tc", (1, 160)),        # gemma3's serve pool: one block
+    (1, 1, 160, "tc", (1, 160)),        # ... a tp shard's 1-row microbatch
+    (4, 1, 1132, "tc", (6, 192)),       # a cache of 1,132: chunks of 192
+    (12, 2, 700, "tc", (4, 192)),       # the card tests' sweep
+    (8, 1, 0, "tc", (1, 16)),           # an empty cache: zeros, one block
+    (8, 1, 160, "simt_bf16", (10, 16)), (4, 1, 1132, "simt_f32", (36, 32)),
+])
+def test_decode_splits_hd256(B, KV, cap, route, want):
+    """At hd 256 a tc block walks with 6 warps (a warp's ring takes 33 KB
+    of shared memory), so its span is 192 positions, not 256; the SIMT
+    routes' splits do not depend on the head dim."""
+    splits, chunk = fd._splits(B, KV, cap, route, 256)
+    assert (splits, chunk) == want
+    assert chunk % fd.TILE == 0 and splits * chunk >= cap
+    assert chunk >= min(fd.SPAN_HD256[route], cap)
+    if route != "tc":
+        assert (splits, chunk) == fd._splits(B, KV, cap, route)
 
 
 def _decode_pair(shape, rng):
@@ -480,12 +515,12 @@ def test_paged_decode_split_edges_match_pallas(ps):
 GEMMA = dict(H=4, KV=1, hd=256, window=512)
 
 
-@pytest.mark.parametrize("dtype,want", [(BF16, "simt_bf16"),
-                                        (F32, "simt_f32")])
+@pytest.mark.parametrize("dtype,want", [(BF16, "tc"), (F32, "simt_f32")])
 def test_routes_at_gemma3_shapes(dtype, want):
-    """hd 256 has no tensor-core route: every gemma3 launch takes the SIMT
-    route of its dtype — prefill attention (serve shape B 8 x S 128,
-    generate-length rows), the contiguous decode cache and the serve pool."""
+    """Every gemma3 launch takes its dtype's route at hd 256: bf16 the
+    tensor-core one, f32 the SIMT one — prefill attention (serve shape
+    B 8 x S 128, generate-length rows), the contiguous decode cache and the
+    serve pool."""
     H, KV, hd = GEMMA["H"], GEMMA["KV"], GEMMA["hd"]
     for B, S in ((8, 128), (4, 600)):
         q = torch.zeros(B, S, H, hd, dtype=dtype).transpose(1, 2)
