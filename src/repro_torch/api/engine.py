@@ -89,7 +89,7 @@ from repro_torch.dist import collectives
 from repro_torch.dist.topology import make_topology
 from repro_torch.dist.transport import NullTransport, SimulatedTransport
 from repro_torch.models import frontend, lm
-from repro_torch.obs import NULL_TRACER, emit_pipeline_ticks
+from repro_torch.obs import NULL_TRACER
 from repro_torch.obs.metrics import SECONDS_BOUNDS
 from repro_torch.runtime.checkpoint import (latest_checkpoint,
                                             load_checkpoint, save_checkpoint)
@@ -234,16 +234,6 @@ class Engine:
         run = self.plan.run
         return ShardedLoader(self._source, run.batch, run.seq, i, num_vw,
                              seed=17)
-
-    def _tick_plan(self):
-        """(schedule, ticks) of the Plan's modeled intra-VW pipeline, or
-        None untraced or when the Plan carries no arch."""
-        if not self.tracer.enabled or self.plan.arch is None:
-            return None
-        from repro_torch.core import wave
-        return wave.tick_schedule(self.plan.stages,
-                                  self.plan.num_microbatches,
-                                  overlap=self.plan.run.overlap)
 
     def attach_telemetry(self, report):
         """Record end-of-run gauges (staleness bound, per-link traffic) and
@@ -437,7 +427,7 @@ class Engine:
             stop_event=self.stop_event,
             fail_at_wave=None if successor else cl.fail_map().get(i),
             async_push=policy.async_push,
-            tracer=self.tracer, D=policy.D, tick_plan=self._tick_plan(),
+            tracer=self.tracer, D=policy.D,
             injector=injector, vw_index=i, crash_at=crash_at,
             gate_timeout_s=self.plan.fault_policy.gate_timeout_s)
 
@@ -717,19 +707,12 @@ class Engine:
         self._ensure_spmd()
         run = self.plan.run
         report = TrainReport()
-        tick_plan = self._tick_plan()
         t_start = time.monotonic()
         for w in range(run.max_waves):
             t0 = time.monotonic()
             with self.tracer.span("engine", "wave", wave=w):
                 loss = self._spmd_step()      # float(): waits for the wave
             dt = time.monotonic() - t0
-            if tick_plan is not None:
-                # the Plan's pipeline schedule, scaled into the measured
-                # window (the ticks are not timed one by one)
-                sched, ticks = tick_plan
-                emit_pipeline_ticks(self.tracer, "spmd", sched, ticks,
-                                    t0, t0 + dt)
             report.losses.append((time.monotonic() - t_start, "spmd", loss))
             report.waves += 1
             if callback is not None:
@@ -955,10 +938,15 @@ class Engine:
         else:
             self._ensure_serve()
             fn, tree = self._serve["decode"], cache
-        with self.tracer.span("engine", "decode"), torch.inference_mode():
-            logits, out = fn(self._serve["params"], tokens, tree, pos)
-            if self.tracer.enabled:
-                self._sync()
+        tr = self.tracer
+        with tr.span("engine", "decode"):
+            # issue: the host enqueueing the forward; drain: the device
+            # finishing it (the span measures compute, not enqueue)
+            with tr.span("engine", "issue"), torch.inference_mode():
+                logits, out = fn(self._serve["params"], tokens, tree, pos)
+            if tr.enabled:
+                with tr.span("engine", "drain"):
+                    self._sync()
         if isinstance(cache, cache_lib.CacheStore):
             cache.update(out)
             return logits[:, -1], cache

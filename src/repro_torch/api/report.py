@@ -41,11 +41,6 @@ class Telemetry:
         h = self.histograms.get("wsp/staleness")
         return h["max"] if h and h["count"] else None
 
-    def bubble_fraction(self) -> Optional[float]:
-        b = self.counters.get("pipe/bubble_s", 0.0)
-        c = self.counters.get("pipe/busy_s", 0.0)
-        return b / (b + c) if (b + c) > 0 else None
-
     def link_utilization(self, wall_s: float) -> dict:
         """link name -> modeled busy fraction of the run's wall clock."""
         out = {}
@@ -175,6 +170,20 @@ class ServeReport:
     peak_pages: int = 0         # high-water mark of pages in use
     page_steps: int = 0         # sum over decode steps of pages in use
     admit_blocked: int = 0      # admission rounds refused: pool exhausted
+    # the serve step's parts, summed over the run from the tracer's spans
+    # (Scheduler runs; 0 untraced): the host enqueueing the decode forward
+    # (engine issue), the wait for the device (engine drain), the logits'
+    # copy to the host (sched d2h), the picks, retiring and step
+    # bookkeeping (sched pick), the admission rounds (sched admission)
+    decode_issue_s: float = 0.0
+    decode_drain_s: float = 0.0
+    logits_d2h_s: float = 0.0
+    pick_s: float = 0.0
+    admit_s: float = 0.0
+    # prompt tokens of every prefill call (kept untraced too): the real
+    # ones, and the slots computed (max_batch x prompt_len a call)
+    prefill_tokens: int = 0
+    prefill_slot_tokens: int = 0
     # memory-manager accounting (repro_torch.serve.memory)
     prefix_hit_tokens: int = 0  # prompt tokens served from indexed pages
     pages_shared: int = 0       # prefix pages mapped by refcount (no copy)
@@ -296,6 +305,8 @@ class ServeReport:
 _MERGED_SUMS = (
     "prefill_s", "prefill_calls", "decode_s", "decode_steps", "slot_steps",
     "max_batch", "pages_total", "peak_pages", "page_steps", "admit_blocked",
+    "decode_issue_s", "decode_drain_s", "logits_d2h_s", "pick_s", "admit_s",
+    "prefill_tokens", "prefill_slot_tokens",
     "prefix_hit_tokens", "pages_shared", "cow_copies", "evictions",
     "readmit_recomputes", "preemptions", "slot_faults", "requeues",
     "reprefills", "quarantined", "shed", "failed_requests")

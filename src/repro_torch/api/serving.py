@@ -44,6 +44,13 @@ from repro_torch.serve.memory import MemoryManager
 
 POLICIES = ("fifo", "deadline")
 
+# ServeReport's serve-step totals and the spans (track, name) they sum
+_STEP_PARTS = (("decode_issue_s", "engine", "issue"),
+               ("decode_drain_s", "engine", "drain"),
+               ("logits_d2h_s", "sched", "d2h"),
+               ("pick_s", "sched", "pick"),
+               ("admit_s", "sched", "admission"))
+
 
 @dataclass
 class Request:
@@ -180,6 +187,7 @@ class Scheduler:
         # this run's contribution as deltas from these baselines
         base = (mm.prefix_hit_tokens, mm.pages_shared, mm.evictions,
                 mm.readmit_recomputes, store.cow_copies)
+        base_s = [tr.total(track, name) for _, track, name in _STEP_PARTS]
         preempted_rids: set[int] = set()
         injector = eng.fault_injector()
         fpol = plan.fault_policy
@@ -278,6 +286,8 @@ class Scheduler:
             prompts[0, :seq.shape[0]] = seq
             lens = np.ones(B, np.int32)
             lens[0] = seq.shape[0]
+            report.prefill_tokens += int(seq.shape[0])
+            report.prefill_slot_tokens += B * P
             t0 = time.monotonic()
             with tr.span("sched", "reprefill", rid=slot.req.rid, slot=s2,
                          depth=int(seq.shape[0])):
@@ -331,82 +341,90 @@ class Scheduler:
                 # again — shed the remainder instead of spinning forever
                 shed_queue("no_healthy_slots")
             # ---- admit: policy order into the lowest slots, page-gated --
+            admits = []
             if free and queue:
-                admits, taken, requeued = [], [], []
-                order = self._admit_order([r for _, r in queue], step)
-                for qi in order:
-                    if not free:
-                        break
-                    prompt, r = queue[qi]
-                    need = prompt.shape[0] + self._limit(r)
-                    hit, pages, need_fresh = mm.plan_admit(prompt, need)
-                    if not mm.make_room(need_fresh, protect=pages):
-                        # pool exhausted: before refusing, try to preempt
-                        # a victim (never a request preempted already)
-                        vict = (mm.victim(active, step, need_fresh)
-                                if r.rid not in preempted_rids else None)
-                        if vict is not None:
-                            requeued.append(preempt_slot(vict))
-                        if vict is None or not mm.make_room(
-                                need_fresh, protect=pages):
-                            report.admit_blocked += 1
-                            tr.instant("sched", "refuse", rid=r.rid,
-                                       step=step, need_tokens=need,
-                                       pages_in_use=store.pages_in_use)
+                # one admission round's host work: the order, the pages,
+                # the padded prompt array (the prefill is its own span)
+                with tr.span("sched", "admission", step=step):
+                    taken, requeued = [], []
+                    order = self._admit_order([r for _, r in queue], step)
+                    for qi in order:
+                        if not free:
                             break
-                    s = free.pop(0)
-                    skip = mm.admit(s, prompt, need, hit, pages, step)
-                    taken.append(qi)
-                    admits.append((r, prompt, s, skip))
-                for qi in sorted(taken, reverse=True):
-                    del queue[qi]
-                for item in reversed(requeued):
-                    queue.insert(0, item)
-                if admits:
-                    group = report.prefill_calls
-                    for r, prompt, s, skip in admits:
-                        tr.instant("sched", "admit", rid=r.rid, slot=s,
-                                   step=step, group=group,
-                                   prompt_len=prompt.shape[0],
-                                   shared_pages=skip,
-                                   pages_in_use=store.pages_in_use)
-                    prompts = np.zeros((B, P), np.int32)
-                    lens = np.ones(B, np.int32)
-                    for j, (r, prompt, _, _) in enumerate(admits):
-                        prompts[j, :prompt.shape[0]] = prompt
-                        lens[j] = prompt.shape[0]
-                    t0 = time.monotonic()
-                    with tr.span("sched", "prefill_group", group=group,
-                                 rows=len(admits)):
-                        logits = eng.prefill_into(
-                            store, prompts, lens,
-                            [s for _, _, s, _ in admits],
-                            skip_pages=[skip for *_, skip in admits])
-                        logits = logits.float().cpu().numpy()
-                    dt = time.monotonic() - t0
-                    report.prefill_s += dt
-                    report.prefill_calls += 1
-                    # TTFT: arrival (run start) to the end of this group's
-                    # prefill
-                    ttft = time.monotonic() - t_start
-                    for j, (r, prompt, s, _) in enumerate(admits):
-                        tok = self._pick_one(logits[j], r.rid, 0)
-                        stats = RequestStats(rid=r.rid,
-                                             prompt_len=prompt.shape[0],
-                                             tokens=[tok],
-                                             admitted_step=step, slot=s,
-                                             group=group, prefill_s=dt,
-                                             ttft_s=ttft,
-                                             retries=retries_by_rid.get(
-                                                 r.rid, 0))
-                        tr.metrics.observe("serve/ttft_s", ttft)
-                        slot = _Slot(r, stats, self._limit(r),
-                                     next_pos=prompt.shape[0], last_tok=tok,
-                                     t_admit=t0, prompt=prompt)
-                        if len(stats.tokens) >= slot.limit:
-                            retire(s, slot)
-                        else:
-                            active[s] = slot
+                        prompt, r = queue[qi]
+                        need = prompt.shape[0] + self._limit(r)
+                        hit, pages, need_fresh = mm.plan_admit(prompt, need)
+                        if not mm.make_room(need_fresh, protect=pages):
+                            # pool exhausted: before refusing, try to
+                            # preempt a victim (never a request preempted
+                            # already)
+                            vict = (mm.victim(active, step, need_fresh)
+                                    if r.rid not in preempted_rids else None)
+                            if vict is not None:
+                                requeued.append(preempt_slot(vict))
+                            if vict is None or not mm.make_room(
+                                    need_fresh, protect=pages):
+                                report.admit_blocked += 1
+                                tr.instant("sched", "refuse", rid=r.rid,
+                                           step=step, need_tokens=need,
+                                           pages_in_use=store.pages_in_use)
+                                break
+                        s = free.pop(0)
+                        skip = mm.admit(s, prompt, need, hit, pages, step)
+                        taken.append(qi)
+                        admits.append((r, prompt, s, skip))
+                    for qi in sorted(taken, reverse=True):
+                        del queue[qi]
+                    for item in reversed(requeued):
+                        queue.insert(0, item)
+                    if admits:
+                        group = report.prefill_calls
+                        for r, prompt, s, skip in admits:
+                            tr.instant("sched", "admit", rid=r.rid, slot=s,
+                                       step=step, group=group,
+                                       prompt_len=prompt.shape[0],
+                                       shared_pages=skip,
+                                       pages_in_use=store.pages_in_use)
+                        prompts = np.zeros((B, P), np.int32)
+                        lens = np.ones(B, np.int32)
+                        for j, (r, prompt, _, _) in enumerate(admits):
+                            prompts[j, :prompt.shape[0]] = prompt
+                            lens[j] = prompt.shape[0]
+            if admits:
+                report.prefill_tokens += int(lens[:len(admits)].sum())
+                report.prefill_slot_tokens += B * P
+                t0 = time.monotonic()
+                with tr.span("sched", "prefill_group", group=group,
+                             rows=len(admits)):
+                    logits = eng.prefill_into(
+                        store, prompts, lens,
+                        [s for _, _, s, _ in admits],
+                        skip_pages=[skip for *_, skip in admits])
+                    logits = logits.float().cpu().numpy()
+                dt = time.monotonic() - t0
+                report.prefill_s += dt
+                report.prefill_calls += 1
+                # TTFT: arrival (run start) to the end of this group's
+                # prefill
+                ttft = time.monotonic() - t_start
+                for j, (r, prompt, s, _) in enumerate(admits):
+                    tok = self._pick_one(logits[j], r.rid, 0)
+                    stats = RequestStats(rid=r.rid,
+                                         prompt_len=prompt.shape[0],
+                                         tokens=[tok],
+                                         admitted_step=step, slot=s,
+                                         group=group, prefill_s=dt,
+                                         ttft_s=ttft,
+                                         retries=retries_by_rid.get(
+                                             r.rid, 0))
+                    tr.metrics.observe("serve/ttft_s", ttft)
+                    slot = _Slot(r, stats, self._limit(r),
+                                 next_pos=prompt.shape[0], last_tok=tok,
+                                 t_admit=t0, prompt=prompt)
+                    if len(stats.tokens) >= slot.limit:
+                        retire(s, slot)
+                    else:
+                        active[s] = slot
             # ---- injected slot faults fire at their decode step ---------
             if injector is not None and step not in faulted_steps:
                 # consulted once per step value: a recovery that empties
@@ -425,25 +443,27 @@ class Scheduler:
             with tr.span("sched", "decode_step", step=step,
                          slots=len(active), pages=store.pages_in_use):
                 logits, _ = eng.decode(toks, store, pos)
-                logits = logits.float().cpu().numpy()
+                with tr.span("sched", "d2h"):
+                    logits = logits.float().cpu().numpy()
             report.decode_s += time.monotonic() - t0
-            report.decode_steps += 1
-            report.slot_steps += len(active)
-            report.page_steps += store.pages_in_use
-            tr.counter("sched", "active_slots", len(active))
-            tr.counter("sched", "pages_in_use", store.pages_in_use)
-            step += 1
-            # ---- advance / retire --------------------------------------
-            for s in sorted(active):
-                slot = active[s]
-                tok = self._pick_one(logits[s], slot.req.rid,
-                                     len(slot.stats.tokens))
-                slot.stats.tokens.append(tok)
-                slot.next_pos += 1
-                slot.last_tok = tok
-                if len(slot.stats.tokens) >= slot.limit:
-                    del active[s]
-                    retire(s, slot)
+            # ---- advance / retire: the step's host picks and bookkeeping
+            with tr.span("sched", "pick", step=step):
+                report.decode_steps += 1
+                report.slot_steps += len(active)
+                report.page_steps += store.pages_in_use
+                tr.counter("sched", "active_slots", len(active))
+                tr.counter("sched", "pages_in_use", store.pages_in_use)
+                step += 1
+                for s in sorted(active):
+                    slot = active[s]
+                    tok = self._pick_one(logits[s], slot.req.rid,
+                                         len(slot.stats.tokens))
+                    slot.stats.tokens.append(tok)
+                    slot.next_pos += 1
+                    slot.last_tok = tok
+                    if len(slot.stats.tokens) >= slot.limit:
+                        del active[s]
+                        retire(s, slot)
             if callback is not None:
                 try:
                     callback(step, len(active))
@@ -462,6 +482,8 @@ class Scheduler:
         report.cow_copies = store.cow_copies - base[4]
         report.evictions = mm.evictions - base[2]
         report.readmit_recomputes = mm.readmit_recomputes - base[3]
+        for (attr, track, name), b in zip(_STEP_PARTS, base_s):
+            setattr(report, attr, tr.total(track, name) - b)
         if mm.share_prefix and mm.prompt_tokens:
             tr.metrics.gauge_set("serve/prefix_hit_rate",
                                  mm.prefix_hit_tokens / mm.prompt_tokens)

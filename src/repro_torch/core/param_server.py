@@ -53,6 +53,7 @@ class PendingPush:
     updates: list                      # [(leaf_idx, topk_idx | None, vals)]
     send: AsyncSend
     applied: bool = field(default=False)
+    wave: Optional[int] = None         # the pushing worker's wave (traces)
 
 
 class ParameterServer:
@@ -109,10 +110,12 @@ class ParameterServer:
         self.push_event.set()        # wake the supervision loop
 
     # -- WSP protocol -----------------------------------------------------
-    def begin_push(self, wid: str, deltas_tree) -> PendingPush:
+    def begin_push(self, wid: str, deltas_tree,
+                   wave: Optional[int] = None) -> PendingPush:
         """Compress a wave-aggregated delta and start its wire transfer.
         Does not block on the (simulated) network and does not touch
-        w_global; the caller finishes with finish_push."""
+        w_global; the caller finishes with finish_push. `wave`, the
+        worker's wave the delta comes from, labels the apply's span."""
         leaves, _ = tree_flatten_np(deltas_tree)
         updates, wire, dense = [], 0, 0
         for i, d in enumerate(leaves):
@@ -130,7 +133,7 @@ class ParameterServer:
             self.bytes_pushed += dense
             self.bytes_wire += wire
             self.comm_seconds += send.seconds
-        return PendingPush(wid, updates, send)
+        return PendingPush(wid, updates, send, wave=wave)
 
     def finish_push(self, pending: PendingPush) -> int:
         """Wait for the wire, apply the update (one lock acquisition per
@@ -156,7 +159,8 @@ class ParameterServer:
         for upd in pending.updates:
             by_shard.setdefault(self.shard_of_leaf[upd[0]], []).append(upd)
         with self.tracer.span("ps", "push_apply", wid=pending.wid,
-                              shards=len(by_shard)), self._snapshot_lock:
+                              shards=len(by_shard), wave=pending.wave), \
+                self._snapshot_lock:
             if self.injector is not None:
                 # push_count is stable under the snapshot lock, so which
                 # push a PSStall lands on is deterministic
@@ -188,10 +192,11 @@ class ParameterServer:
         self.push_event.set()
         return clock
 
-    def push_wave(self, wid: str, deltas_tree) -> int:
+    def push_wave(self, wid: str, deltas_tree,
+                  wave: Optional[int] = None) -> int:
         """Blocking push: the wire bytes of the (possibly compressed) push
         transit the simulated transport before the update lands."""
-        return self.finish_push(self.begin_push(wid, deltas_tree))
+        return self.finish_push(self.begin_push(wid, deltas_tree, wave))
 
     def gate(self, wid: str, timeout: float = 120.0,
              at_clock: Optional[int] = None) -> bool:
@@ -209,15 +214,17 @@ class ParameterServer:
             raise GateTimeout(wid, wave, time.monotonic() - t0)
         return reason == "ok"
 
-    def pull(self, wid: Optional[str] = None):
+    def pull(self, wid: Optional[str] = None, wave: Optional[int] = None):
         """Snapshot of w_global (consistent per leaf) as a tree of numpy
         arrays. Leaves whose shard version is unchanged since the last pull
         are served from a cached snapshot instead of re-copied — the
         returned arrays are shared between pullers and read-only. When the
         puller is identified, the full parameter payload transits the
-        transport."""
+        transport. `wave`, the wave the puller starts from these weights,
+        labels the span."""
         with self.tracer.span("ps", "pull_serve",
-                              wid=wid if wid is not None else "snapshot"):
+                              wid=wid if wid is not None else "snapshot",
+                              wave=wave):
             out = []
             nbytes = 0
             hits = 0

@@ -1,6 +1,6 @@
 """The wave steps (the port of repro.core.wave): the pipelined spmd train
 step over a (data, stage, tp) mesh, the single-device wave step of a
-virtual worker, and the pipeline tick schedule the tracer renders.
+virtual worker, and the pipeline tick schedule.
 
 A wave is Nm microbatches computed with the wave-start weights: the grads
 accumulate over them and the optimizer turns their mean into one delta.
@@ -44,6 +44,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.launch import mesh as mesh_lib
@@ -65,8 +66,8 @@ def tick_schedule(stages: int, nm: int, *, overlap: bool = False
     """The pipeline schedule of a wave, as data: a list of (stage, tick, mb)
     entries — mb = -1 for bubble ticks — plus the tick count. Microbatch j
     reaches stage s at tick j + skew*s (skew 2 under the software-pipelined
-    overlap schedule, else 1). Observability renders this as per-stage trace
-    tracks; bubble fraction = 1 - nm*stages/len(entries)."""
+    overlap schedule, else 1). The schedule's bubble share is
+    1 - nm*stages/len(entries)."""
     skew = 2 if overlap else 1
     ticks = nm + skew * (stages - 1)
     sched = []
@@ -496,17 +497,20 @@ def _slot0(mesh, d: int):
 def wave_grads(cfg: ArchConfig, nm: int, params, inputs, labels):
     """(mean microbatch loss as a 0-d tensor, grads shaped like params) of
     one wave at `params`. inputs / labels [B, S] split into nm microbatches
-    of B / nm rows; a leaf no microbatch reaches gets zeros."""
+    of B / nm rows; a leaf no microbatch reaches gets zeros. Each
+    microbatch's forward and backward is a `fwd_bwd` span (`mb=`) in the
+    thread's bound trace scope (obs.span; none unbound)."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     B = labels.shape[0]
     xw = inputs.reshape(nm, B // nm, *inputs.shape[1:])
     lw = labels.reshape(nm, B // nm, labels.shape[1])
     total = torch.zeros((), dtype=torch.float32, device=labels.device)
     for j in range(nm):
-        loss, _ = lm.forward_ref(cfg, leaves, xw[j], mode="train",
-                                 labels=lw[j])
-        (loss / nm).backward()
-        total = total + loss.detach()
+        with obs.span("fwd_bwd", mb=j):
+            loss, _ = lm.forward_ref(cfg, leaves, xw[j], mode="train",
+                                     labels=lw[j])
+            (loss / nm).backward()
+            total = total + loss.detach()
     grads = tree_map(lambda p: p.grad if p.grad is not None
                      else torch.zeros_like(p), leaves)
     return total / nm, grads
@@ -516,14 +520,15 @@ def build_local_wave_step(cfg: ArchConfig, nm: int, optimizer):
     """wave_step(params, opt_state, inputs, labels) -> (deltas, opt_state,
     loss): one wave's grads at the wave-start `params` (a tree of tensors),
     turned into additive deltas by `optimizer`. inputs / labels are token
-    ids (numpy or tensors), moved to the params' device."""
+    ids (numpy or tensors), moved to the params' device. The update is
+    an `optim` span in the thread's bound trace scope."""
 
     def wave_step(params, opt_state, inputs, labels):
         dev = next(iter(params["blocks"].values())).device
         inputs = torch.as_tensor(inputs, device=dev)
         labels = torch.as_tensor(labels, device=dev)
         loss, grads = wave_grads(cfg, nm, params, inputs, labels)
-        with torch.no_grad():
+        with obs.span("optim"), torch.no_grad():
             deltas, opt_state = optimizer.update(grads, opt_state, params)
         return deltas, opt_state, loss
 

@@ -3,8 +3,9 @@ of repro.obs.summary over repro_torch.obs.export.load).
 
     PYTHONPATH=src python -m repro_torch.obs.summary trace.json
 
-Prints per-track busy time, the WSP staleness histogram (audited against
-the recorded D bound when present), the pipeline bubble summary, per-link
+Prints per-track busy time, each span name's self time by track (its
+duration minus its children's: spans nest on a track), the WSP staleness
+histogram (audited against the recorded D bound when present), per-link
 traffic/utilization, the fault/recovery counters (repro_torch.faults: drops,
 retries, crashes, evictions vs rejoins) and serve TTFT — everything the
 ROADMAP's measurement items report through. Exits non-zero on a malformed
@@ -33,6 +34,36 @@ def _hist_line(h: dict) -> str:
     return " ".join(pairs) if pairs else "(empty)"
 
 
+def self_times(doc: dict) -> dict:
+    """{(track, name): [self_s, total_s, count]} over the trace's spans: a
+    span's self time is its duration less its children's, the spans on
+    its track that lie inside it (the innermost enclosing span is the
+    parent)."""
+    tracks = {ev["tid"]: ev["args"]["name"] for ev in doc["traceEvents"]
+              if ev["ph"] == "M" and ev["name"] == "thread_name"}
+    by_tid = defaultdict(list)
+    for ev in doc["traceEvents"]:
+        if ev["ph"] == "X":
+            by_tid[ev["tid"]].append((ev["ts"], -ev["dur"], ev["name"]))
+    out: dict = {}
+    eps = 1e-3                                  # microseconds
+    for tid, spans in by_tid.items():
+        track = tracks.get(tid, f"tid{tid}")
+        stack: list = []                        # [end, key] of open spans
+        for ts, neg, name in sorted(spans):
+            dur = -neg
+            while stack and stack[-1][0] <= ts + eps:
+                stack.pop()
+            row = out.setdefault((track, name), [0.0, 0.0, 0])
+            row[0] += dur / 1e6
+            row[1] += dur / 1e6
+            row[2] += 1
+            if stack and ts + dur <= stack[-1][0] + eps:
+                out[stack[-1][1]][0] -= dur / 1e6
+            stack.append([ts + dur, (track, name)])
+    return out
+
+
 def summarize(doc: dict) -> list[str]:
     lines = []
     tracks: dict[int, str] = {}
@@ -58,6 +89,13 @@ def summarize(doc: dict) -> list[str]:
                      f"({min(1.0, busy[name] / wall):5.1%})  "
                      f"spans={span_count[name]}")
 
+    selfs = self_times(doc)
+    for track, name in sorted(selfs, key=lambda k: (k[0], -selfs[k][0])):
+        own, total, n = selfs[(track, name)]
+        lines.append(f"  self {track + ' ' + name:<32s} "
+                     f"self={_fmt_s(max(0.0, own)):<9s} "
+                     f"total={_fmt_s(total):<9s} n={n}")
+
     tel = doc.get("telemetry") or {}
     hists = tel.get("histograms", {})
     gauges = tel.get("gauges", {})
@@ -75,13 +113,6 @@ def summarize(doc: dict) -> list[str]:
             raise ValueError(
                 f"staleness audit failed: measured max {st['max']:g} exceeds "
                 f"the Plan's D={d:g}")
-
-    bub, comp = counters.get("pipe/bubble_s"), counters.get("pipe/busy_s")
-    if comp:
-        frac = bub / (bub + comp) if (bub or 0) + comp > 0 else 0.0
-        lines.append(f"pipeline: busy={_fmt_s(comp)} "
-                     f"bubble={_fmt_s(bub or 0.0)} "
-                     f"bubble_fraction={frac:.1%}")
 
     links = sorted(k.split("/", 2)[1] for k in gauges
                    if k.startswith("link/") and k.endswith("/bytes"))

@@ -1,9 +1,11 @@
 """Thread-safe tracer: spans, instant events and counter samples.
 
 Events carry (track, name, timestamps, args). A *track* is the Perfetto row
-the event renders on — one per virtual worker, pipeline stage, network link,
-scheduler, engine — so the exported trace reads like the cluster: wave
-compute per VW, pushes in flight on the links, pipeline bubbles per stage.
+the event renders on — one per virtual worker, network link, scheduler,
+engine — so the exported trace reads like the cluster: wave compute per
+VW and its parts, pushes in flight on the links, the serve step's parts.
+Spans on one track nest: a span inside another on its track is its child,
+and a span's self time is its duration minus its children's.
 
 Timestamps come from an injectable clock (default time.monotonic). A
 simulated run that scales modeled delays (`ClusterSpec.time_scale`) can
@@ -15,9 +17,25 @@ returns the shared `NULL_SPAN` singleton from span() and falls through
 every other method without allocating or locking, so instrumentation can
 stay unconditionally in hot paths. The attached MetricsRegistry shares the
 enabled flag.
+
+Code that holds no tracer records into a thread's bound scope:
+`Tracer.bind(track, **ids)` binds the tracer, a track and ids (say
+`wave=`) for the thread, and the module-level `span(name, **args)` opens
+a span there (NULL_SPAN when nothing is bound). `Tracer.total(track,
+name)` is the running sum of a span name's durations, for reports that
+take this run's share as a delta.
+
+While a torch.profiler is recording, each span also opens a
+`record_function` range named `track/name`, so the spans sit in the
+profiler's trace on its clock, above the device work they launched. The
+profiler keeps the ranges only with CPU activity on (a CUDA-only profile
+holds none), and only of the thread that started it unless it was made
+with `profile_all_threads`. With no profiler running no profiler call is
+made.
 """
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from typing import Callable, Optional
@@ -40,20 +58,65 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+def _recording_profiler():
+    """torch's autograd profiler module while a profiler records, else None
+    (a flag read: torch is not imported here, and without torch imported
+    no profiler can run)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof if prof is not None and prof._is_profiler_enabled else None
+
+
 class _Span:
-    __slots__ = ("_tr", "_track", "_name", "_args", "_t0")
+    __slots__ = ("_tr", "_track", "_name", "_args", "_t0", "_rf")
 
     def __init__(self, tr: "Tracer", track: str, name: str, args: dict):
         self._tr, self._track, self._name, self._args = tr, track, name, args
 
     def __enter__(self):
+        prof = _recording_profiler()
+        self._rf = None
+        if prof is not None:
+            self._rf = prof.record_function(f"{self._track}/{self._name}")
+            self._rf.__enter__()
         self._t0 = self._tr.now()
         return self
 
     def __exit__(self, *exc):
-        self._tr.add_span(self._track, self._name, self._t0, self._tr.now(),
-                          **self._args)
+        t1 = self._tr.now()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        self._tr.add_span(self._track, self._name, self._t0, t1, **self._args)
         return False
+
+
+# the thread's bound scope: (tracer, track, ids) or unset
+_scope = threading.local()
+
+
+class _Bind:
+    __slots__ = ("_scope", "_prev")
+
+    def __init__(self, scope: tuple):
+        self._scope = scope
+
+    def __enter__(self):
+        self._prev = getattr(_scope, "v", None)
+        _scope.v = self._scope
+        return self
+
+    def __exit__(self, *exc):
+        _scope.v = self._prev
+        return False
+
+
+def span(name: str, **args):
+    """A span named `name` on the thread's bound track, carrying the bound
+    ids and `args`; NULL_SPAN when no enabled tracer is bound."""
+    scope = getattr(_scope, "v", None)
+    if scope is None:
+        return NULL_SPAN
+    tr, track, ids = scope
+    return tr.span(track, name, **ids, **args)
 
 
 class Tracer:
@@ -69,6 +132,7 @@ class Tracer:
         self._clock = clock if clock is not None else time.monotonic
         self.metrics = MetricsRegistry(enabled=enabled)
         self._events: list = []
+        self._totals: dict = {}
         self._lock = threading.Lock()
 
     # -- time --------------------------------------------------------------
@@ -87,9 +151,18 @@ class Tracer:
         """Record an already-timed [t0, t1) interval."""
         if not self.enabled:
             return
+        dur = max(0.0, t1 - t0)
+        key = (track, name)
         with self._lock:
-            self._events.append(("X", track, name, t0, max(0.0, t1 - t0),
-                                 args))
+            self._events.append(("X", track, name, t0, dur, args))
+            self._totals[key] = self._totals.get(key, 0.0) + dur
+
+    def total(self, track: str, name: str) -> float:
+        """Seconds summed over every `name` span recorded on `track`."""
+        if not self.enabled:
+            return 0.0
+        with self._lock:
+            return self._totals.get((track, name), 0.0)
 
     def instant(self, track: str, name: str, **args) -> None:
         if not self.enabled:
@@ -107,6 +180,14 @@ class Tracer:
             self._events.append(("C", track, name, t, 0.0, {name: value}))
 
     # -- scoping -----------------------------------------------------------
+    def bind(self, track: str, **ids):
+        """Context manager binding this tracer, `track` and `ids` to the
+        calling thread for the module-level span(); nests, restoring the
+        outer binding on exit. Disabled tracers bind nothing."""
+        if not self.enabled:
+            return NULL_SPAN
+        return _Bind((self, track, ids))
+
     def scoped(self, prefix: str) -> "Tracer":
         """A view of this tracer that prepends `prefix` to every track name
         — the Router gives each serve replica `scoped('r{i}/')` so one
@@ -174,6 +255,9 @@ class _ScopedTracer(Tracer):
     def counter(self, track: str, name: str, value: float) -> None:
         self._parent.counter(self._prefix + track, name, value)
 
+    def total(self, track: str, name: str) -> float:
+        return self._parent.total(self._prefix + track, name)
+
     def events(self) -> list:
         return self._parent.events()
 
@@ -189,33 +273,3 @@ class _ScopedTracer(Tracer):
 
 NULL_TRACER = Tracer(enabled=False)
 
-
-def emit_pipeline_ticks(tracer: Tracer, track_prefix: str, schedule,
-                        ticks: int, t0: float, t1: float) -> None:
-    """Render one wave's pipeline schedule as per-stage tick spans.
-
-    `schedule` is core.wave.tick_schedule output: (stage, tick, mb) entries
-    with mb < 0 marking bubble ticks. The wave's measured [t0, t1) window is
-    divided evenly over `ticks`; each stage gets its own track
-    (`{track_prefix}/stage{s}`) carrying `mb{j}` compute spans and `bubble`
-    spans. Busy/bubble seconds accumulate into the metrics counters
-    `pipe/busy_s` / `pipe/bubble_s` (bubble fraction = bubble/(busy+bubble)).
-
-    The schedule is the *modeled* intra-VW pipeline (what the wave step
-    executes on its k GPUs); on the threads backend the wave step runs the
-    sequential oracle, so these tracks visualize the Plan's schedule scaled
-    into the wave's measured duration rather than per-tick measurements.
-    """
-    if not tracer.enabled or ticks <= 0:
-        return
-    dt = (t1 - t0) / ticks
-    busy = 0
-    for stage, tick, mb in schedule:
-        a = t0 + tick * dt
-        name = "bubble" if mb < 0 else f"mb{mb}"
-        tracer.add_span(f"{track_prefix}/stage{stage}", name, a, a + dt,
-                        tick=tick)
-        if mb >= 0:
-            busy += 1
-    tracer.metrics.counter_inc("pipe/busy_s", busy * dt)
-    tracer.metrics.counter_inc("pipe/bubble_s", (len(schedule) - busy) * dt)

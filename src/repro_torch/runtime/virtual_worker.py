@@ -30,7 +30,8 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.obs import NULL_TRACER, emit_pipeline_ticks
+from repro_torch import obs
+from repro_torch.obs import NULL_TRACER
 from repro_torch.obs.metrics import INT_BOUNDS, SECONDS_BOUNDS
 from repro_torch.runtime.staging import HostStaging, add_, device_tree
 
@@ -71,9 +72,9 @@ class _Outbox(threading.Thread):
         self.wid, self.ps, self.tracer = wid, ps, tracer
         self._q: queue.Queue = queue.Queue()
 
-    def submit(self, deltas) -> _PushHandle:
+    def submit(self, deltas, wave: int) -> _PushHandle:
         h = _PushHandle()
-        self._q.put((deltas, h))
+        self._q.put((deltas, h, wave))
         return h
 
     def close(self):
@@ -84,12 +85,12 @@ class _Outbox(threading.Thread):
             item = self._q.get()
             if item is None:
                 return
-            deltas, h = item
+            deltas, h, wave = item
             # the push span covers the in-flight segment: transport delay +
             # apply + clock advance, on the worker's outbox track
-            with self.tracer.span(f"{self.wid}/outbox", "push"):
+            with self.tracer.span(f"{self.wid}/outbox", "push", wave=wave):
                 try:
-                    h.clock = self.ps.push_wave(self.wid, deltas)
+                    h.clock = self.ps.push_wave(self.wid, deltas, wave=wave)
                 except Exception as e:      # surfaced at the next await
                     h.exc = e
             h.landed_at = time.monotonic()
@@ -104,7 +105,7 @@ class VirtualWorker(threading.Thread):
                  stop_event: Optional[threading.Event] = None,
                  fail_at_wave: Optional[int] = None,
                  async_push: bool = False,
-                 tracer=None, D: Optional[int] = None, tick_plan=None,
+                 tracer=None, D: Optional[int] = None,
                  injector=None, vw_index: Optional[int] = None,
                  crash_at: Optional[int] = None,
                  gate_timeout_s: float = 120.0):
@@ -128,12 +129,9 @@ class VirtualWorker(threading.Thread):
         self.crash_at = crash_at
         self.async_push = async_push
         self.gate_timeout_s = gate_timeout_s
-        # observability: D is the Plan's staleness bound (audited per wave),
-        # tick_plan the (schedule, ticks) modeled pipeline rendered under
-        # each wave span (core.wave.tick_schedule output)
+        # observability: D is the Plan's staleness bound (audited per wave)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.audit_D = D
-        self.tick_plan = tick_plan
         self.metrics = VWMetrics()
         self.failed = False
         self.done = False               # completed its waves normally
@@ -178,15 +176,17 @@ class VirtualWorker(threading.Thread):
             self.metrics.overlap_seconds += max(
                 0.0, min(h.landed_at, c1) - max(h.enqueued_at, c0))
 
-    def _pull(self):
-        """w_global into the device params (allocated at the first pull)."""
+    def _pull(self, wave: int):
+        """w_global, for wave `wave` to start from, into the device params
+        (allocated at the first pull)."""
         t0 = time.monotonic()
-        host = self.ps.pull(self.wid)
+        host = self.ps.pull(self.wid, wave=wave)
         if self.params is None:
             self.params = device_tree(host, self.device)
             self.staging = HostStaging(self.params, self.device)
         else:
-            self.staging.to_device(host, self.params)
+            with obs.span("h2d"):
+                self.staging.to_device(host, self.params)
         self.metrics.pull_s.append(time.monotonic() - t0)
 
     def run(self):
@@ -203,9 +203,9 @@ class VirtualWorker(threading.Thread):
         t_start = time.monotonic()
         tr = self.tracer
         self.ps.register(self.wid)
-        self._pull()
-        self.opt_state = self.opt_init(self.params)
         wave = self.ps.clock.local_clock(self.wid)
+        self._pull(wave)
+        self.opt_state = self.opt_init(self.params)
         if self.async_push:
             self._outbox = _Outbox(self.wid, self.ps, tracer=tr)
             self._outbox.start()
@@ -252,7 +252,9 @@ class VirtualWorker(threading.Thread):
                                wave=wave, stale=stale, D=self.audit_D)
                     tr.metrics.counter_inc("wsp/staleness_violations")
                 t0 = time.monotonic()
-                with tr.span(self.wid, "wave", wave=wave):
+                # core.wave records the wave's parts into the bound scope
+                with tr.bind(self.wid, wave=wave), \
+                        tr.span(self.wid, "wave", wave=wave):
                     x, y = self.loader.next()
                     deltas, self.opt_state, loss = self.wave_step(
                         self.params, self.opt_state, x, y)
@@ -265,24 +267,18 @@ class VirtualWorker(threading.Thread):
                             self.vw_index, wave)
                     if extra > 0:
                         time.sleep(extra)
-                if self.tick_plan is not None and tr.enabled:
-                    # render the modeled intra-VW pipeline (stages ×
-                    # microbatch ticks) scaled into the measured wave window
-                    sched, ticks = self.tick_plan
-                    emit_pipeline_ticks(tr, self.wid, sched, ticks,
-                                        t0, time.monotonic())
                 tp = time.monotonic()
                 host = self.staging.to_host(deltas)
                 if self._outbox is not None:
                     # pushes land in order: wave w-1 must be applied before
                     # wave w's transfer may complete
                     self._await_inflight(compute_span=(t0, tp))
-                    self._inflight = self._outbox.submit(host)
+                    self._inflight = self._outbox.submit(host, wave)
                     tr.instant(self.wid, "push_enqueue", wave=wave)
                     wave += 1
                 else:
                     with tr.span(self.wid, "push", wave=wave):
-                        wave = self.ps.push_wave(self.wid, host)
+                        wave = self.ps.push_wave(self.wid, host, wave=wave)
                 self.metrics.push_s.append(time.monotonic() - tp)
                 tr.counter(self.wid, "clock", wave)
                 # local weights see their own wave immediately (paper Sec. 4)
@@ -291,9 +287,11 @@ class VirtualWorker(threading.Thread):
                     add_(self.params, deltas)
                 if self.pull_every and wave % self.pull_every == 0:
                     # a pull must include this worker's own landed wave
-                    with tr.span(self.wid, "pull", wave=wave):
-                        self._await_inflight()
-                        self._pull()
+                    with tr.bind(self.wid, wave=wave), \
+                            tr.span(self.wid, "pull", wave=wave):
+                        with obs.span("pull_wait"):
+                            self._await_inflight()
+                        self._pull(wave)
                 self.metrics.losses.append(loss)
                 self.metrics.wave_times.append(time.monotonic() - t0)
                 self.metrics.wall_clock.append(time.monotonic() - t_start)

@@ -1,8 +1,9 @@
 """The port's observability layer (repro_torch.obs) — the counterparts of
 tests/test_obs.py: tracer and metrics semantics, the zero-overhead disabled
 path, Chrome-trace export, the summary CLI (its lines equal the JAX
-package's on the same trace), the WSP staleness audit, Scheduler event
-invariants and the Telemetry helpers. On the CPU, at small sizes.
+package's on the same trace, plus the port's self-time lines), the WSP
+staleness audit, Scheduler event invariants and the Telemetry helpers. On
+the CPU, at small sizes.
 
 test_obs.py's spmd case of the wait-seconds check is in
 tests/test_torch_spmd_api.py, beside the spmd backend's other tests.
@@ -22,7 +23,7 @@ from repro_torch.api.serving import Request, Scheduler
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.core.wave import tick_schedule
 from repro_torch.obs import (NULL_SPAN, NULL_TRACER, Histogram,
-                             MetricsRegistry, Tracer, emit_pipeline_ticks)
+                             MetricsRegistry, Tracer)
 from repro_torch.obs.export import load, to_chrome, validate_chrome, \
     write_chrome
 from repro_torch.obs.metrics import INT_BOUNDS, quantile_from_snapshot
@@ -138,7 +139,7 @@ def test_tracer_records_span_instant_counter():
 
 
 # ---------------------------------------------------------------------------
-# pipeline tick rendering
+# the pipeline tick schedule
 # ---------------------------------------------------------------------------
 def test_tick_schedule_shapes():
     sched, ticks = tick_schedule(2, 2)
@@ -149,21 +150,6 @@ def test_tick_schedule_shapes():
         assert mbs == [0, 1]
     _, ticks_ov = tick_schedule(3, 4, overlap=True)
     assert ticks_ov == 4 + 2 * 2
-
-
-def test_emit_pipeline_ticks_spans_and_bubble_fraction():
-    tr = Tracer(clock=lambda: 0.0)
-    sched, ticks = tick_schedule(2, 2)
-    emit_pipeline_ticks(tr, "vw0", sched, ticks, 0.0, 3.0)
-    evs = tr.events()
-    assert len(evs) == 2 * 3
-    assert {e[1] for e in evs} == {"vw0/stage0", "vw0/stage1"}
-    assert len([e for e in evs if e[2] == "bubble"]) == 2
-    snap = tr.metrics.snapshot()["counters"]
-    assert snap["pipe/busy_s"] == pytest.approx(4.0)
-    assert snap["pipe/bubble_s"] == pytest.approx(2.0)
-    emit_pipeline_ticks(NULL_TRACER, "vw0", sched, ticks, 0.0, 3.0)
-    assert len(NULL_TRACER) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -315,14 +301,17 @@ def test_traced_wsp_staleness_audited_against_D(tmp_path):
     assert st["max"] <= 2
     assert tel.gauges["wsp/D"] == 2
     assert "wsp/staleness_violations" not in tel.counters
-    assert tel.bubble_fraction() == pytest.approx(1 / 3)
     assert any(k.startswith("link/") for k in tel.gauges)
     p = tmp_path / "wsp.json"
     tr.export(str(p))
     lines = summarize(load(str(p)))
     assert any("bound D=2 -> OK" in ln for ln in lines)
-    # the JAX package's summary reads the port's trace line for line
-    assert j_summarize(load(str(p))) == lines
+    # the JAX package's summary reads the port's trace line for line; the
+    # port's adds each span name's self time by track
+    own = [ln for ln in lines if ln.startswith("  self ")]
+    assert any(ln.startswith("  self vw0 wave ") for ln in own)
+    assert j_summarize(load(str(p))) == [ln for ln in lines
+                                         if ln not in own]
     doc = load(str(p))
     doc["telemetry"]["histograms"]["wsp/staleness"]["max"] = 3
     with pytest.raises(ValueError, match="staleness audit failed"):
@@ -402,15 +391,11 @@ def test_telemetry_helpers():
     m = MetricsRegistry()
     m.observe("wsp/staleness", 1, bounds=INT_BOUNDS)
     m.observe("wsp/staleness", 2, bounds=INT_BOUNDS)
-    m.counter_inc("pipe/busy_s", 3.0)
-    m.counter_inc("pipe/bubble_s", 1.0)
     m.gauge_set("link/eth/bytes", 1e6)
     m.gauge_set("link/eth/modeled_s", 0.5)
     tel = Telemetry.from_metrics(m)
     assert tel.staleness_max() == 2
     assert tel.hist_quantile("wsp/staleness", 0.5) == 1
-    assert tel.bubble_fraction() == pytest.approx(0.25)
     assert tel.link_utilization(1.0) == {"eth": 0.5}
     assert tel.to_dict()["gauges"]["link/eth/bytes"] == 1e6
     assert Telemetry().staleness_max() is None
-    assert Telemetry().bubble_fraction() is None
