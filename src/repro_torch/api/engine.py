@@ -111,6 +111,12 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+#: a trimmed prefill's width is the group's longest prompt rounded up to
+#: this: ssd_chunked's chunk, a multiple of rwkv6_chunked's 16; it keeps a
+#: row's padding under 64 tokens and the set of widths small
+PREFILL_BLOCK = 64
+
+
 def sample_key(*parts) -> int:
     """A torch.Generator seed from integers, e.g. (sample_seed, rid, k): a
     request's sample stream depends on its own key only, never on its
@@ -889,33 +895,81 @@ class Engine:
                 self._sync()
         return logits[:, -1], cache
 
+    def _frozen_prefill(self) -> bool:
+        """Whether a row's prefill result depends on the call's whole shape,
+        so every prefill_into runs at [max_batch, prompt_len]: a
+        capacity-routed MoE layer (its capacity counts every position of
+        the call, padding included: ROADMAP trap M1) or the spmd step
+        (its microbatches split max_batch)."""
+        self._ensure_serve()
+        return self._serve["mesh"] is not None \
+            or self._serve["cfg"].num_experts > 0
+
+    def prefill_shape(self, rows: int, longest: int) -> tuple[int, int]:
+        """The [b, s] prompts array a prefill_into call of `rows` prompts,
+        the longest `longest` tokens, runs at: [max_batch, prompt_len]
+        where the result couples rows (_frozen_prefill), else the rows
+        themselves at `longest` rounded up to PREFILL_BLOCK (capped at
+        prompt_len). Padded positions are a no-op for the rows' logits,
+        pages and per-slot state, so both shapes give each row the same
+        result."""
+        self._require_serve("prefill_shape")
+        sv = self.plan.serve
+        if not (1 <= rows <= sv.max_batch and 1 <= longest <= sv.prompt_len):
+            raise ValueError(
+                f"{rows} rows of up to {longest} tokens outside [1, "
+                f"{sv.max_batch}] x [1, {sv.prompt_len}] (ServeSpec)")
+        if self._frozen_prefill():
+            return sv.max_batch, sv.prompt_len
+        return rows, min(sv.prompt_len,
+                         -(-longest // PREFILL_BLOCK) * PREFILL_BLOCK)
+
     def prefill_into(self, store, prompts, lens, slots, skip_pages=None):
         """Prefill a batch of (possibly right-padded) prompts directly into
         `store`'s page pool.
 
-        prompts [max_batch, prompt_len] with rows 0..len(slots)-1 carrying
-        real requests; lens [max_batch] per-row prompt lengths; slots the
-        store slot of each live row. K/V scatter through the block table in
-        place. Returns each row's last-real-position logits [max_batch,
-        vocab]. skip_pages[j] skips writing row j's first N pages (they
-        hold a shared prefix already)."""
+        prompts [b, s] with rows 0..len(slots)-1 carrying real requests: b
+        in [len(slots), max_batch] and s in [1, prompt_len], or exactly
+        [max_batch, prompt_len] where _frozen_prefill (prefill_shape picks
+        the shape); lens [b] per-row prompt lengths; slots the store slot
+        of each live row. K/V scatter through the block table in place.
+        Returns each row's last-real-position logits [b, vocab].
+        skip_pages[j] skips writing row j's first N pages (they hold a
+        shared prefix already)."""
         self._require_serve("prefill_into")
         self._ensure_serve_store()
         if not isinstance(store, cache_lib.CacheStore):
             raise TypeError(f"prefill_into writes a CacheStore, got "
                             f"{type(store).__name__}")
-        st, pg = self._serve, self._serve_paged
-        prompts = self._tokens(prompts, "prompts")
+        st, pg, sv = self._serve, self._serve_paged, self.plan.serve
+        prompts = self._tokens(prompts, "")
+        b, s = prompts.shape[:2]
+        if self._frozen_prefill():
+            if (b, s) != (sv.max_batch, sv.prompt_len):
+                raise ValueError(
+                    f"prompts {tuple(prompts.shape)} disagree with the "
+                    f"frozen prefill shape [{sv.max_batch}, "
+                    f"{sv.prompt_len}]: this Plan's rows couple (MoE "
+                    f"capacity or the spmd microbatches)")
+        elif not (len(slots) <= b <= sv.max_batch
+                  and 1 <= s <= sv.prompt_len):
+            raise ValueError(
+                f"prompts {tuple(prompts.shape)} for {len(slots)} rows "
+                f"outside [{len(slots)}..{sv.max_batch}, "
+                f"1..{sv.prompt_len}]")
         lens = torch.as_tensor(lens, dtype=torch.int64, device=self.device)
         with self.tracer.span("engine", "prefill", rows=len(slots)), \
                 torch.inference_mode():
             logits, out = pg["prefill"](
                 st["params"], prompts, lens,
-                store.prefill_input(slots, skip_pages=skip_pages))
+                store.prefill_input(b, slots, skip_pages=skip_pages))
             store.append_rows(out, [(j, s) for j, s in enumerate(slots)])
             if self.tracer.enabled:
                 self._sync()
-        return logits[:, -1]
+        # a fresh [b, vocab]: one row sliced from the padded head's logits
+        # keeps the pad's row stride, and torch's overlap check then
+        # refuses an in-place copy between rows of its clone
+        return logits[:, -1].clone(memory_format=torch.contiguous_format)
 
     def decode(self, tokens, cache, pos):
         """One decode position for the whole batch.

@@ -181,7 +181,8 @@ class ServeReport:
     pick_s: float = 0.0
     admit_s: float = 0.0
     # prompt tokens of every prefill call (kept untraced too): the real
-    # ones, and the slots computed (max_batch x prompt_len a call)
+    # ones, and the slots computed (b x s of the call's prompts array,
+    # Engine.prefill_shape)
     prefill_tokens: int = 0
     prefill_slot_tokens: int = 0
     # memory-manager accounting (repro_torch.serve.memory)

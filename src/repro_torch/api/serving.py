@@ -9,10 +9,13 @@ loop over the paged cache (repro_torch.serve.cache):
           allocates exactly the KV pages its prompt + generation budget
           needs from the CacheStore pool and is refused while the pool is
           exhausted; one variable-length prefill call (right-padded
-          prompts + a per-row length vector) scatters K/V straight into
-          the allocated pages. repro_torch.serve.memory quotes every
-          admission (and, with ServeSpec.share_prefix / evict / preempt,
-          maps shared prefixes, evicts cold pages, preempts a victim)
+          prompts + a per-row length vector, at Engine.prefill_shape: the
+          admitted rows at their longest prompt rounded up to 64, or
+          [max_batch, prompt_len] where rows couple) scatters K/V
+          straight into the allocated pages. repro_torch.serve.memory
+          quotes every admission (and, with ServeSpec.share_prefix /
+          evict / preempt, maps shared prefixes, evicts cold pages,
+          preempts a victim)
   decode  one decode call advances every active slot by one token; slots
           sit at different depths, carried by the per-row position vector,
           and full-attention K/V is read through each slot's block table
@@ -282,15 +285,16 @@ class Scheduler:
                     free.sort()
                 return False
             store.alloc(s2, need)
-            prompts = np.zeros((B, P), np.int32)
+            b, w = eng.prefill_shape(1, seq.shape[0])
+            prompts = np.zeros((b, w), np.int32)
             prompts[0, :seq.shape[0]] = seq
-            lens = np.ones(B, np.int32)
+            lens = np.ones(b, np.int32)
             lens[0] = seq.shape[0]
             report.prefill_tokens += int(seq.shape[0])
-            report.prefill_slot_tokens += B * P
+            report.prefill_slot_tokens += b * w
             t0 = time.monotonic()
             with tr.span("sched", "reprefill", rid=slot.req.rid, slot=s2,
-                         depth=int(seq.shape[0])):
+                         depth=int(seq.shape[0]), width=w):
                 eng.prefill_into(store, prompts, lens, [s2])
             report.prefill_s += time.monotonic() - t0
             report.prefill_calls += 1
@@ -385,17 +389,19 @@ class Scheduler:
                                        prompt_len=prompt.shape[0],
                                        shared_pages=skip,
                                        pages_in_use=store.pages_in_use)
-                        prompts = np.zeros((B, P), np.int32)
-                        lens = np.ones(B, np.int32)
+                        b, w = eng.prefill_shape(len(admits), max(
+                            prompt.shape[0] for _, prompt, _, _ in admits))
+                        prompts = np.zeros((b, w), np.int32)
+                        lens = np.ones(b, np.int32)
                         for j, (r, prompt, _, _) in enumerate(admits):
                             prompts[j, :prompt.shape[0]] = prompt
                             lens[j] = prompt.shape[0]
             if admits:
                 report.prefill_tokens += int(lens[:len(admits)].sum())
-                report.prefill_slot_tokens += B * P
+                report.prefill_slot_tokens += b * w
                 t0 = time.monotonic()
                 with tr.span("sched", "prefill_group", group=group,
-                             rows=len(admits)):
+                             rows=len(admits), width=w):
                     logits = eng.prefill_into(
                         store, prompts, lens,
                         [s for _, _, s, _ in admits],

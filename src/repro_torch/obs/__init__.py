@@ -20,7 +20,8 @@ children's. The serve step, per decode step:
       sched d2h                the logits' copy to the host
     sched pick                 the host picks, retiring, step bookkeeping
     sched admission            one admission round: order, pages, padding
-    sched prefill_group        the padded prefill of the admitted rows
+    sched prefill_group        the prefill of the admitted rows (`rows=`,
+                               padded to `width=`)
 
 ServeReport carries each run's totals of these (`decode_issue_s`,
 `decode_drain_s`, `logits_d2h_s`, `pick_s`, `admit_s`) and the prefill's

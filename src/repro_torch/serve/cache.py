@@ -586,23 +586,24 @@ class CacheStore:
         return list(seen.values())
 
     # ---- views / updates ---------------------------------------------
-    def prefill_input(self, slots, skip_pages=None):
-        """The cache tree a prefill step writes into: the live page pool
-        (written in place), a block table whose row j maps to slots[j]'s
-        pages (-1 rows for unused prefill rows), and fresh zeroed per-slot
-        state (adopted into the slots by append_rows).
+    def prefill_input(self, rows, slots, skip_pages=None):
+        """The cache tree a prefill step of `rows` rows writes into: the
+        live page pool (written in place), a block table whose row j maps
+        to slots[j]'s pages (-1 rows for unused prefill rows), and fresh
+        zeroed per-slot state (adopted into the slots by append_rows).
 
         skip_pages[j] masks row j's first N page entries to -1 in this
         view only: those pages hold a shared, already-written prefix, so
         the row's recomputed K/V for them goes to the trash page."""
         lo = self.layout
-        tab = np.full((lo.max_batch, lo.pages_per_slot), -1, np.int32)
+        tab = np.full((rows, lo.pages_per_slot), -1, np.int32)
         for j, s in enumerate(slots):
             tab[j] = self._tab[s]
             if skip_pages is not None and skip_pages[j]:
                 tab[j, :skip_pages[j]] = -1
         out = {"block_tab": torch.from_numpy(tab).to(self.device)}
-        structs = paged_struct(self.cfg, lo, dtype=self.dtype)[0]
+        structs = cache_struct(self.cfg, rows, lo.max_len,
+                               dtype=self.dtype)[0]
         for key in SLOT_KEYS:
             if key in structs:
                 out[key] = _zeros(structs[key], self.device)

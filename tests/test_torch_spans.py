@@ -22,27 +22,30 @@ PARTS = ("decode_issue_s", "decode_drain_s", "logits_d2h_s", "pick_s",
          "admit_s")
 
 
-def _cfg(**over):
+def _cfg(arch="qwen3-0.6b", **over):
     base = dict(num_layers=2, d_model=32, d_ff=64, vocab_size=256,
                 num_microbatches=2)
     base.update(over)
-    return reduced(ARCHS["qwen3-0.6b"], **base)
+    return reduced(ARCHS[arch], **base)
 
 
-def _requests(n=6, seed=7):
+def _requests(n=6, seed=7, ragged=False):
+    """n requests of 2..P tokens; ragged: budgets of 1..3 tokens, so slots
+    retire apart and admission groups hold fewer than B rows."""
     rng = np.random.default_rng(seed)
     return [Request(rid=i, prompt=rng.integers(
-        0, 256, size=int(rng.integers(2, P + 1)), dtype=np.int32))
+        0, 256, size=int(rng.integers(2, P + 1)), dtype=np.int32),
+        max_new_tokens=1 + i % 3 if ragged else 0)
         for i in range(n)]
 
 
-def _serve(tracer=None, n=6, **cfg):
+def _serve(tracer=None, n=6, ragged=False, **cfg):
     plan = Plan(arch=_cfg(**cfg),
                 serve=ServeSpec(prompt_len=P, gen=3, max_batch=B,
                                 page_size=4),
                 run=RunSpec())
     eng = Engine(plan, device="cpu", tracer=tracer)
-    reqs = _requests(n)
+    reqs = _requests(n, ragged=ragged)
     return Scheduler(eng).run(reqs), reqs
 
 
@@ -91,12 +94,29 @@ def test_issue_plus_drain_equals_the_engine_decode_spans():
 
 
 @pytest.mark.parametrize("traced", [True, False])
-def test_prefill_tokens_count_real_and_padded_rows(traced):
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-1b-a400m"])
+def test_prefill_tokens_count_real_and_padded_rows(arch, traced):
+    """The slots a prefill call runs: qwen3's rows do not couple, so a
+    group runs its own rows at its width (each prefill_group's rows x
+    width, fewer than B x P a call); granite's MoE capacity couples them
+    (trap M1), so every call runs B x P."""
     tr = Tracer() if traced else None
-    rep, reqs = _serve(tr)
+    rep, reqs = _serve(tr, n=7, ragged=True, arch=arch)
     assert rep.prefill_tokens == sum(len(r.prompt) for r in reqs)
-    assert rep.prefill_slot_tokens == rep.prefill_calls * B * P
     assert 0 < rep.prefill_tokens < rep.prefill_slot_tokens
+    if arch.startswith("granite"):
+        assert rep.prefill_slot_tokens == rep.prefill_calls * B * P
+        return
+    rows = {}
+    for r in rep.requests:
+        rows.setdefault(r.group, []).append(r.prompt_len)
+    assert len(rows) == rep.prefill_calls
+    assert rep.prefill_slot_tokens == sum(len(v) * P for v in rows.values())
+    assert rep.prefill_slot_tokens < rep.prefill_calls * B * P
+    if traced:
+        groups = [e[5] for e in _spans(tr, "sched", "prefill_group")]
+        assert rep.prefill_slot_tokens == sum(g["rows"] * g["width"]
+                                              for g in groups)
 
 
 def test_d2h_nests_in_decode_step_and_pick_follows_it():
