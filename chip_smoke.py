@@ -318,6 +318,105 @@ DENSE_MATS = ("wq", "wk", "wv", "wo", "mlp_wi", "mlp_wo")
 BF16_TIE = 5e-2
 
 
+# granite4h-serve-chat's serve shapes: 64 slots, prompts of 64..512
+# tokens in the frozen [64, 512] prefill group (MoE capacity couples its
+# rows), answers of up to 1024 tokens, pages of 16
+G4H_SLOTS, G4H_PROMPT, G4H_GEN, G4H_PAGE = 64, 512, 1024, 16
+
+
+def granite4h_cases(dev, randn, gen):
+    """The kernel launches of granite-4.0-h-small's serve path at the
+    shapes one card of its two-card expert-parallel deployment launches
+    them in granite4h-serve-chat: widths from its config; ssd_chunked at
+    (P, N) = (64, 128) over a [64, 128 heads, 512, 64] group whose rows are
+    padded by their lengths (dt = 0 past them), a 100-token tail and one
+    token; grouped_matmul over the 36 held experts' w_in (the [E, d, G ff]
+    view, d 4096 -> 2 x 768) and w_out (768 -> 4096) at the expert rows
+    models/moe.py's capacity gives a decode step's 64 tokens and a prefill
+    group's 64 x 512; flash_attention_fwd over the [64, 512] group and
+    flash_decode_paged over the 4 attention layers' pool at lengths up to
+    prompt + answer, at 32 / 8 heads of 128. Yields (kernel, label, dtype,
+    route, got, want): got / want give the kernel's output and its plain
+    version's (a recurrence's: (y, final state)), to be called before the
+    next case is drawn; bf16 launches take the
+    wrapper's pick and the forced simt_bf16 route, ssd_chunked at N 128
+    its only route, simt."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_decode import flash_decode_paged
+    from repro_torch.kernels.mamba_ssd import ssd_chunked
+    from repro_torch.kernels.moe_gmm import grouped_matmul
+    from repro_torch.models.moe import capacity
+    cfg = get_arch("granite-4.0-h-small")
+    B, S, bf = G4H_SLOTS, G4H_PROMPT, torch.bfloat16
+    H, N = cfg.n_ssm_heads, cfg.ssm_state
+    P = cfg.d_inner // H
+    a = -torch.linspace(1.0, 16.0, H, device=dev)
+
+    def lens(n, lo, hi):
+        """n row lengths spread log-uniformly over [lo, hi], hi first."""
+        return torch.logspace(torch.log10(torch.tensor(float(hi))),
+                              torch.log10(torch.tensor(float(lo))), n,
+                              device=dev).round().long()
+
+    for rows, s, lo in ((B, S, 64), (8, 100, 1), (8, 1, 1)):
+        conv = randn(rows, s, H * P + 2 * N).mul_(0.5)
+        x = conv[..., :H * P].reshape(rows, s, H, P).transpose(1, 2)
+        Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+        dt = torch.empty((rows, s, H), device=dev).uniform_(
+            -7.0, -1.2, generator=gen).exp_().transpose(1, 2)
+        live = torch.arange(s, device=dev)[None, :] < \
+            lens(rows, lo, s)[:, None]
+        dt = torch.where(live[:, None, :], dt, 0.0)
+        yield ("ssd_chunked", f"[{rows}, {H}, {s}, {P}] N {N}",
+               torch.float32, "simt",
+               lambda: ssd_chunked(x, dt, Bm, Cm, a, route="simt"),
+               lambda: kref.ssd_ref(x, dt, Bm, Cm, a))
+    del conv, x, Bm, Cm, dt
+    # one card holds half of the experts; the router and capacity count all
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts // 2
+    for step, T in (("decode", B), ("prefill", B * S)):
+        C = capacity(T, cfg.num_experts, cfg.top_k, cfg.capacity_factor)
+        for mat, (k, G, f) in (("w_in", (d, 2, ff)), ("w_out", (ff, 1, d))):
+            x = randn(C, E, k, dtype=bf).transpose(0, 1)
+            w = (randn(E, k, G, f) * k ** -0.5).to(bf).reshape(E, k, G * f)
+            for route in (None, "simt_bf16"):
+                yield ("grouped_matmul", f"{step} {mat} E {E} C {C}", bf,
+                       route, lambda: grouped_matmul(x, w, route=route),
+                       lambda: kref.gmm_ref(x, w))
+    del x, w
+    Hq, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    heads = f"{Hq}/{KV}x{hd}"
+    q = randn(B, S, Hq, hd, dtype=bf).transpose(1, 2)
+    k = randn(B, S, KV, hd, dtype=bf).transpose(1, 2)
+    v = randn(B, S, KV, hd, dtype=bf).transpose(1, 2)
+    for route in (None, "simt_bf16"):
+        yield ("flash_attention_fwd", f"{heads} [{B}, {S}]", bf, route,
+               lambda: flash_attention_fwd(q, k, v, causal=True, route=route),
+               lambda: kref.attention_ref(q, k, v, causal=True))
+    del q, k, v
+    ps, L = G4H_PAGE, sum(t == "attention" for t in cfg.layer_types)
+    npg = (S + G4H_GEN) // ps
+    ln = lens(B, S + 1, S + G4H_GEN).to(torch.int32)
+    tab = torch.randperm(B * npg, generator=gen, device=dev).to(
+        torch.int32).reshape(B, npg)
+    tab = torch.where(torch.arange(npg, device=dev)[None] * ps < ln[:, None],
+                      tab, -1).to(torch.int32)
+    kp = randn(L, B * npg + 1, ps, KV, hd, dtype=bf)
+    vp = randn(L, B * npg + 1, ps, KV, hd, dtype=bf)
+    q1 = randn(B, Hq, hd, dtype=bf)
+    for route in (None, "simt_bf16"):
+        yield ("flash_decode_paged", f"{heads} B {B} pool {L} layers",
+               bf, route,
+               lambda: flash_decode_paged(q1, kp, vp, tab, ln, layer=L - 1,
+                                          route=route),
+               lambda: kref.decode_paged_ref(q1, kp, vp, tab, ln,
+                                             layer=L - 1))
+
+
 def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
@@ -2371,6 +2470,16 @@ def main() -> int:
                 hold("grouped_matmul", grouped_matmul(x, w, route=route), ref,
                      dt, None, route=route)
     del x, w
+    # granite4h-serve-chat's launches at the cell's own shapes
+    for name, label, dt, route, got, want in granite4h_cases(dev, randn, gen):
+        ref = want()
+        if name == "ssd_chunked":
+            hold_recurrence(name, SSD_TOL, label, got(), ref, route)
+        else:
+            hold(name, got(), ref, dt,
+                 label if name.startswith("flash") else None, route=route)
+        del ref
+    free_device()
     log("parity", "max |kernel - plain| " + json.dumps(
         {k: {d: float(f"{e:.3e}") for d, e in v.items()}
          for k, v in worst.items()}) + f" within {TOL} (rwkv6_chunked: "

@@ -299,8 +299,9 @@ class Engine:
                              "serves — use prefill()/decode()/generate()")
         if self.plan.run.backend == "spmd":
             self._ensure_spmd()
-            with self.tracer.span("engine", "step",
-                                  wave=self._spmd["wave"]):
+            w = self._spmd["wave"]
+            with self.tracer.span("engine", "step", wave=w), \
+                    self.tracer.bind("engine", wave=w):
                 return self._spmd_step()
         policy = self.plan.sync
         if not isinstance(policy, WSP):
@@ -716,7 +717,9 @@ class Engine:
         t_start = time.monotonic()
         for w in range(run.max_waves):
             t0 = time.monotonic()
-            with self.tracer.span("engine", "wave", wave=w):
+            # the pipeline's own spans (`pp_send`) carry the wave
+            with self.tracer.span("engine", "wave", wave=w), \
+                    self.tracer.bind("engine", wave=w):
                 loss = self._spmd_step()      # float(): waits for the wave
             dt = time.monotonic() - t0
             report.losses.append((time.monotonic() - t_start, "spmd", loss))
@@ -958,8 +961,10 @@ class Engine:
                 f"outside [{len(slots)}..{sv.max_batch}, "
                 f"1..{sv.prompt_len}]")
         lens = torch.as_tensor(lens, dtype=torch.int64, device=self.device)
+        # the model's own spans (a Mamba-2 layer's `ssd_prefill`) land on
+        # the engine track, inside this one
         with self.tracer.span("engine", "prefill", rows=len(slots)), \
-                torch.inference_mode():
+                self.tracer.bind("engine"), torch.inference_mode():
             logits, out = pg["prefill"](
                 st["params"], prompts, lens,
                 store.prefill_input(b, slots, skip_pages=skip_pages))
@@ -996,7 +1001,8 @@ class Engine:
         with tr.span("engine", "decode"):
             # issue: the host enqueueing the forward; drain: the device
             # finishing it (the span measures compute, not enqueue)
-            with tr.span("engine", "issue"), torch.inference_mode():
+            with tr.span("engine", "issue"), tr.bind("engine"), \
+                    torch.inference_mode():
                 logits, out = fn(self._serve["params"], tokens, tree, pos)
             if tr.enabled:
                 with tr.span("engine", "drain"):

@@ -185,6 +185,11 @@ class ServeReport:
     # Engine.prefill_shape)
     prefill_tokens: int = 0
     prefill_slot_tokens: int = 0
+    # recurrent state (SSD / RWKV6 models; zeros elsewhere): the bytes of
+    # state and conv tails / token shifts the slots hold, and the slots
+    # whose state an admission reset
+    ssm_state_bytes: int = 0
+    ssm_resets: int = 0
     # memory-manager accounting (repro_torch.serve.memory)
     prefix_hit_tokens: int = 0  # prompt tokens served from indexed pages
     pages_shared: int = 0       # prefix pages mapped by refcount (no copy)
@@ -307,7 +312,7 @@ _MERGED_SUMS = (
     "prefill_s", "prefill_calls", "decode_s", "decode_steps", "slot_steps",
     "max_batch", "pages_total", "peak_pages", "page_steps", "admit_blocked",
     "decode_issue_s", "decode_drain_s", "logits_d2h_s", "pick_s", "admit_s",
-    "prefill_tokens", "prefill_slot_tokens",
+    "prefill_tokens", "prefill_slot_tokens", "ssm_state_bytes", "ssm_resets",
     "prefix_hit_tokens", "pages_shared", "cow_copies", "evictions",
     "readmit_recomputes", "preemptions", "slot_faults", "requeues",
     "reprefills", "quarantined", "shed", "failed_requests")

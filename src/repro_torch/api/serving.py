@@ -189,7 +189,8 @@ class Scheduler:
         # a persistent store/mm carries counters from earlier runs; report
         # this run's contribution as deltas from these baselines
         base = (mm.prefix_hit_tokens, mm.pages_shared, mm.evictions,
-                mm.readmit_recomputes, store.cow_copies)
+                mm.readmit_recomputes, store.cow_copies, store.ssm_resets)
+        report.ssm_state_bytes = store.ssm_state_bytes
         base_s = [tr.total(track, name) for _, track, name in _STEP_PARTS]
         preempted_rids: set[int] = set()
         injector = eng.fault_injector()
@@ -486,6 +487,10 @@ class Scheduler:
         report.prefix_hit_tokens = mm.prefix_hit_tokens - base[0]
         report.pages_shared = mm.pages_shared - base[1]
         report.cow_copies = store.cow_copies - base[4]
+        report.ssm_resets = store.ssm_resets - base[5]
+        tr.metrics.gauge_set("serve/ssm_state_bytes", report.ssm_state_bytes)
+        if report.ssm_state_bytes:
+            tr.metrics.counter_inc("serve/ssm_resets", report.ssm_resets)
         report.evictions = mm.evictions - base[2]
         report.readmit_recomputes = mm.readmit_recomputes - base[3]
         for (attr, track, name), b in zip(_STEP_PARTS, base_s):

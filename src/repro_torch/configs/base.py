@@ -42,11 +42,23 @@ class ArchConfig:
     ssm_heads: int = 0              # 0 -> derived (d_inner // 64)
     ssm_expand: int = 2             # d_inner = ssm_expand * d_model (ssd)
     hybrid_parallel: bool = False   # hymba: attn + ssm branches in parallel
+    ssm_conv_bias: bool = False     # Mamba-2: the depthwise conv has a bias
+    ssm_gate_norm: bool = False     # Mamba-2's gated norm: y * silu(z) is
+                                    # normed (hymba: norm(y) * silu(z))
+    # per-layer mixer kinds ("attention" | "mamba"), one per layer; () keeps
+    # one kind in every layer (attn_type / hybrid_parallel decide it). A
+    # mixed-kind model stacks each kind's leaves over its own layers only
+    layer_types: tuple = ()
+    pos_emb: str = "rope"           # rope | nope (no position embedding)
 
     # --- MoE ---
-    num_experts: int = 0
+    num_experts: int = 0            # routed over (the router's outputs)
     top_k: int = 0
     capacity_factor: float = 1.25
+    experts_held: int = 0           # this card's share: experts
+    expert_offset: int = 0          # [offset, offset + held) of num_experts
+                                    # are held here (0: all of them)
+    shared_ff: int = 0              # a shared SwiGLU expert's width (0: none)
 
     # --- modality frontend ---
     frontend: str = "none"          # none | audio_stub | vlm_stub (input = embeddings)
@@ -67,6 +79,19 @@ class ArchConfig:
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads > 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
+        if self.layer_types and len(self.layer_types) != self.num_layers:
+            raise ValueError(f"{self.name}: {len(self.layer_types)} "
+                             f"layer_types for {self.num_layers} layers")
+        if set(self.layer_types) - {"attention", "mamba"}:
+            raise ValueError(f"{self.name}: layer_types are 'attention' or "
+                             f"'mamba', got {sorted(set(self.layer_types))}")
+        if self.pos_emb not in ("rope", "nope"):
+            raise ValueError(f"{self.name}: pos_emb {self.pos_emb!r}")
+        if self.expert_offset + self.held_experts > self.num_experts:
+            raise ValueError(f"{self.name}: experts [{self.expert_offset}, "
+                             f"{self.expert_offset + self.held_experts}) "
+                             f"outside the {self.num_experts} routed over")
 
     def check_production(self, model_axis: int = 16) -> None:
         assert self.stages * self.tp == model_axis, (
@@ -87,16 +112,25 @@ class ArchConfig:
         return self.ssm_expand * self.d_model
 
     @property
+    def held_experts(self) -> int:
+        """Experts whose weights this card holds (all unless cut)."""
+        return self.experts_held or self.num_experts
+
+    @property
     def n_ssm_heads(self) -> int:
         if self.ssm_heads:
             return self.ssm_heads
         return max(1, self.d_inner // 64)
 
     def layer_kinds(self) -> list[int]:
-        """Per-layer attention kind: 0=full, 1=windowed, 2=none (pure ssm)."""
+        """Per-layer attention kind: 0=full, 1=windowed, 2=none (pure ssm;
+        a mixed-kind model's Mamba-2 layers)."""
         kinds = []
         for i in range(self.padded_layers):
-            if self.attn_type == "none":
+            if self.layer_types:
+                kinds.append(2 if i < self.num_layers
+                             and self.layer_types[i] == "mamba" else 0)
+            elif self.attn_type == "none":
                 kinds.append(2)
             elif self.attn_type == "swa":
                 kinds.append(1)
@@ -112,12 +146,31 @@ class ArchConfig:
         return kinds
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks + head)."""
-        d, ff, L = self.d_model, self.d_ff, self.num_layers
-        hd = self.head_dim
-        n = self.vocab_size * d                       # embed
+        """Analytic parameter count (embedding + blocks + head), by layer
+        kind for a mixed-kind model. The ten configs the JAX package
+        shares keep its count (its SSD term approximates the hybrid's
+        projections; every layer of theirs has one kind)."""
+        n = self.vocab_size * self.d_model             # embed
         if not self.tie_embeddings:
-            n += d * self.vocab_size                  # head
+            n += self.d_model * self.vocab_size        # head
+        if not self.layer_types:
+            return n + self.num_layers * self._legacy_layer_params()
+        ffn = self._ffn_params(self.held_experts) + 2 * self.d_model
+        return n + sum(ffn + self._mixer_params(t) for t in self.layer_types)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top_k experts count)."""
+        if not self.num_experts:
+            return self.param_count()
+        d, ff, L = self.d_model, self.d_ff, self.num_layers
+        gated = 2 if self.mlp_type in ("swiglu", "geglu") else 1
+        inactive = (self.held_experts - self.top_k) * (d * ff * gated
+                                                      + ff * d)
+        return self.param_count() - L * inactive
+
+    def _legacy_layer_params(self) -> int:
+        d, ff = self.d_model, self.d_ff
+        hd = self.head_dim
         per_layer = 0
         if self.num_heads > 0:
             per_layer += d * self.num_heads * hd      # wq
@@ -129,24 +182,31 @@ class ArchConfig:
             per_layer += di * 2 * self.ssm_state * 2  # B,C proj (approx)
         if self.ssm_type == "rwkv6":
             per_layer += 4 * d * d + 2 * d * 64       # r,k,v,o + decay lora
-        if self.num_experts:
-            gated = 2 if self.mlp_type in ("swiglu", "geglu") else 1
-            per_layer += self.num_experts * (d * ff * gated + ff * d)
-            per_layer += d * self.num_experts         # router
-        else:
-            gated = 2 if self.mlp_type in ("swiglu", "geglu") else 1
-            per_layer += d * ff * gated + ff * d
+        per_layer += self._ffn_params(self.num_experts)
         per_layer += 4 * d                            # norms
-        return n + L * per_layer
+        return per_layer
 
-    def active_param_count(self) -> int:
-        """Active params per token (MoE: only top_k experts count)."""
-        if not self.num_experts:
-            return self.param_count()
-        d, ff, L = self.d_model, self.d_ff, self.num_layers
+    def _ffn_params(self, experts: int) -> int:
+        """A layer's FFN: `experts` routed experts and the router (or the
+        dense MLP), and the shared expert."""
+        d, ff = self.d_model, self.d_ff
         gated = 2 if self.mlp_type in ("swiglu", "geglu") else 1
-        inactive = (self.num_experts - self.top_k) * (d * ff * gated + ff * d)
-        return self.param_count() - L * inactive
+        if not self.num_experts:
+            return d * ff * gated + ff * d
+        n = experts * (d * ff * gated + ff * d) + d * self.num_experts
+        return n + 3 * d * self.shared_ff
+
+    def _mixer_params(self, kind: str) -> int:
+        """One layer's mixer: GQA attention, or a Mamba-2 mixer (in_proj to
+        z, x, B, C and dt; the depthwise conv of x, B, C with its bias;
+        dt_bias, A_log, D; the gated norm; out_proj)."""
+        d, hd = self.d_model, self.head_dim
+        if kind == "attention":
+            return 2 * d * (self.num_heads + self.num_kv_heads) * hd
+        di, N, H = self.d_inner, self.ssm_state, self.n_ssm_heads
+        conv = di + 2 * N
+        return (d * (di + conv + H) + 4 * conv
+                + conv * self.ssm_conv_bias + 3 * H + di + di * d)
 
 
 @dataclass(frozen=True)

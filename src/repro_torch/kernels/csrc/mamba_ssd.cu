@@ -38,10 +38,13 @@
 //         skipped band by band; the state update h <- exp(cs_last) h +
 //         B^T (w * x) on two warps' register tiles, the slice's state kept
 //         in one warp's registers.
-//   simt  (ssd_kernel, the first design, for unaligned rows) one block per
-//         (b, h), the 16 x 64 state and the chunk in shared memory, both
-//         operands of most FMAs read from shared memory and C B^T computed
-//         again in every head.
+//   simt  (ssd_kernel, the first design: unaligned rows, and the only route
+//         at state 128) one block per (b, h), the N x 64 state and the
+//         chunk in shared memory, both operands of most FMAs read from
+//         shared memory and C B^T computed again in every head. Built for
+//         (P, N) = (64, 16) (hymba) and (64, 128) (granite-4.0-h's Mamba-2
+//         layers: the tile route's ring of two stages would need 286 KB a
+//         block there, against the 227 KB a block can have).
 //
 // The chunk is fixed at 64 (Pallas shrinks it to the largest divisor of S up
 // to 64: 1 for a prime S, 55 for S 1100). Rows of the tail chunk at or past S
@@ -99,7 +102,14 @@ struct SsdArgs {
 
 // ---- route simt: one block per (b, h), the state in shared memory ---------
 // B and C rows are padded to N + 1 floats in shared memory, so a warp reading
-// one column over 32 rows hits 32 banks.
+// one column over 32 rows hits 32 banks. Shared memory is dynamic (SimtSmem):
+// 44.8 KB at (P, N) = (64, 16), 131.6 KB at (64, 128), one block a SM there.
+template <int P, int N>
+struct SimtSmem {
+  static constexpr int FLOATS = C * P + C * C + 2 * C * (N + 1) + N * P + 3 * C;
+  static constexpr int BYTES = FLOATS * 4 + C * 8;   // + the f64 cumsum
+};
+
 template <int P, int N>
 __global__ void __launch_bounds__(NT) ssd_kernel(SsdArgs g) {
   constexpr int TR = NT / P;      // thread rows sharing one column p
@@ -107,13 +117,16 @@ __global__ void __launch_bounds__(NT) ssd_kernel(SsdArgs g) {
   constexpr int NPT = N / TR;     // state rows per thread
   static_assert(NT % P == 0 && C % TR == 0 && N % TR == 0 && C == 2 * 32,
                 "tiling");
-  __shared__ float sx[C][P];
-  __shared__ float sM[C][C];      // the chunk's masked, decayed scores
-  __shared__ float sB[C][N + 1];
-  __shared__ float sC[C][N + 1];
-  __shared__ float sh[N][P];      // the carried state
-  __shared__ float sdt[C], sw[C], sec[C];
-  __shared__ double scs[C];
+  extern __shared__ __align__(16) unsigned char simt_smem[];
+  double* const scs = reinterpret_cast<double*>(simt_smem);          // [C]
+  float* const sx = reinterpret_cast<float*>(scs + C);                // [C][P]
+  float* const sM = sx + C * P;          // [C][C]: the chunk's masked, decayed scores
+  float* const sB = sM + C * C;          // [C][N + 1]
+  float* const sC = sB + C * (N + 1);    // [C][N + 1]
+  float* const sh = sC + C * (N + 1);    // [N][P]: the carried state
+  float* const sdt = sh + N * P;
+  float* const sw = sdt + C;
+  float* const sec = sw + C;
 
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int p = tid % P, tr = tid / P;
@@ -121,20 +134,20 @@ __global__ void __launch_bounds__(NT) ssd_kernel(SsdArgs g) {
   const long long x0 = b * g.xb + h * g.xh, d0 = b * g.db + h * g.dh;
   const long long b0 = b * g.bb, c0 = b * g.cb;
   const long long y0 = b * g.yb + h * g.yh;
-  for (int e = tid; e < N * P; e += NT) sh[e / P][e % P] = 0.f;
+  for (int e = tid; e < N * P; e += NT) sh[e] = 0.f;
 
   for (int t0 = 0; t0 < g.S; t0 += C) {
     const int n = min(C, g.S - t0);
     // 1. the chunk's rows; rows past S are zeros (dt = 0: h unchanged)
     for (int e = tid; e < C * P; e += NT) {
       const int t = e / P, i = e % P;
-      sx[t][i] = t < n ? g.x[x0 + static_cast<long long>(t0 + t) * g.xs + i] : 0.f;
+      sx[t * P + i] = t < n ? g.x[x0 + static_cast<long long>(t0 + t) * g.xs + i] : 0.f;
     }
     for (int e = tid; e < C * N; e += NT) {
       const int t = e / N, i = e % N;
       const bool live = t < n;
-      sB[t][i] = live ? g.bm[b0 + static_cast<long long>(t0 + t) * g.bs + i] : 0.f;
-      sC[t][i] = live ? g.cm[c0 + static_cast<long long>(t0 + t) * g.cs + i] : 0.f;
+      sB[t * (N + 1) + i] = live ? g.bm[b0 + static_cast<long long>(t0 + t) * g.bs + i] : 0.f;
+      sC[t * (N + 1) + i] = live ? g.cm[c0 + static_cast<long long>(t0 + t) * g.cs + i] : 0.f;
     }
     for (int t = tid; t < C; t += NT)
       sdt[t] = t < n ? g.dt[d0 + static_cast<long long>(t0 + t) * g.ds] : 0.f;
@@ -165,52 +178,63 @@ __global__ void __launch_bounds__(NT) ssd_kernel(SsdArgs g) {
       const int t = e / C, s = e % C;
       float acc = 0.f;
       if (s <= t) {
-#pragma unroll
-        for (int i = 0; i < N; ++i) acc = fmaf(sC[t][i], sB[s][i], acc);
+#pragma unroll 16
+        for (int i = 0; i < N; ++i) acc = fmaf(sC[t * (N + 1) + i], sB[s * (N + 1) + i], acc);
         acc *= expf(static_cast<float>(scs[t] - scs[s])) * sdt[s];
       }
-      sM[t][s] = acc;
+      sM[t * C + s] = acc;
     }
     __syncthreads();
     // 5. y_t = sum_s M[t][s] x_s + exp(cs_t) C_t . h, with h from before
     //    this chunk; thread (tr, p) owns rows tr + q * TR of column p
-    float acc[TPT];
+    float acc[TPT], inter[TPT];
 #pragma unroll
-    for (int q = 0; q < TPT; ++q) acc[q] = 0.f;
+    for (int q = 0; q < TPT; ++q) acc[q] = inter[q] = 0.f;
 #pragma unroll 4
     for (int s = 0; s < C; ++s) {
-      const float xs = sx[s][p];
+      const float xs = sx[s * P + p];
 #pragma unroll
-      for (int q = 0; q < TPT; ++q) acc[q] = fmaf(sM[tr + q * TR][s], xs, acc[q]);
+      for (int q = 0; q < TPT; ++q) acc[q] = fmaf(sM[(tr + q * TR) * C + s], xs, acc[q]);
     }
-    float hcol[N];
+#pragma unroll 4
+    for (int i = 0; i < N; ++i) {
+      const float hv = sh[i * P + p];
 #pragma unroll
-    for (int i = 0; i < N; ++i) hcol[i] = sh[i][p];
+      for (int q = 0; q < TPT; ++q)
+        inter[q] = fmaf(sC[(tr + q * TR) * (N + 1) + i], hv, inter[q]);
+    }
 #pragma unroll
     for (int q = 0; q < TPT; ++q) {
       const int t = tr + q * TR;
-      float inter = 0.f;
-#pragma unroll
-      for (int i = 0; i < N; ++i) inter = fmaf(sC[t][i], hcol[i], inter);
       if (t < n)
-        g.y[y0 + static_cast<long long>(t0 + t) * g.ys + p] = fmaf(sec[t], inter, acc[q]);
+        g.y[y0 + static_cast<long long>(t0 + t) * g.ys + p] = fmaf(sec[t], inter[q], acc[q]);
     }
     __syncthreads();  // every thread has read h before h changes
     // 6. h <- exp(cs_last) h + sum_s (B_s w_s) x_s^T; thread (tr, p) owns
     //    rows tr + q * TR of column p
     const float dec = expf(static_cast<float>(cl));
-#pragma unroll
+#pragma unroll 4
     for (int q = 0; q < NPT; ++q) {
       const int i = tr + q * TR;
-      float hv = dec * sh[i][p];   // only this thread writes sh[i][p]
+      float hv = dec * sh[i * P + p];   // only this thread writes sh[i][p]
 #pragma unroll 8
-      for (int s = 0; s < C; ++s) hv = fmaf(sB[s][i] * sw[s], sx[s][p], hv);
-      sh[i][p] = hv;
+      for (int s = 0; s < C; ++s) hv = fmaf(sB[s * (N + 1) + i] * sw[s], sx[s * P + p], hv);
+      sh[i * P + p] = hv;
     }
     __syncthreads();  // the next chunk overwrites the tiles read above
   }
   float* st = g.state + (static_cast<long long>(b) * g.H + h) * N * P;
-  for (int e = tid; e < N * P; e += NT) st[e] = sh[e / P][e % P];
+  for (int e = tid; e < N * P; e += NT) st[e] = sh[e];
+}
+
+template <int P, int N>
+int launch_simt(const SsdArgs& g, int B, cudaStream_t st) {
+  constexpr int bytes = SimtSmem<P, N>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(ssd_kernel<P, N>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_kernel<P, N><<<dim3(g.H, B), NT, bytes, st>>>(g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- route tile: one block per (b, HG heads, slice of PW state columns) ---
@@ -526,11 +550,9 @@ extern "C" int ssd_chunked_launch(const void* x, const void* dt, const void* bm,
   g.cb = cb; g.cs = cs;
   g.yb = yb; g.yh = yh; g.ys = ys;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (P != 64 || N != 16) return static_cast<int>(cudaErrorInvalidValue);
-  if (route == 1) return launch_tile(g, B, st);
-  const dim3 grid(H, B), block(NT);
-  ssd_kernel<64, 16><<<grid, block, 0, st>>>(g);
-  return static_cast<int>(cudaGetLastError());
+  if (P == 64 && N == 16) return route == 1 ? launch_tile(g, B, st) : launch_simt<64, 16>(g, B, st);
+  if (P == 64 && N == 128 && route == 0) return launch_simt<64, 128>(g, B, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // the tile route's dynamic shared memory a block

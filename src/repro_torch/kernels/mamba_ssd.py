@@ -13,12 +13,14 @@ On a CPU tensor this runs the plain version (kernels/ref.py:ssd_ref, the
 sequential recurrence); on a CUDA tensor it launches the kernel of one
 route or raises. `_route` picks the route from strides and alignment:
 
-  tile  x, B_ and C_ rows copyable in 16-byte vectors (as the model's
-        views always are): a block per (row, pair of heads, slice of 32
-        state columns), C B^T once per chunk for the pair, register
-        tiles, cp.async double buffering
-  simt  any other strides with the last dims contiguous: a block per
-        (row, head)
+  tile  state 16 (hymba) and x, B_ and C_ rows copyable in 16-byte
+        vectors (as the model's views always are): a block per (row,
+        pair of heads, slice of 32 state columns), C B^T once per chunk
+        for the pair, register tiles, cp.async double buffering
+  simt  any other strides with the last dims contiguous, and every call
+        at state 128 (granite-4.0-h's Mamba-2 layers, where the tile
+        route's shared memory does not fit a block): a block per (row,
+        head)
 
 `_build.ROUTES["ssd_chunked"]` counts the launches of each. On a meta
 tensor the wrapper reports the launch and `cost()` to the active cost
@@ -33,16 +35,20 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
 from repro_torch.launch import costs
 
-SHAPES = ((64, 16),)      # (P, N) built: hymba-1.5b, 50 heads of 64, state 16
+# (P, N) built: hymba-1.5b (50 heads of 64, state 16; tile and simt) and
+# granite-4.0-h (128 heads of 64, state 128; simt)
+SHAPES = ((64, 16), (64, 128))
+TILE_SHAPES = ((64, 16),)
 _ARGS = [_build.PTR] * 7 + [_build.INT] * 5 + [_build.I64] * 13 + \
     [_build.INT, _build.PTR]
 
 
 def _route(x, B_, C_) -> str:
     """The route a CUDA launch over x, B_, C_ takes: a pure function of
-    strides and alignment (the CPU tests call it on CPU tensors; dt is read
-    4 bytes at a time, any strides)."""
-    return "tile" if all(_build.vec16_ok(t) for t in (x, B_, C_)) \
+    the state shape, strides and alignment (the CPU tests call it on CPU
+    tensors; dt is read 4 bytes at a time, any strides)."""
+    tiled = (x.shape[-1], B_.shape[-1]) in TILE_SHAPES
+    return "tile" if tiled and all(_build.vec16_ok(t) for t in (x, B_, C_)) \
         else "simt"
 
 

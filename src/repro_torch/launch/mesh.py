@@ -27,8 +27,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.launch import costs
 from repro_torch.launch.costs import slot  # noqa: F401  (re-exported)
+from repro_torch.obs import trace as obs_trace
 
 
 class Mesh:
@@ -180,9 +182,31 @@ def pmax(parts, *, axis: str):
 
 def ppermute(x, device, *, axis: str, n: int):
     """One member's send of a ppermute over `axis` (size `n`): x moved to
-    the receiver's device."""
+    the receiver's device. The send is a `pp_send` span (`dir="act"`) in
+    the thread's bound scope (obs.span), and under autograd so is the
+    gradient's send back in backward (`dir="grad"`): host time, the
+    copy's enqueue and any wait inside it."""
     _report("ppermute", axis, n, x)
-    return x.to(device)
+    with obs.span("pp_send", dir="act"):
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Send.apply(x, device, obs_trace.current_scope())
+        return x.to(device)
+
+
+class _Send(torch.autograd.Function):
+    """x.to(device) whose backward, the gradient's send back to x's device,
+    is a `pp_send` span in the scope bound at the send: autograd runs the
+    backward on threads of its own."""
+
+    @staticmethod
+    def forward(ctx, x, device, scope):
+        ctx.src, ctx.scope = x.device, scope
+        return x.to(device)
+
+    @staticmethod
+    def backward(ctx, g):
+        with obs_trace.span_in(ctx.scope, "pp_send", dir="grad"):
+            return g.to(ctx.src), None, None
 
 
 def all_to_all(xs, devices, *, axis: str, split_axis: int,

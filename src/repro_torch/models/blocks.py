@@ -1,7 +1,9 @@
 """Per-layer block application: the dense (full-attention GQA), the
 sliding-window (h2o-danube), the attention-free RWKV6, the SSD hybrid
-(hymba: attention and SSD heads in parallel) and the MoE (granite: the
-dense attention, a routed expert FFN) families.
+(hymba: attention and SSD heads in parallel), the MoE (granite: the
+dense attention, a routed expert FFN) and the mixed-kind (granite-4.0-h:
+a Mamba-2 mixer or a NoPE GQA attention in each layer, then the routed
+FFN plus a shared expert) families.
 
 A layer is applied with one signature for prefill and decode; per-layer
 behaviour (attention kind, cache group slot) rides in the LayerCtx.
@@ -9,7 +11,8 @@ behaviour (attention kind, cache group slot) rides in the LayerCtx.
 Conventions:
   x [B, S, d]; p the per-layer leaves (no layer dim)
   kind: 0 = full attention, 1 = windowed, 2 = none (RWKV6: the time-mix
-        takes its place)
+        takes its place; a mixed-kind model's Mamba-2 layer: its SSD
+        mixer does)
   cache: dict of cache groups (see serve.cache); writes are in place
 
 `kind` is a Python int, so each layer runs one path and writes only the
@@ -30,6 +33,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.launch import mesh as mesh_lib
@@ -93,9 +97,12 @@ def _mlp_moe(cfg: ArchConfig, p, x, ctx: LayerCtx):
     out, aux = moe_lib.moe_mlp(
         moe_p, x, num_experts=cfg.num_experts, top_k=cfg.top_k,
         mlp_type=cfg.mlp_type, capacity_factor=cfg.capacity_factor,
-        backend=ctx.kernel_backend)
+        backend=ctx.kernel_backend, expert_offset=cfg.expert_offset)
     if ctx.aux is not None:
         ctx.aux.append(aux)
+    if cfg.shared_ff:
+        out = out + _mlp_dense(cfg, {"mlp_wi": p["shared_wi"],
+                                     "mlp_wo": p["shared_wo"]}, x)
     return out
 
 
@@ -111,6 +118,8 @@ def _qkv(cfg: ArchConfig, p, xn, ctx: LayerCtx):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
+    if cfg.pos_emb == "nope":
+        return q, k, v
     # rope (theta may differ for global layers, e.g. gemma3)
     tg = cfg.rope_theta_global or cfg.rope_theta
     theta = tg if ctx.kind == 0 else cfg.rope_theta
@@ -273,20 +282,25 @@ def _attn_decode(cfg: ArchConfig, p, xn, ctx: LayerCtx, cache):
 # SSM branches
 # ----------------------------------------------------------------------------
 def _ssd_branch(cfg: ArchConfig, p, xn, ctx: LayerCtx, cache):
-    """The hybrid's SSD heads (p: the ssd_* leaves, prefix stripped). The
-    cache's ssm_state [Lp, B, H, N, P] and conv_tail [Lp, B, 3, di + 2N]
-    are written in place."""
+    """The hybrid's SSD heads, or a Mamba-2 layer's mixer (p: the ssd_*
+    leaves, prefix stripped). The cache's ssm_state [groups, B, H, N, P]
+    and conv_tail [groups, B, 3, di + 2N] are written in place. The work
+    is a span in the thread's bound scope: `ssd_prefill` (training and
+    prefill: the projections, the chunked scan, the output) or
+    `ssd_state_update` (a decode step's)."""
     H, N, di = cfg.n_ssm_heads, cfg.ssm_state, cfg.d_inner
     i = ctx.ssm_i
+    kw = dict(heads=H, d_state=N, d_inner=di, gate_norm=cfg.ssm_gate_norm,
+              eps=cfg.norm_eps)
     if ctx.mode == "decode":
-        y, st, tail = ssm_lib.ssd_mix_step(
-            p, xn, cache["ssm_state"][i], cache["conv_tail"][i], heads=H,
-            d_state=N, d_inner=di)
+        with obs.span("ssd_state_update"):
+            y, st, tail = ssm_lib.ssd_mix_step(
+                p, xn, cache["ssm_state"][i], cache["conv_tail"][i], **kw)
     else:
-        y, st, tail = ssm_lib.ssd_mix(
-            p, xn, heads=H, d_state=N, d_inner=di,
-            lens=ctx.lens if ctx.mode == "prefill" else None,
-            kernel_backend=ctx.kernel_backend)
+        with obs.span("ssd_prefill"):
+            y, st, tail = ssm_lib.ssd_mix(
+                p, xn, lens=ctx.lens if ctx.mode == "prefill" else None,
+                kernel_backend=ctx.kernel_backend, **kw)
     if ctx.mode != "train" and cache is not None:
         cache["ssm_state"][i].copy_(st)
         cache["conv_tail"][i].copy_(tail)
@@ -333,12 +347,18 @@ def apply_layer(cfg: ArchConfig, p, x, ctx: LayerCtx, cache=None):
     if cfg.ssm_type == "rwkv6":
         return _rwkv_layer(cfg, p, x, ctx, cache)
     xn = _norm(cfg, p, "ln1", x)
-    if ctx.mode == "decode":
+    if ctx.kind == 2:                       # a Mamba-2 layer's mixer
+        att, cache = _ssd_branch(cfg, _ssd_leaves(p), xn, ctx, cache)
+    elif ctx.mode == "decode":
         att, cache = _attn_decode(cfg, p, xn, ctx, cache)
     else:
         att, cache = _attn_train(cfg, p, xn, ctx, cache)
     return _finish_layer(cfg, p, x, xn, att, ctx, cache,
                          lambda xn2: _mlp(cfg, p, xn2, ctx))
+
+
+def _ssd_leaves(p):
+    return {k[4:]: v for k, v in p.items() if k.startswith("ssd_")}
 
 
 def _mlp(cfg: ArchConfig, p, x, ctx: LayerCtx):
@@ -351,9 +371,7 @@ def _finish_layer(cfg: ArchConfig, p, x, xn, att, ctx: LayerCtx, cache,
     """The layer after its attention output `att`: the hybrid's SSD branch,
     the sandwich norms, both residuals and the MLP (`mlp(xn2)`)."""
     if cfg.hybrid_parallel:
-        sy, cache = _ssd_branch(cfg, {k[4:]: v for k, v in p.items()
-                                      if k.startswith("ssd_")}, xn, ctx,
-                                cache)
+        sy, cache = _ssd_branch(cfg, _ssd_leaves(p), xn, ctx, cache)
         att = 0.5 * (rms_norm(att, p["bn_attn"], eps=cfg.norm_eps)
                      + rms_norm(sy, p["bn_ssm"], eps=cfg.norm_eps))
     if cfg.norm_style == "rms_sandwich":

@@ -62,6 +62,63 @@ def layer_meta(cfg: ArchConfig) -> dict:
                 win_i=rs(win_i), m_full=m_full, m_win=m_win)
 
 
+def ssm_slots(cfg: ArchConfig) -> tuple[np.ndarray, int]:
+    """(ssm_i [padded_layers], m_ssm): each layer's slot in its stage's
+    group of the per-slot SSM state, and the group's size. Every layer of
+    a one-kind model owns a slot (its index in the stage); a mixed-kind
+    model's Mamba layers alone do, counted in each stage as full_i counts
+    the attention layers."""
+    sl, Lp = cfg.layer_slots, cfg.padded_layers
+    if not cfg.layer_types:
+        return np.arange(Lp) % sl, sl
+    ssm_i, m = np.zeros(Lp, np.int64), 0
+    for s in range(cfg.stages):
+        n = 0
+        for l in range(s * sl, min((s + 1) * sl, cfg.num_layers)):
+            if cfg.layer_types[l] == "mamba":
+                ssm_i[l] = n
+                n += 1
+        m = max(m, n)
+    return ssm_i, m
+
+
+def leaf_kind(cfg: ArchConfig, name: str) -> Optional[str]:
+    """The layer kind a block leaf belongs to in a mixed-kind model
+    ("attention" or "mamba": it is stacked over that kind's layers only),
+    or None (every layer has it)."""
+    if not cfg.layer_types:
+        return None
+    if name in ("wq", "wk", "wv", "wo", "q_norm", "k_norm"):
+        return "attention"
+    return "mamba" if name.startswith("ssd_") else None
+
+
+def leaf_rows(cfg: ArchConfig, name: str) -> int:
+    """A block leaf's stacked rows: every padded layer's, or the layers of
+    the kind it belongs to."""
+    kind = leaf_kind(cfg, name)
+    return cfg.padded_layers if kind is None else \
+        cfg.layer_types.count(kind)
+
+
+def layer_leaves(cfg: ArchConfig, layers: dict, l: int) -> dict:
+    """Layer l's leaves out of the per-layer lists `layers` (a stacked
+    leaf unbound on dim 0): a kind's leaf is indexed by l's place among
+    that kind's layers, and only where l is of that kind."""
+    if not cfg.layer_types:
+        return {k: v[l] for k, v in layers.items()}
+    kind = cfg.layer_types[l]
+    place = cfg.layer_types[:l].count(kind)
+    out = {}
+    for k, v in layers.items():
+        lk = leaf_kind(cfg, k)
+        if lk is None:
+            out[k] = v[l]
+        elif lk == kind:
+            out[k] = v[place]
+    return out
+
+
 def uniform_kind(cfg: ArchConfig) -> Optional[int]:
     """Static layer kind if every (real) layer is identical, else None."""
     if cfg.num_layers % cfg.stages:
@@ -120,17 +177,23 @@ def _block_shapes(cfg: ArchConfig) -> dict[str, tuple[tuple, str]]:
         out["ln2_post"] = ((d,), "zeros")
     norm("ln2")
     if cfg.num_experts:
-        E = cfg.num_experts
-        out["router"] = ((d, E), "normal")
+        E = cfg.held_experts
+        out["router"] = ((d, cfg.num_experts), "normal")
         out["moe_w_in"] = ((E, d, G, ff), "normal")
         out["moe_w_out"] = ((E, ff, d), "normal_out")
+        if cfg.shared_ff:
+            out["shared_wi"] = ((d, G, cfg.shared_ff), "normal")
+            out["shared_wo"] = ((cfg.shared_ff, d), "normal_out")
     else:
         out["mlp_wi"] = ((d, G, ff), "normal")
         out["mlp_wo"] = ((ff, d), "normal_out")
-    if cfg.hybrid_parallel:
+    if cfg.hybrid_parallel or cfg.layer_types:
         di, N, Hs = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
-        out["bn_attn"] = ((d,), "zeros")
-        out["bn_ssm"] = ((d,), "zeros")
+        if cfg.hybrid_parallel:
+            out["bn_attn"] = ((d,), "zeros")
+            out["bn_ssm"] = ((d,), "zeros")
+        if cfg.ssm_conv_bias:
+            out["ssd_conv_b"] = ((di + 2 * N,), "zeros")
         out["ssd_in_proj"] = ((d, 2 * di + 2 * N + Hs), "normal")
         out["ssd_conv_w"] = ((4, di + 2 * N), "normal")
         out["ssd_dt_bias"] = ((Hs,), "dt_bias")
@@ -165,6 +228,11 @@ def param_specs(cfg: ArchConfig) -> dict:
         if dim is not None:
             spec[dim] = kv_tp if name in ("wk", "wv") else tp
         blocks[name] = ("stage",) + tuple(spec)
+    if cfg.layer_types:
+        raise ValueError(f"{cfg.name}: a mixed-kind model stacks each "
+                         f"kind's leaves over its own layers, which the "
+                         f"stage split of the spmd backend does not cut; "
+                         f"it runs on the threads backend")
     specs = {"blocks": blocks, "final_norm": (None,)}
     if cfg.norm_style == "ln_pre":
         specs["final_norm_b"] = (None,)
@@ -182,9 +250,8 @@ def param_shapes(cfg: ArchConfig, dtype=torch.float32):
     def meta(shape):
         return torch.empty(shape, dtype=dtype, device="meta")
 
-    Lp = cfg.padded_layers
-    out = {"blocks": {n: meta((Lp,) + shp) for n, (shp, _) in
-                      sorted(_block_shapes(cfg).items())},
+    out = {"blocks": {n: meta((leaf_rows(cfg, n),) + shp) for n, (shp, _)
+                      in sorted(_block_shapes(cfg).items())},
            "final_norm": meta((cfg.d_model,))}
     if cfg.norm_style == "ln_pre":
         out["final_norm_b"] = meta((cfg.d_model,))
@@ -224,9 +291,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
     The draws differ from jax.random's; parity tests carry JAX's weights
     across with params_from_numpy instead."""
     shapes = _block_shapes(cfg)
-    Lp = cfg.padded_layers
-    blocks = {name: _init_leaf(generator, (Lp,) + shp, init, cfg, dtype,
-                               device)
+    blocks = {name: _init_leaf(generator, (leaf_rows(cfg, name),) + shp,
+                               init, cfg, dtype, device)
               for name, (shp, init) in sorted(shapes.items())}
     params = {"blocks": blocks,
               "final_norm": (torch.ones if cfg.norm_style == "ln_pre"
@@ -381,6 +447,7 @@ def forward_ref(cfg: ArchConfig, params, tokens_or_embeds, *, mode="train",
     full_i = meta["full_i"].reshape(-1)
     win_i = meta["win_i"].reshape(-1)
     sl = cfg.layer_slots
+    ssm_i, m_ssm = ssm_slots(cfg)
     aux = [] if mode == "train" and labels is not None else None
     # one unbind per stacked leaf: its backward writes the leaf's grad once,
     # where indexing each layer would materialize a full-size zero grad per
@@ -394,9 +461,9 @@ def forward_ref(cfg: ArchConfig, params, tokens_or_embeds, *, mode="train",
         ctx = LayerCtx(mode=mode, pos=pos, kind=int(kinds[l]),
                        full_i=int(st_idx * meta["m_full"] + full_i[l]),
                        win_i=int(st_idx * meta["m_win"] + win_i[l]),
-                       ssm_i=l, lens=lens, kernel_backend=kernel_backend,
-                       aux=aux)
-        p_l = {k: v[l] for k, v in layers.items()}
+                       ssm_i=int(st_idx * m_ssm + ssm_i[l]), lens=lens,
+                       kernel_backend=kernel_backend, aux=aux)
+        p_l = layer_leaves(cfg, layers, l)
         x, cache = apply_layer(cfg, p_l, x, ctx, cache)
     if aux is not None:
         aux_t = torch.stack(aux).sum() if aux else x.new_zeros(

@@ -14,6 +14,12 @@ compute dtype (backend "ref") or through kernels/ops.gmm, the Hopper
 grouped matmul (backend "cuda"), on the contiguous [E, d, G ff] view of
 w_in: no weight is copied per call.
 
+An expert share (a card of an expert-parallel deployment run without its
+exchange): the router routes over all num_experts and capacity counts
+them all, but w_in / w_out hold only experts [expert_offset, expert_offset
++ E_held); choices of the other experts are dropped as over-capacity
+ones are, so the output is the held experts' part of the layer's.
+
 `record_routing()` collects each call's router logits, choices and drops
 (for the smoke's routing prints and the tests' margin checks); it is off
 unless a caller opens it.
@@ -89,9 +95,11 @@ def capacity(T: int, num_experts: int, top_k: int,
 
 
 def _dispatch(p, x, *, num_experts: int, top_k: int,
-              capacity_factor: float):
+              capacity_factor: float, held=None):
     """Route x [B, S, d]'s tokens and lay them out by expert: (expert_in
-    [E, cap, d], dest [T K], w [T, K], keep [T K], aux, cap)."""
+    [E, cap, d], dest [T K], w [T, K], keep [T K], aux, cap). held
+    (offset, n): only experts [offset, offset + n) get rows (E = n); the
+    rest's choices are dropped. None: every expert."""
     B, S, d = x.shape
     T, E, K = B * S, num_experts, top_k
     xf = x.reshape(T, d)
@@ -111,6 +119,10 @@ def _dispatch(p, x, *, num_experts: int, top_k: int,
     slot[order] = torch.arange(flat_e.numel(), device=x.device) - \
         first[sorted_e]
     keep = slot < cap
+    if held is not None:
+        lo, E = held
+        flat_e = flat_e - lo
+        keep &= (flat_e >= 0) & (flat_e < E)
     dest = torch.where(keep, flat_e * cap + slot, E * cap)    # drop bucket
     if _RECORD is not None:
         _RECORD.append(dict(logits=logits, idx=idx, keep=keep.view(T, K),
@@ -137,12 +149,16 @@ def _combine(out, x, dest, w, keep, top_k: int):
 
 
 def moe_mlp(p, x, *, num_experts: int, top_k: int, mlp_type: str,
-            capacity_factor: float = 1.25, backend: str = "ref"):
+            capacity_factor: float = 1.25, backend: str = "ref",
+            expert_offset: int = 0):
     """x [B, S, d] -> ([B, S, d], aux loss). p: router [d, E], w_in
-    [E, d, G, ff], w_out [E, ff, d]."""
+    [E_held, d, G, ff], w_out [E_held, ff, d]: experts expert_offset ..
+    expert_offset + E_held of the E routed over (all by default)."""
+    n = p["w_in"].shape[0]
     expert_in, dest, w, keep, aux, _ = _dispatch(
         p, x, num_experts=num_experts, top_k=top_k,
-        capacity_factor=capacity_factor)
+        capacity_factor=capacity_factor,
+        held=None if n == num_experts else (expert_offset, n))
     out = _expert_ffn(expert_in, p["w_in"], p["w_out"], mlp_type, backend)
     return _combine(out, x, dest, w, keep, top_k), aux
 

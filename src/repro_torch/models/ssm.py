@@ -10,6 +10,8 @@ with w_t = exp(-exp(clip(w0 + lora(x)))).
 SSD per head (state h in R^{N x P}):
     h_t = exp(a dt_t) h_{t-1} + dt_t B_t x_t^T
     y_t = h_t^T C_t + D x_t
+then a gated RMS norm over d_inner: hymba's norm(y) * silu(z), or
+Mamba-2's norm(y * silu(z)) (gate_norm); Mamba-2's conv has a bias.
 
 Prefill starts from a zero state and runs a chunked form (the plain "ref"
 path: the chunked torch scans the JAX package runs; with
@@ -193,18 +195,29 @@ def ssd_projections(p, x, heads, d_inner, d_state, conv_tail=None,
     proj = x @ p["in_proj"].to(x.dtype)
     z, xbc, dt_raw = torch.split(proj, [d_inner, d_inner + 2 * N, H], dim=-1)
     xbc, tail = _dw_conv4(xbc, p["conv_w"].to(x.dtype), conv_tail, lens=lens)
+    if "conv_b" in p:
+        xbc = xbc + p["conv_b"].to(x.dtype)
     xbc = F.silu(xbc)
     xh, Bm, Cm = torch.split(xbc, [d_inner, N, N], dim=-1)
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     return z, xh.reshape(B, S, H, d_inner // H), Bm, Cm, dt, tail
 
 
-def _ssd_out(p, x, y, xh, z, d_inner):
+def _gated_norm(p, y, z, gate_norm: bool, eps: float):
+    """The gated RMS norm over d_inner: norm(y) * silu(z), or with
+    gate_norm Mamba-2's norm(y * silu(z)) (the gate in f32)."""
+    if gate_norm:
+        return rms_norm(y.float() * F.silu(z.float()), p["norm_scale"],
+                        eps=eps)
+    return rms_norm(y, p["norm_scale"], eps=eps) * F.silu(z)
+
+
+def _ssd_out(p, x, y, xh, z, d_inner, gate_norm=False, eps=1e-6):
     """The SSD output tail: D-skip, gated RMS norm, out projection.
     y/xh [B,S,H,P]."""
     B, S = x.shape[:2]
     y = y.float() + p["D"].float()[None, None, :, None] * xh.float()
-    y = rms_norm(y.reshape(B, S, d_inner), p["norm_scale"]) * F.silu(z)
+    y = _gated_norm(p, y.reshape(B, S, d_inner), z, gate_norm, eps)
     out = y.to(p["out_proj"].dtype) @ p["out_proj"]
     return out.to(x.dtype)
 
@@ -248,7 +261,7 @@ def ssd_chunked_scan(xh, dt, Bm, Cm, a):
 
 
 def ssd_mix(p, x, *, heads: int, d_state: int, d_inner: int, lens=None,
-            kernel_backend="ref"):
+            kernel_backend="ref", gate_norm=False, eps=1e-6):
     """The SSD mix of a prefill from a fresh state. x [B,S,d]. Returns y
     [B,S,d], the final state [B,H,N,P] f32 and the conv tail.
 
@@ -276,11 +289,11 @@ def ssd_mix(p, x, *, heads: int, d_state: int, d_inner: int, lens=None,
                                 dt.transpose(1, 2), Bm.float(), Cm.float(),
                                 a, backend=kernel_backend)
         y = y4.transpose(1, 2)
-    return _ssd_out(p, x, y, xh, z, d_inner), st, tail
+    return _ssd_out(p, x, y, xh, z, d_inner, gate_norm, eps), st, tail
 
 
 def ssd_mix_step(p, x, state, conv_tail, *, heads: int, d_state: int,
-                 d_inner: int):
+                 d_inner: int, gate_norm=False, eps=1e-6):
     """Single-token SSD step. x [B,1,d]; state [B,H,N,P] f32; conv_tail
     [B,3,d_inner+2N]. Returns y, the new state and the new conv tail."""
     B = x.shape[0]
@@ -293,6 +306,6 @@ def ssd_mix_step(p, x, state, conv_tail, *, heads: int, d_state: int,
     state = torch.exp(dt[:, 0] * a)[..., None, None] * state + inj
     y = torch.einsum("bn,bhnp->bhp", C0, state)
     y = y + p["D"].float()[None, :, None] * x0
-    y = rms_norm(y.reshape(B, 1, d_inner), p["norm_scale"]) * F.silu(z)
+    y = _gated_norm(p, y.reshape(B, 1, d_inner), z, gate_norm, eps)
     out = y.to(p["out_proj"].dtype) @ p["out_proj"]
     return out.to(x.dtype), state, tail

@@ -112,7 +112,18 @@ class _Bind:
 def span(name: str, **args):
     """A span named `name` on the thread's bound track, carrying the bound
     ids and `args`; NULL_SPAN when no enabled tracer is bound."""
-    scope = getattr(_scope, "v", None)
+    return span_in(current_scope(), name, **args)
+
+
+def current_scope():
+    """The calling thread's bound scope (None: nothing bound), for work
+    that runs later on another thread (autograd's backward) to record
+    into with span_in."""
+    return getattr(_scope, "v", None)
+
+
+def span_in(scope, name: str, **args):
+    """span() in a scope taken by current_scope()."""
     if scope is None:
         return NULL_SPAN
     tr, track, ids = scope

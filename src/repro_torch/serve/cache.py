@@ -45,6 +45,8 @@ import torch
 #: per-slot (batch-dim) cache keys — everything that is not the paged pool
 #: or the block table. Layout: batch at dim 1 of every leaf.
 SLOT_KEYS = ("kv_win", "ssm_state", "conv_tail", "shift")
+#: the per-slot keys that hold recurrent (SSD / RWKV6) state
+SSM_KEYS = ("ssm_state", "conv_tail", "shift")
 
 
 # ----------------------------------------------------------------------------
@@ -87,11 +89,15 @@ def cache_struct(cfg, batch: int, max_len: int, *, seq_shards: int = 1,
       kv_full [stages*m_full, B, S, KV, hd]  (S split over data when
                                               seq_shards > 1)
       kv_win  [stages*m_win,  B, W, KV, hd]
-      ssm_state [Lp, B, H, K, P] f32; conv_tail / shift small
+      ssm_state [stages*m_ssm, B, H, K, P] f32; conv_tail / shift small
     B splits over data from 16 rows on; KV over tp where KV % tp == 0.
+    Each kind of state covers its own layers: a one-kind model's SSM
+    state every layer (m_ssm = layer_slots), a mixed-kind model's K/V its
+    attention layers and its SSM state and conv tails its Mamba layers.
     """
-    from repro_torch.models.lm import layer_meta
+    from repro_torch.models.lm import layer_meta, ssm_slots
     meta = layer_meta(cfg)
+    n_ssm = cfg.stages * ssm_slots(cfg)[1]
     st, Lp = cfg.stages, cfg.padded_layers
     hd, KV = cfg.head_dim, cfg.num_kv_heads
     kv_tp = _kv_tp(cfg)
@@ -109,10 +115,10 @@ def cache_struct(cfg, batch: int, max_len: int, *, seq_shards: int = 1,
         specs["kv_win"] = ((S_AX, batch_ax, None, kv_tp, None),) * 2
     if cfg.ssm_type == "ssd":
         H, N = cfg.n_ssm_heads, cfg.ssm_state
-        shapes["ssm_state"] = ((Lp, batch, H, N, cfg.d_inner // H),
+        shapes["ssm_state"] = ((n_ssm, batch, H, N, cfg.d_inner // H),
                                torch.float32)
         specs["ssm_state"] = (S_AX, batch_ax, None, None, None)
-        shapes["conv_tail"] = ((Lp, batch, 3, cfg.d_inner + 2 * N), dtype)
+        shapes["conv_tail"] = ((n_ssm, batch, 3, cfg.d_inner + 2 * N), dtype)
         specs["conv_tail"] = (S_AX, batch_ax, None, None)
     if cfg.ssm_type == "rwkv6":
         H = cfg.n_ssm_heads
@@ -449,6 +455,9 @@ class CacheStore:
         self._retained: set[int] = set()
         self.last_touch = np.zeros(layout.num_pages, np.int64)
         self.cow_copies = 0
+        # slots whose recurrent state an admission replaced (append_rows)
+        self.ssm_resets = 0
+        self._has_ssm = any(k in slot_trees(self.tree)[0] for k in SSM_KEYS)
 
     # ---- accounting --------------------------------------------------
     @property
@@ -616,9 +625,12 @@ class CacheStore:
     def append_rows(self, out_tree, pairs) -> None:
         """Absorb a prefill step's output: the pool was written in place;
         per-slot leaves are row-copied src -> dst for each (src, dst) in
-        pairs (whole-row replacement clears a slot's previous occupant)."""
+        pairs (whole-row replacement clears a slot's previous occupant:
+        each such slot's recurrent state is reset, `ssm_resets`)."""
         if not pairs:
             return
+        if self._has_ssm:
+            self.ssm_resets += len(pairs)
         srcs = torch.tensor([s for s, _ in pairs], device=self.device)
         dsts = torch.tensor([d for _, d in pairs], device=self.device)
         done = set()
@@ -642,6 +654,24 @@ class CacheStore:
                              if k != "block_tab"})
 
     # ---- reporting ---------------------------------------------------
+    def _slot_bytes(self, keys) -> int:
+        """Bytes of the global tree's per-slot leaves under `keys`."""
+        shapes = cache_struct(self.cfg, self.layout.max_batch,
+                              self.layout.max_len, dtype=self.dtype)[0]
+        n = 0
+        for key in keys:
+            st = shapes.get(key)
+            for shp, dt in (() if st is None else st
+                            if isinstance(st[1], tuple) else (st,)):
+                n += int(np.prod(shp)) * dt.itemsize
+        return n
+
+    @property
+    def ssm_state_bytes(self) -> int:
+        """The recurrent state and conv tails / token shifts of every slot,
+        reserved whole (a slot's share is fixed, whatever its length)."""
+        return self._slot_bytes(SSM_KEYS)
+
     def stats(self) -> dict:
         """Page accounting + bytes."""
         lo = self.layout
@@ -654,12 +684,7 @@ class CacheStore:
             # one page across both K and V pools, all layer groups
             page_bytes = 2 * shp[0] * lo.page_size * int(np.prod(shp[3:])) \
                 * dt.itemsize
-        slot_bytes = 0
-        for key in SLOT_KEYS:
-            if key in shapes:
-                st = shapes[key]
-                for shp, dt in (st if isinstance(st[1], tuple) else (st,)):
-                    slot_bytes += int(np.prod(shp)) * dt.itemsize
+        slot_bytes = self._slot_bytes(SLOT_KEYS)
         return {
             "page_size": lo.page_size,
             "pages_total": self.pages_total,

@@ -251,6 +251,43 @@ def test_ssd_chunked_matches_plain_version(card, B, H, S):
         ssd_chunked(x[..., :32], dt, Bm, Cm, a)
 
 
+def test_kernels_at_granite4h_cell_shapes(card):
+    """chip_smoke.py's granite4h-serve-chat cases, each launch on the route
+    it names (or the wrapper's pick) against its plain version:
+    ssd_chunked at (P, N) = (64, 128) on simt over a lens-padded [64, 128,
+    512, 64] group (1e-4 against the sequential recurrence), the 36 held
+    experts' GEMMs at a decode step's and a prefill group's capacity, and
+    both attention kernels at 32 / 8 heads of 128 (bf16: 5e-2)."""
+    import chip_smoke
+    gen = torch.Generator(device=card).manual_seed(4)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+
+    seen = set()
+    for name, label, dtype, route, got, want in chip_smoke.granite4h_cases(
+            card, randn, gen):
+        ref = want()
+        reset_launches()
+        out = got()
+        torch.cuda.synchronize()
+        assert LAUNCHES[name] == 1, (name, label)
+        ran = _ran(name)
+        assert route in (None, ran), (name, label, ran)
+        if name == "ssd_chunked":
+            for a, b in zip(out, ref):
+                torch.testing.assert_close(a, b, atol=chip_smoke.SSD_TOL,
+                                           rtol=chip_smoke.SSD_TOL)
+        else:
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       **_tol(dtype))
+        seen.add((name, ran))
+        del out, ref
+    assert {n for n, _ in seen} == {"ssd_chunked", "grouped_matmul",
+                                    "flash_attention_fwd",
+                                    "flash_decode_paged"}, seen
+
+
 def _row_lens(S, B, device):
     """Each row's length: the first full, the rest cut (their tails are
     lens padding)."""

@@ -68,13 +68,29 @@ def _jitted(jarch):
 
 def test_configs_match_reference():
     """Every ARCHS entry and its reduced() twin equal the JAX package's
-    field for field, as do the shape cells."""
+    field for field, as do the shape cells; the fields the port alone has
+    (per-layer kinds, NoPE, the expert share, the shared expert, Mamba-2's
+    conv bias and gate order) hold their defaults there."""
     assert sorted(ARCHS) == sorted(J_ARCHS)
+    jax_fields = {f.name for f in dataclasses.fields(J_ARCHS["qwen3-0.6b"])}
+    defaults = {f.name: f.default for f in dataclasses.fields(
+        ARCHS["qwen3-0.6b"]) if f.name not in jax_fields}
+    assert set(defaults) == {"layer_types", "pos_emb", "experts_held",
+                             "expert_offset", "shared_ff", "ssm_conv_bias",
+                             "ssm_gate_norm"}
+
+    def split(cfg):
+        d = dataclasses.asdict(cfg)
+        return ({k: v for k, v in d.items() if k in jax_fields},
+                {k: v for k, v in d.items() if k not in jax_fields})
+
     for name in ARCHS:
-        assert dataclasses.asdict(ARCHS[name]) == \
-            dataclasses.asdict(J_ARCHS[name])
-        assert dataclasses.asdict(reduced(ARCHS[name])) == \
-            dataclasses.asdict(j_reduced(J_ARCHS[name]))
+        for mine, jax_cfg in ((ARCHS[name], J_ARCHS[name]),
+                              (reduced(ARCHS[name]),
+                               j_reduced(J_ARCHS[name]))):
+            shared, own = split(mine)
+            assert shared == dataclasses.asdict(jax_cfg)
+            assert own == defaults
     from repro.configs import SHAPES as J_SHAPES
     assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in J_SHAPES.items()}

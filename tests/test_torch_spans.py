@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import ClusterSpec, Engine, Plan, RunSpec, ServeReport, \
-    ServeSpec, WSP
+from repro_torch.api import ClusterSpec, Engine, PartitionSpec, Plan, \
+    RunSpec, ServeReport, ServeSpec, WSP
 from repro_torch.api.serving import Request, Scheduler
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.obs import NULL_SPAN, NULL_TRACER, Tracer, span, trace
@@ -357,3 +357,27 @@ def test_threads_keep_their_own_scope_and_the_totals_add_up():
         assert tr.total(track, "fwd_bwd") == pytest.approx(
             sum(e[4] for e in evs if e[1] == track))
     assert span("fwd_bwd") is NULL_SPAN
+
+
+def test_spmd_fit_records_the_stage_sends_and_their_gradients():
+    """Engine.fit on the spmd backend (mesh (1, 2, 1) on the CPU) binds
+    each wave to the engine track: every ppermute between stages is a
+    `pp_send` span (`dir="act"`) and so is its gradient's send back in
+    backward (`dir="grad"`, recorded from autograd's thread), each with
+    the wave; untraced, the wave's loss is the same."""
+    def fit(tracer):
+        plan = Plan(arch=_cfg(), partition=PartitionSpec(stages=2, tp=1),
+                    run=RunSpec(backend="spmd", max_waves=2, batch=4,
+                                seq=8))
+        return Engine(plan, device="cpu", tracer=tracer).fit()
+
+    tr = Tracer()
+    rep = fit(tr)
+    sends = _spans(tr, "engine", "pp_send")
+    nm = _cfg().num_microbatches
+    for w in range(2):
+        dirs = sorted(e[5]["dir"] for e in sends if e[5]["wave"] == w)
+        assert dirs == ["act"] * nm + ["grad"] * nm
+    waves = _spans(tr, "engine", "wave")
+    assert all(any(_inside(e, wv) for wv in waves) for e in sends)
+    assert [l for *_, l in fit(None).losses] == [l for *_, l in rep.losses]
