@@ -7,7 +7,8 @@ Phases (each prints a line; any failure exits nonzero):
   1. device and build: the card's name and power limit (nvidia-smi), then
      the Hopper kernels compiled from src/repro_torch/kernels/csrc, with the
      tensor-core and tile kernels' registers and spills (nvcc -Xptxas -v)
-     and their dynamic shared memory, the decode SIMT kernels' register
+     and their dynamic shared memory (the SSD tile kernel at state 16 and
+     at state 128), the decode SIMT kernels' register
      range and spills, and machine-instruction counts (cuobjdump -sass) of
      the decode tc kernels and of both routes of the WKV6 and SSD kernels
      (FFMA against shared loads: what their designs rest on);
@@ -35,7 +36,10 @@ Phases (each prints a line; any failure exits nonzero):
      WKV6 and SSD also the chunked torch scans that the plain serve path
      runs); WKV6 and SSD per route (tile against simt, in turns: tile,
      simt, simt, tile) at their serve shapes and SSD also at hymba's
-     generate shape [4, 50, 1100, 64]; the kernels with routes per route
+     generate shape [4, 50, 1100, 64] and at granite4h-serve-chat's padded
+     group [64, 128, 512, 64], state 128 (granite4h_cases holds every
+     launch of that cell at its shapes on both routes); the kernels with
+     routes per route
      (tc, simt_bf16, simt_f32):
      attention at qwen3's, granite's and hymba's heads and at hymba's S 1100
      prefill, paged decode at the same three head shapes, contiguous decode
@@ -274,7 +278,15 @@ DESIGN = {
                      "fed by LDS.128, the slice's state in registers; "
                      "unaligned rows (simt): one block per (row, head), the "
                      "64x64 state in shared memory",
-    "ssd_chunked": "f32 (route tile): one 256-thread block per (row, head, "
+    "ssd_chunked": "f32 (route tile), state 128: one 256-thread block per "
+                   "(row, 2 heads) walks chunks of 64, B/C/dt in a 2-stage "
+                   "cp.async ring and each head's x reloaded once that "
+                   "head is done; C B^T once per chunk for both heads; per "
+                   "head y = exp(cs) C h + M x and the state update on 4x4 "
+                   "and 4x8 register tiles fed by LDS.128, each thread's "
+                   "4x8 of the state in registers (221 KB of shared "
+                   "memory, one block an SM); state 16: one 256-thread "
+                   "block per (row, head, "
                    "slice of 32 state columns) walks chunks of 64, x/B/C/dt "
                    "landing by cp.async in a 2-stage ring; C B^T on 4x4 "
                    "register tiles once per chunk for the block's heads, "
@@ -322,6 +334,34 @@ BF16_TIE = 5e-2
 # tokens in the frozen [64, 512] prefill group (MoE capacity couples its
 # rows), answers of up to 1024 tokens, pages of 16
 G4H_SLOTS, G4H_PROMPT, G4H_GEN, G4H_PAGE = 64, 512, 1024, 16
+# the row lengths of the cell's usual group: one admitted prompt of ~215
+# tokens, the Scheduler's 63 idle rows at length 1
+G4H_CELL_LENS = (215,) + (1,) * (G4H_SLOTS - 1)
+
+
+def g4h_ssd_operands(dev, randn, gen, lengths, s):
+    """ssd_chunked's operands in a granite-4.0-h prefill group of
+    len(lengths) rows of width s, as models/ssm.py:ssd_mix hands them over:
+    x, B_ and C_ column slices of one [rows, s, H P + 2 N] conv output (x a
+    [rows, H, s, P] view), dt = exp(U(-7, -1.2)) as a [rows, H, s] view of
+    [rows, s, H] memory, 0 past each row's length (lens padding: x, B_, C_
+    stay nonzero there), a = -(1..16) over the H heads."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    cfg = get_arch("granite-4.0-h-small")
+    H, N = cfg.n_ssm_heads, cfg.ssm_state
+    P = cfg.d_inner // H
+    rows = len(lengths)
+    conv = randn(rows, s, H * P + 2 * N).mul_(0.5)
+    x = conv[..., :H * P].reshape(rows, s, H, P).transpose(1, 2)
+    dt = torch.empty((rows, s, H), device=dev).uniform_(
+        -7.0, -1.2, generator=gen).exp_()
+    live = torch.arange(s, device=dev)[None, :] < torch.as_tensor(
+        lengths, device=dev)[:, None]
+    dt = torch.where(live[..., None], dt, 0.0).transpose(1, 2)
+    return (x, dt, conv[..., H * P:H * P + N], conv[..., H * P + N:],
+            -torch.linspace(1.0, 16.0, H, device=dev))
 
 
 def granite4h_cases(dev, randn, gen):
@@ -329,8 +369,9 @@ def granite4h_cases(dev, randn, gen):
     shapes one card of its two-card expert-parallel deployment launches
     them in granite4h-serve-chat: widths from its config; ssd_chunked at
     (P, N) = (64, 128) over a [64, 128 heads, 512, 64] group whose rows are
-    padded by their lengths (dt = 0 past them), a 100-token tail and one
-    token; grouped_matmul over the 36 held experts' w_in (the [E, d, G ff]
+    padded by their lengths (dt = 0 past them: lengths 64..512, and the
+    cell's own pattern, one row of 215 and 63 of 1), a 100-token tail and
+    one token; grouped_matmul over the 36 held experts' w_in (the [E, d, G ff]
     view, d 4096 -> 2 x 768) and w_out (768 -> 4096) at the expert rows
     models/moe.py's capacity gives a decode step's 64 tokens and a prefill
     group's 64 x 512; flash_attention_fwd over the [64, 512] group and
@@ -338,9 +379,8 @@ def granite4h_cases(dev, randn, gen):
     prompt + answer, at 32 / 8 heads of 128. Yields (kernel, label, dtype,
     route, got, want): got / want give the kernel's output and its plain
     version's (a recurrence's: (y, final state)), to be called before the
-    next case is drawn; bf16 launches take the
-    wrapper's pick and the forced simt_bf16 route, ssd_chunked at N 128
-    its only route, simt."""
+    next case is drawn; every launch takes the wrapper's pick (tile for
+    ssd_chunked) and the forced simt route (simt_bf16 for bf16)."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -352,9 +392,6 @@ def granite4h_cases(dev, randn, gen):
     from repro_torch.models.moe import capacity
     cfg = get_arch("granite-4.0-h-small")
     B, S, bf = G4H_SLOTS, G4H_PROMPT, torch.bfloat16
-    H, N = cfg.n_ssm_heads, cfg.ssm_state
-    P = cfg.d_inner // H
-    a = -torch.linspace(1.0, 16.0, H, device=dev)
 
     def lens(n, lo, hi):
         """n row lengths spread log-uniformly over [lo, hi], hi first."""
@@ -362,20 +399,17 @@ def granite4h_cases(dev, randn, gen):
                               torch.log10(torch.tensor(float(lo))), n,
                               device=dev).round().long()
 
-    for rows, s, lo in ((B, S, 64), (8, 100, 1), (8, 1, 1)):
-        conv = randn(rows, s, H * P + 2 * N).mul_(0.5)
-        x = conv[..., :H * P].reshape(rows, s, H, P).transpose(1, 2)
-        Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
-        dt = torch.empty((rows, s, H), device=dev).uniform_(
-            -7.0, -1.2, generator=gen).exp_().transpose(1, 2)
-        live = torch.arange(s, device=dev)[None, :] < \
-            lens(rows, lo, s)[:, None]
-        dt = torch.where(live[:, None, :], dt, 0.0)
-        yield ("ssd_chunked", f"[{rows}, {H}, {s}, {P}] N {N}",
-               torch.float32, "simt",
-               lambda: ssd_chunked(x, dt, Bm, Cm, a, route="simt"),
-               lambda: kref.ssd_ref(x, dt, Bm, Cm, a))
-    del conv, x, Bm, Cm, dt
+    for s, ln, what in ((S, lens(B, 64, S), "lengths 64..512"),
+                        (S, G4H_CELL_LENS, "lengths 215, 63 x 1"),
+                        (100, lens(8, 1, 100), "lengths 1..100"),
+                        (1, lens(8, 1, 1), "one token")):
+        ops = g4h_ssd_operands(dev, randn, gen, ln, s)
+        for route in (None, "simt"):
+            yield ("ssd_chunked", f"{list(ops[0].shape)} N "
+                   f"{ops[2].shape[-1]}, {what}", torch.float32, route,
+                   lambda: ssd_chunked(*ops, route=route),
+                   lambda: kref.ssd_ref(*ops))
+    del ops
     # one card holds half of the experts; the router and capacity count all
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts // 2
     for step, T in (("decode", B), ("prefill", B * S)):
@@ -2142,11 +2176,12 @@ def main() -> int:
         for kern, regs, spill in ptxas_entries(lib_name, "_tile_"):
             log("build", f"{lib_name}: {kern}: {regs}; {spill}")
     wkv_smem = _build.load("rwkv6_scan").rwkv6_tile_smem_bytes
+    wkv_smem.restype, wkv_smem.argtypes = _build.INT, []
     ssd_smem = _build.load("mamba_ssd").ssd_tile_smem_bytes
-    for fn in (wkv_smem, ssd_smem):
-        fn.restype, fn.argtypes = _build.INT, []
+    ssd_smem.restype, ssd_smem.argtypes = _build.INT, [_build.INT]
     log("build", f"dynamic shared memory a block: rwkv6_chunked tile "
-        f"{wkv_smem()} B, ssd_chunked tile {ssd_smem()} B")
+        f"{wkv_smem()} B, ssd_chunked tile {ssd_smem(16)} B at state 16 "
+        f"and {ssd_smem(128)} B at state 128")
     scan_sass = {}
     for lib_name, tag in (("rwkv6_scan", "wkv6_"), ("mamba_ssd", "ssd_")):
         for kern, ops in sass_counts(lib_name, tag, (
@@ -2470,15 +2505,26 @@ def main() -> int:
                 hold("grouped_matmul", grouped_matmul(x, w, route=route), ref,
                      dt, None, route=route)
     del x, w
-    # granite4h-serve-chat's launches at the cell's own shapes
+    # granite4h-serve-chat's launches at the cell's own shapes, each one
+    # launch on the route named (None: the fast one, tile or tc*)
     for name, label, dt, route, got, want in granite4h_cases(dev, randn, gen):
         ref = want()
+        before = LAUNCHES[name], dict(ROUTES[name])
+        out = got()
+        torch.cuda.synchronize()
+        ran = [r for r, n in ROUTES[name].items() if n != before[1][r]]
+        fast = ran and ran[0].startswith(("tc", "tile"))
+        if LAUNCHES[name] - before[0] != 1 or len(ran) != 1 or not (
+                ran[0] == route if route else fast):
+            raise AssertionError(f"{name} {label}: routes {ran}, launches "
+                                 f"{LAUNCHES[name] - before[0]}, want "
+                                 f"{route or 'tile / tc'} once")
         if name == "ssd_chunked":
-            hold_recurrence(name, SSD_TOL, label, got(), ref, route)
+            hold_recurrence(name, SSD_TOL, label, out, ref, route)
         else:
-            hold(name, got(), ref, dt,
+            hold(name, out, ref, dt,
                  label if name.startswith("flash") else None, route=route)
-        del ref
+        del ref, out
     free_device()
     log("parity", "max |kernel - plain| " + json.dumps(
         {k: {d: float(f"{e:.3e}") for d, e in v.items()}
@@ -2763,6 +2809,18 @@ def main() -> int:
             f"B{B} S{S} H{Hs} P{Ps} N{Ns} f32",
             bound(ssd_cost, *ssd_sets[0]))
         del ssd_sets
+    # and at granite4h-serve-chat's padded group: 64 rows of 512, 128 heads
+    # of 64, state 128, the cell's lengths (one row of 215, 63 of 1; dt = 0
+    # past them); 2 input sets (2.2 GB)
+    g4h_sets = [g4h_ssd_operands(dev, randn, gen, G4H_CELL_LENS, G4H_PROMPT)
+                for _ in range(2)]
+    ssd_times["granite4h group [64,128,512,64]"] = scan_times(
+        ssd_chunked, kref.ssd_ref,
+        lambda x, dt, Bm, Cm, a: ssm.ssd_chunked_scan(
+            x.transpose(1, 2), dt.transpose(1, 2), Bm, Cm, a), g4h_sets,
+        f"B{G4H_SLOTS} S{G4H_PROMPT} H128 P64 N128 f32",
+        bound(ssd_cost, *g4h_sets[0]))
+    del g4h_sets
     timing["ssd_chunked"] = dict(
         ssd_times["hymba serve [8,50,128,64]"],
         library="none (no single PyTorch call computes SSD)",

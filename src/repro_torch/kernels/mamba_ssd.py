@@ -13,14 +13,22 @@ On a CPU tensor this runs the plain version (kernels/ref.py:ssd_ref, the
 sequential recurrence); on a CUDA tensor it launches the kernel of one
 route or raises. `_route` picks the route from strides and alignment:
 
-  tile  state 16 (hymba) and x, B_ and C_ rows copyable in 16-byte
-        vectors (as the model's views always are): a block per (row,
-        pair of heads, slice of 32 state columns), C B^T once per chunk
-        for the pair, register tiles, cp.async double buffering
-  simt  any other strides with the last dims contiguous, and every call
-        at state 128 (granite-4.0-h's Mamba-2 layers, where the tile
-        route's shared memory does not fit a block): a block per (row,
-        head)
+  tile  x, B_ and C_ rows copyable in 16-byte vectors (as the model's
+        views always are), at either state: f32 FMA on register tiles
+        fed by 16-byte shared loads, C B^T once per chunk for the heads
+        of a block, operands landing by cp.async ahead of their chunk.
+        The tiling is fixed at compile time by N. State 16 (hymba): a
+        block per (row, pair of heads, slice of 32 state columns), x, B,
+        C and dt in a 2-stage ring (94 KB of shared memory, 2 blocks an
+        SM). State 128 (granite-4.0-h's Mamba-2 layers): a block per
+        (row, pair of heads) over all 64 columns, B / C / dt in a 2-stage
+        ring and one x buffer a head (221 KB, one block an SM: a ring of
+        x, B and C would need 286 KB); each thread keeps a 4 x 8 slice of
+        each head's state in registers. Bound by operations there (the
+        read-out C h and the state update, 4 C N P a chunk and head)
+  simt  any other strides with the last dims contiguous (the first
+        design, kept for them): a block per (row, head), the state in
+        shared memory
 
 `_build.ROUTES["ssd_chunked"]` counts the launches of each. On a meta
 tensor the wrapper reports the launch and `cost()` to the active cost
@@ -35,10 +43,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
 from repro_torch.launch import costs
 
-# (P, N) built: hymba-1.5b (50 heads of 64, state 16; tile and simt) and
-# granite-4.0-h (128 heads of 64, state 128; simt)
+# (P, N) built, each on both routes: hymba-1.5b (50 heads of 64, state 16)
+# and granite-4.0-h (128 heads of 64, state 128); the tile route's tiling
+# is chosen by N (csrc/mamba_ssd.cu: SsdTile<N>)
 SHAPES = ((64, 16), (64, 128))
-TILE_SHAPES = ((64, 16),)
 _ARGS = [_build.PTR] * 7 + [_build.INT] * 5 + [_build.I64] * 13 + \
     [_build.INT, _build.PTR]
 
@@ -47,7 +55,7 @@ def _route(x, B_, C_) -> str:
     """The route a CUDA launch over x, B_, C_ takes: a pure function of
     the state shape, strides and alignment (the CPU tests call it on CPU
     tensors; dt is read 4 bytes at a time, any strides)."""
-    tiled = (x.shape[-1], B_.shape[-1]) in TILE_SHAPES
+    tiled = (x.shape[-1], B_.shape[-1]) in SHAPES
     return "tile" if tiled and all(_build.vec16_ok(t) for t in (x, B_, C_)) \
         else "simt"
 

@@ -1,16 +1,19 @@
 """Ablations of the chunked WKV6 and SSD tile kernels on the card.
 
-    python -m repro_torch.kernels.scan_ablation
+    python -m repro_torch.kernels.scan_ablation [wkv6] [ssd] [ssd128]
 
 Each variant is a copy of csrc/rwkv6_scan.cu or csrc/mamba_ssd.cu with one
 part of the tile kernel's chunk loop taken out (its loop bounds set to 0,
 its branch made dead), its cp.async ring deepened, or its tiling changed
 (slices of 16 state columns; SSD: one head a block), compiled beside the
 real kernel (one nvcc each, all started together, into
-build/scan_ablation/). A variant's output is wrong by design: only its time
+build/scan_ablation/). The suites: wkv6 (rwkv6_chunked), ssd (the SSD tile
+kernel at state 16) and ssd128 (at state 128); all three without an
+argument. A variant's output is wrong by design: only its time
 is read. Every variant is timed as chip_smoke.py phase 2 times the kernels
 (device time, a CUDA graph replayed over one input set per layer), at the
-serve shape and a long one, with the real kernel timed first and last. The
+serve shape and a long one (ssd128: granite4h-serve-chat's padded
+[64, 128, 512, 64] group), with the real kernel timed first and last. The
 time a variant saves is what that part costs; `occ` is the blocks an SM can
 hold (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Needs one sm_90 card
 and nvcc.
@@ -20,7 +23,9 @@ from __future__ import annotations
 import ctypes
 import json
 import subprocess
+import sys
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import torch
 
@@ -76,19 +81,42 @@ SSD = {
     "no state products": [("for (int s = 32 * tw; s < 32 * tw + 32; ++s) {",
                            "for (int s = 32 * tw; s < 0; ++s) {")],
 }
-OCC = {"rwkv6_scan": ("wkv6_tile_kernel", "WkvTile"),
-       "mamba_ssd": ("ssd_tile_kernel", "SsdTile")}
+# state 128 (SsdTile<128>): one row, HEADS heads and all 64 columns a block
+SSD128 = {
+    "1 head a block": [("NT = 256, HEADS = 2, STAGES = 2;",
+                        "NT = 256, HEADS = 1, STAGES = 2;")],
+    "no next-chunk loads": [
+        ("    load_bc(c + 1);", "    repro::cp_async_commit();"),
+        ("      load_x(gh, c + 1);", "      repro::cp_async_commit();")],
+    "no cs scans": [("    if ((w & 1) && (w >> 1) < HB) {", "    if (g.S < 0) {")],
+    "no M exponentials": [
+        ("Msh[t * MP + s] = s <= t ? cb[r][2 * jp + j2] * (e * dts[j2]) : 0.f;",
+         "Msh[t * MP + s] = s <= t ? cb[r][2 * jp + j2] * dts[j2] : 0.f;")],
+    "no C B^T": [("    if (2 * ch + 1 <= rb)\n", "    if (g.S < 0)\n"),
+                 ("    else if (2 * ch <= rb)\n", "    else if (g.S < 0)\n")],
+    "no read-out C h": [("mac_rows<P>(Cs, BP, Hsh + py, N, ct, acc);",
+                         "mac_rows<P>(Cs, BP, Hsh + py, 0, ct, acc);")],
+    "no intra-chunk M x": [("mac_rows<P>(Msh, MP, X + py, 16 * rb + 16, ct, acc);",
+                            "mac_rows<P>(Msh, MP, X + py, 0, ct, acc);")],
+    "no state update": [("      for (int s = 0; s < C; ++s) {\n        float bq[4]",
+                         "      for (int s = 0; s < 0; ++s) {\n        float bq[4]")],
+}
+# suite: (source, variants, the tile kernel and its layout for occupancy())
+SUITES = {"wkv6": ("rwkv6_scan", WKV6, ("wkv6_tile_kernel", "WkvTile")),
+          "ssd": ("mamba_ssd", SSD, ("ssd_tile_kernel<64, 16>", "SsdTile<16>")),
+          "ssd128": ("mamba_ssd", SSD128,
+                     ("ssd_tile_kernel<64, 128>", "SsdTile<128>"))}
 
 
-def _variant(i: int, src: str, tag: str, edits, nvcc: str) -> ctypes.CDLL:
-    """csrc/<src>.cu with `edits`, and an `occupancy()` entry, built as
-    variant number i."""
+def _variant(i: int, suite: str, tag: str, edits, nvcc: str) -> ctypes.CDLL:
+    """The suite's csrc/<src>.cu with `edits`, and an `occupancy()` entry,
+    built as variant number i."""
+    src, _, (kern, layout) = SUITES[suite]
     text = (_build.CSRC / f"{src}.cu").read_text()
     for old, new in edits:
         if text.count(old) != 1:
             raise RuntimeError(f"{src} {tag}: {old!r} is not in the source once")
         text = text.replace(old, new)
-    kern, layout = OCC[src]
     text += (f'\nextern "C" int occupancy() {{\n  int n = -1;\n'
              f'  cudaFuncSetAttribute({kern}, cudaFuncAttributeMaxDynamicSharedMemorySize, '
              f'{layout}::BYTES);\n  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, {kern}, '
@@ -180,31 +208,35 @@ def _ssd_inputs(B, H, S, g, P=64, N=16):
             -torch.linspace(1.0, 16.0, H, device=dev))
 
 
-def main() -> int:
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("scan_ablation: needs a CUDA card")
+    suites = argv or list(SUITES)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     nvcc = _build.find_nvcc()
     OUT.mkdir(parents=True, exist_ok=True)
-    jobs = [("rwkv6_scan", "base", [])] + \
-        [("rwkv6_scan", t, e) for t, e in WKV6.items()] + \
-        [("mamba_ssd", "base", [])] + [("mamba_ssd", t, e) for t, e in SSD.items()]
+    jobs = [(su, t, e) for su in suites
+            for t, e in [("base", []), *SUITES[su][1].items()]]
     with ThreadPoolExecutor(len(jobs)) as ex:
         libs = list(ex.map(lambda ij: _variant(ij[0], *ij[1], nvcc),
                            enumerate(jobs)))
-    by_src: dict = {}
-    for (src, tag, _), lib in zip(jobs, libs):
-        by_src.setdefault(src, {})[tag] = lib
+    by_suite: dict = {}
+    for (su, tag, _), lib in zip(jobs, libs):
+        by_suite.setdefault(su, {})[tag] = lib
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for src, make, inputs, shapes in (
-            ("rwkv6_scan", _wkv6_call, _wkv6_inputs,
+    for su, make, inputs, shapes in (
+            ("wkv6", _wkv6_call, _wkv6_inputs,
              (((8, 40, 128), 32), ((8, 40, 1024), 4))),
-            ("mamba_ssd", _ssd_call, _ssd_inputs,
-             (((8, 50, 128), 32), ((4, 50, 1100), 3)))):
-        variants = by_src[src]
+            ("ssd", _ssd_call, _ssd_inputs,
+             (((8, 50, 128), 32), ((4, 50, 1100), 3))),
+            ("ssd128", _ssd_call, partial(_ssd_inputs, N=128),
+             (((64, 128, 512), 2),))):
+        if su not in by_suite:
+            continue
+        variants = by_suite[su]
         for (B, H, S), layers in shapes:
             sets = [inputs(B, H, S, g) for _ in range(layers)]
             order = ["base", *[t for t in variants if t != "base"], "base"]
@@ -213,11 +245,11 @@ def main() -> int:
                 times.setdefault(tag, []).append(
                     _time_ms(make(variants[tag]), sets))
             for tag, ts in times.items():
-                row = dict(kernel=src, shape=[B, H, S], variant=tag,
+                row = dict(kernel=su, shape=[B, H, S], variant=tag,
                            ms=round(sum(ts) / len(ts), 4),
                            occ=variants[tag].occupancy())
                 rows.append(row)
-                print(f"[ablation] {src} [{B},{H},{S}] {tag}: "
+                print(f"[ablation] {su} [{B},{H},{S}] {tag}: "
                       f"{row['ms']:.4f} ms, occ {row['occ']}"
                       + (f" (first {ts[0]:.4f}, last {ts[1]:.4f})"
                          if len(ts) > 1 else ""), flush=True)
@@ -227,4 +259,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(sys.argv[1:]))

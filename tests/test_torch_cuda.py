@@ -254,8 +254,10 @@ def test_ssd_chunked_matches_plain_version(card, B, H, S):
 def test_kernels_at_granite4h_cell_shapes(card):
     """chip_smoke.py's granite4h-serve-chat cases, each launch on the route
     it names (or the wrapper's pick) against its plain version:
-    ssd_chunked at (P, N) = (64, 128) on simt over a lens-padded [64, 128,
-    512, 64] group (1e-4 against the sequential recurrence), the 36 held
+    ssd_chunked at (P, N) = (64, 128) on tile (the pick) and simt over
+    lens-padded [64, 128, 512, 64] groups, the cell's own lengths (215 and
+    63 x 1) among them, a 100-token tail and one token (1e-4 against the
+    sequential recurrence), the 36 held
     experts' GEMMs at a decode step's and a prefill group's capacity, and
     both attention kernels at 32 / 8 heads of 128 (bf16: 5e-2)."""
     import chip_smoke
@@ -286,6 +288,7 @@ def test_kernels_at_granite4h_cell_shapes(card):
     assert {n for n, _ in seen} == {"ssd_chunked", "grouped_matmul",
                                     "flash_attention_fwd",
                                     "flash_decode_paged"}, seen
+    assert {("ssd_chunked", "tile"), ("ssd_chunked", "simt")} <= seen, seen
 
 
 def _row_lens(S, B, device):
@@ -405,6 +408,56 @@ def test_ssd_routes_at_model_shapes(card, S):
     y, st = ssd_chunked(x_odd, dt, Bm, Cm, a)
     torch.cuda.synchronize()
     assert _ran("ssd_chunked") == "simt"
+    torch.testing.assert_close(y, want[0], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st, want[1], atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="route"):
+        ssd_chunked(x_odd, dt, Bm, Cm, a, route="tile")
+
+
+@pytest.mark.parametrize("S", [1, 13, 63, 64, 65, 100, 512])
+def test_ssd_routes_at_state_128(card, S):
+    """ssd_chunked at granite-4.0-h's state 128 (heads of P 64; H 5, so the
+    last pair of the tile route's 2-head blocks holds one live head), x and
+    B/C column slices of one [B, S, 5 * 64 + 256] conv output and dt a
+    transposed [B, S, H] view, as the model hands them over: the tile route
+    (the pick) and the forced simt route against the sequential recurrence
+    within 1e-4, S across the chunk edges (1, 13, 63, 64, 65, 100, 512),
+    rows lens-padded (dt = 0 past their length) to a prefix of 1, to
+    another chunk edge and to nothing (a row of length 0 ends at the zero
+    state); each padded row ends at the state of its unpadded prefix. x at
+    an odd element offset takes simt, and forcing "tile" on it raises."""
+    B, H, P, N = 4, 5, 64, 128
+    g = torch.Generator(device=card).manual_seed(1000 + S)
+    conv = 0.5 * torch.randn((B, S, H * P + 2 * N), generator=g, device=card)
+    x = conv[..., :H * P].reshape(B, S, H, P).transpose(1, 2)
+    Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    a = -torch.linspace(1.0, 16.0, H, device=card)
+    dt = torch.empty((B, S, H), device=card).uniform_(-7.0, -1.2,
+                                                      generator=g).exp_()
+    lens = [S, 1, (S - 1) // 64 * 64, 0]
+    dt = torch.where(torch.arange(S, device=card)[None, :, None] <
+                     torch.tensor(lens, device=card)[:, None, None], dt,
+                     0.0).transpose(1, 2)
+    want = tref.ssd_ref(x, dt, Bm, Cm, a)
+    assert mamba_ssd._route(x, Bm, Cm) == "tile"
+    assert torch.all(want[1][3] == 0)
+
+    shorts = {b: (x[b:b + 1, :, :n], dt[b:b + 1, :, :n], Bm[b:b + 1, :n],
+                  Cm[b:b + 1, :n]) for b, n in enumerate(lens) if 0 < n < S}
+    _check_routes("ssd_chunked",
+                  lambda route: ssd_chunked(x, dt, Bm, Cm, a, route=route),
+                  want, 1e-4,
+                  lambda sh, route: ssd_chunked(*sh, a, route=route)[1][0],
+                  shorts)
+    buf = torch.empty(1 + x.numel(), device=card)
+    x_odd = buf[1:].view(B, S, H, P)
+    x_odd.copy_(x.transpose(1, 2))
+    x_odd = x_odd.transpose(1, 2)
+    assert mamba_ssd._route(x_odd, Bm, Cm) == "simt"
+    reset_launches()
+    y, st = ssd_chunked(x_odd, dt, Bm, Cm, a)
+    torch.cuda.synchronize()
+    assert _ran("ssd_chunked") == "simt" and LAUNCHES["ssd_chunked"] == 1
     torch.testing.assert_close(y, want[0], atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(st, want[1], atol=1e-4, rtol=1e-4)
     with pytest.raises(ValueError, match="route"):

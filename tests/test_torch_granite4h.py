@@ -209,13 +209,13 @@ def test_admission_resets_a_slots_state():
     assert {"ssd_prefill", "ssd_state_update"} <= names
 
 
-@pytest.mark.parametrize("N,route", [(128, "simt"), (16, "tile")])
+@pytest.mark.parametrize("N,route", [(128, "tile"), (16, "tile")])
 def test_ssd_chunked_takes_state_128_on_the_cpu(N, route):
     """The wrapper takes (P, N) = (64, 128) and runs ssd_ref on the CPU
     (the kernel has no CPU build: tests/test_torch_cuda.py and
-    chip_smoke.py hold it at the cell's shapes on the card, where its
-    route at state 128 is simt, the tile route's shared memory not fitting
-    a block). Its output, y and the final state, equals SSD's quadratic
+    chip_smoke.py hold it at the cell's shapes on the card, where the
+    model's views take the tile route at state 128 as at 16, with a tiling
+    of its own: one row, 2 heads and all 64 state columns a block). Its output, y and the final state, equals SSD's quadratic
     form, computed here apart from the sequential scan: y_t = sum_{s <= t}
     exp(sum_{s < r <= t} dt_r a) (C_t . B_s) dt_s x_s, a row's tail past
     its length (dt = 0) leaving its state where it was."""

@@ -225,6 +225,15 @@ def _ssd_operands(case):
         return _offset((2, 13, 4, 64), F32).transpose(1, 2), Bm, Cm
     if case == "row stride off the grid":
         return model(2, 13, 4, extra=1)
+    if case == "granite4h group [64, 128, 512, 64], N 128":
+        return model(64, 512, 128, N=128)
+    if case == "N 128, S 1":
+        return model(2, 1, 128, N=128)
+    if case == "N 128, odd offset of x":
+        x, Bm, Cm = model(2, 13, 4, N=128)
+        return _offset((2, 13, 4, 64), F32).transpose(1, 2), Bm, Cm
+    if case == "N 128, row stride off the grid":
+        return model(2, 13, 4, N=128, extra=1)
     raise KeyError(case)
 
 
@@ -233,6 +242,9 @@ def _ssd_operands(case):
     ("S 1", "tile"), ("prime S 13", "tile"),
     ("bf16 path: x copied, B_ / C_ copied", "tile"),
     ("odd offset of x", "simt"), ("row stride off the grid", "simt"),
+    ("granite4h group [64, 128, 512, 64], N 128", "tile"),
+    ("N 128, S 1", "tile"), ("N 128, odd offset of x", "simt"),
+    ("N 128, row stride off the grid", "simt"),
 ])
 def test_ssd_route(case, want):
     assert mamba_ssd._route(*_ssd_operands(case)) == want
